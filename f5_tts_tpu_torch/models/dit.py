@@ -1,0 +1,221 @@
+"""DiT backbone: AdaLN-zero diffusion transformer over mel frames.
+
+JAX counterpart: ``f5_tts_tpu/models/dit.py``.  ``DiT`` holds the reference's
+module tree (``time_embed``, ``text_embed``, ``input_embed``,
+``transformer_blocks``, ``norm_out``, ``proj_out``); the functions below
+mirror the JAX ones: ``text_embedding`` (ids + 1 with filler 0, pad mask
+taken before ``drop_text``, abs-pos masked by the valid length, optional
+average upsampling), ``input_embedding``, ``precompute_adaln``, ``forward``
+and the fused-CFG ``forward_cfg`` (cond and uncond packed as one 2B batch).
+``fuse_for_inference`` is the serving qkv fusion.  No activation
+checkpointing: that comes with training.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from f5_tts_tpu_torch.models import layers as L
+from f5_tts_tpu_torch.models.configs import DiTConfig
+from f5_tts_tpu_torch.ops.rope import abs_pos_table, rotary_freqs
+
+
+class TextEmbedding(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.text_embed = nn.Embedding(cfg.text_num_embeds + 1, cfg.text_dim)
+        self.text_blocks = nn.Sequential(*[
+            L.ConvNeXtV2Block(cfg.text_dim, cfg.text_dim * cfg.conv_mult)
+            for _ in range(cfg.conv_layers)
+        ])
+
+
+class InputEmbedding(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.proj = nn.Linear(cfg.mel_dim * 2 + cfg.text_dim, cfg.dim)
+        self.conv_pos_embed = L.ConvPositionEmbedding(cfg.dim)
+
+
+class DiT(nn.Module):
+    """Reference backbones/dit.py:170-370, zero-initialized AdaLN gates and
+    output projection as the reference initializes them."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.time_embed = L.TimestepEmbedding(cfg.dim)
+        self.text_embed = TextEmbedding(cfg)
+        self.input_embed = InputEmbedding(cfg)
+        self.transformer_blocks = nn.ModuleList([
+            L.DiTBlock(cfg.dim, cfg.heads, cfg.dim_head, ff_mult=cfg.ff_mult, qk_norm=cfg.qk_norm)
+            for _ in range(cfg.depth)
+        ])
+        if cfg.long_skip_connection:
+            self.long_skip_connection = nn.Linear(cfg.dim * 2, cfg.dim, bias=False)
+        self.norm_out = L.AdaLayerNormFinal(cfg.dim)
+        self.proj_out = nn.Linear(cfg.dim, cfg.mel_dim)
+        with torch.no_grad():
+            for blk in self.transformer_blocks:
+                blk.attn_norm.linear.weight.zero_()
+                blk.attn_norm.linear.bias.zero_()
+            for lin in (self.norm_out.linear, self.proj_out):
+                lin.weight.zero_()
+                lin.bias.zero_()
+
+
+def randomize_zero_init(model: DiT, generator: torch.Generator) -> None:
+    """Give the zero-initialized AdaLN gates, final norm and ``proj_out``
+    uniform torch-default-scale weights.  With the gates at zero every block
+    is the identity and the output is zero, which makes a comparison of two
+    implementations vacuous."""
+    lins = [blk.attn_norm.linear for blk in model.transformer_blocks]
+    lins += [model.norm_out.linear, model.proj_out]
+    with torch.no_grad():
+        for lin in lins:
+            bound = lin.in_features ** -0.5
+            for t in (lin.weight, lin.bias):
+                r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+                t.copy_((r * 2 - 1) * bound)
+
+
+def _avg_upsample(emb, text_lens, audio_lens, seq_len):
+    """ZipVoice-style average upsampling (reference dit.py:55-84): token j of
+    a row repeats base (+1 for the last ``rem`` tokens) times over its
+    audio length."""
+    p = torch.arange(seq_len, device=emb.device)[None, :]
+    tl = text_lens.clamp(min=1)[:, None]
+    al = audio_lens[:, None]
+    base = al // tl
+    rem = al % tl
+    cut = (tl - rem) * base
+    idx = torch.where(p < cut, p // base.clamp(min=1), (tl - rem) + (p - cut) // (base + 1))
+    idx = torch.minimum(idx.clamp(min=0), tl - 1)
+    out = torch.gather(emb, 1, idx[..., None].expand(-1, -1, emb.shape[-1]))
+    keep = (p < al) & (text_lens > 0)[:, None]
+    return torch.where(keep[..., None], out, torch.zeros_like(out))
+
+
+@functools.lru_cache(maxsize=32)
+def _table(kind: str, max_len: int, dim: int, device: torch.device) -> torch.Tensor:
+    fn = rotary_freqs if kind == "rope" else abs_pos_table
+    return torch.as_tensor(fn(max_len, dim), device=device)
+
+
+def text_embedding(model: DiT, cfg: DiTConfig, text_ids: torch.Tensor, seq_len: int,
+                   lens: torch.Tensor | None = None, drop_text: bool = False) -> torch.Tensor:
+    """TextEmbedding forward (reference dit.py:86-139) -> [b, seq_len, text_dim].
+    ``text_ids`` [b, nt] are -1 padded."""
+    te = model.text_embed
+    ids = text_ids.long() + 1  # 0 becomes the filler token
+    nt = ids.shape[1]
+    ids = ids[:, :seq_len] if nt >= seq_len else F.pad(ids, (0, seq_len - nt))
+    valid = None
+    if lens is not None:
+        valid = torch.arange(seq_len, device=ids.device)[None, :] < lens[:, None]
+        ids = torch.where(valid, ids, torch.zeros_like(ids))
+    # pad mask taken BEFORE drop_text: the uncond stream keeps the cond
+    # stream's padding geometry (reference dit.py:103-107)
+    pad_mask = ids == 0
+    if drop_text:
+        ids = torch.zeros_like(ids)
+    emb = L.embedding(te.text_embed, ids)
+    if valid is not None:
+        emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+    if cfg.conv_layers > 0:
+        freqs = _table("abs", cfg.max_pos, cfg.text_dim, emb.device)[:seq_len].to(emb.dtype)
+        if valid is not None:
+            freqs = freqs[None] * valid[..., None].to(emb.dtype)
+        emb = emb + freqs
+        if cfg.text_mask_padding:
+            keep = (~pad_mask)[..., None].to(emb.dtype)
+            emb = emb * keep
+            for blk in te.text_blocks:
+                emb = L.convnext_v2(blk, emb) * keep
+        else:
+            for blk in te.text_blocks:
+                emb = L.convnext_v2(blk, emb)
+    if cfg.text_embedding_average_upsampling:
+        text_lens = (~pad_mask).sum(dim=1)
+        target = lens if lens is not None else torch.full_like(text_lens, seq_len)
+        emb = _avg_upsample(emb, text_lens, target, seq_len)
+    return emb
+
+
+def input_embedding(model: DiT, x, cond, text_emb, drop_audio_cond=False, mask=None):
+    """InputEmbedding (reference dit.py:145-164)."""
+    ie = model.input_embed
+    if drop_audio_cond:
+        cond = torch.zeros_like(cond)
+    h = L.linear(ie.proj, torch.cat([x, cond, text_emb], dim=-1))
+    return L.conv_pos_embed(ie.conv_pos_embed, h, mask=mask) + h
+
+
+def precompute_adaln(model: DiT, cfg: DiTConfig, times: torch.Tensor, dtype=torch.float32):
+    """AdaLN modulations for a known timestep schedule ``times`` [S]:
+    (block_mods [S, depth, 6 dim], final_mods [S, 2 dim])."""
+    t_emb = L.timestep_embed(model.time_embed, times.to(dtype), dtype=dtype)
+    h = F.silu(t_emb)
+    mods = torch.stack([
+        F.linear(h, blk.attn_norm.linear.weight.to(dtype), blk.attn_norm.linear.bias.to(dtype))
+        for blk in model.transformer_blocks
+    ], dim=1)
+    return mods, L.linear(model.norm_out.linear, h)
+
+
+def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
+            drop_audio_cond: bool = False, backend: str = "auto", adaln_mods=None):
+    """DiT forward with the text embedding precomputed -> flow [b, n, mel_dim].
+
+    ``adaln_mods``: optional (block_mods [depth, 6 dim], final_mod [2 dim])
+    from ``precompute_adaln`` for one shared timestep; ``time`` is then unused.
+    """
+    b, n, _ = x.shape
+    if adaln_mods is None:
+        if time.ndim == 0:
+            time = time.expand(b)
+        t_emb = L.timestep_embed(model.time_embed, time, dtype=x.dtype)
+    else:
+        t_emb = None
+    h = input_embedding(model, x, cond, text_emb, drop_audio_cond=drop_audio_cond, mask=mask)
+    rope = _table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
+    residual = h if cfg.long_skip_connection else None
+    for i, blk in enumerate(model.transformer_blocks):
+        mod = None if adaln_mods is None else adaln_mods[0][i].to(h.dtype)
+        h = L.dit_block(blk, h, t_emb, cfg.heads, mask=mask, rope_freqs=rope,
+                        pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod)
+    if residual is not None:
+        h = L.linear(model.long_skip_connection, torch.cat([h, residual], dim=-1))
+    if adaln_mods is not None:
+        h = L.adaln_final_from_mod(adaln_mods[1].to(h.dtype), h)
+    else:
+        h = L.adaln_final(model.norm_out, h, t_emb)
+    return L.linear(model.proj_out, h)
+
+
+def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_emb_uncond, time,
+                mask=None, backend: str = "auto", adaln_mods=None):
+    """Fused classifier-free guidance: cond and uncond rows as one 2B batch
+    (reference cfg_infer, dit.py:337-346).  Returns (pred, null_pred)."""
+    b = x.shape[0]
+    x2 = torch.cat([x, x], dim=0)
+    cond2 = torch.cat([step_cond, torch.zeros_like(step_cond)], dim=0)
+    te2 = torch.cat([text_emb_cond, text_emb_uncond], dim=0)
+    if time.ndim == 0:
+        time = time.expand(b)
+    t2 = torch.cat([time, time], dim=0)
+    mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
+    out = forward(model, cfg, x2, cond2, te2, t2, mask=mask2, backend=backend,
+                  adaln_mods=adaln_mods)
+    return out[:b], out[b:]
+
+
+def fuse_for_inference(model: DiT) -> DiT:
+    """Serving transform: fuse every block's q/k/v projections into one
+    matmul (JAX ``fuse_for_inference``).  The state dict is unchanged."""
+    for blk in model.transformer_blocks:
+        blk.attn.fuse_qkv()
+    return model
