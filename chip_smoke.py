@@ -19,7 +19,21 @@ Run from the repository root:  python3 chip_smoke.py
    chunked into a batch of rows, and a streamed one; checks the wavs and
    that every attention and ConvPositionEmbedding call of the run went
    through the kernels.
-6. Prints the kernels' JSON line, then the result line.
+6. Kernels C, D, E (flash attention forward with logsumexp, dq, dk/dv)
+   against their plain versions at [2, 16, n, 64] bf16, n in {256, 1000,
+   1024, 4096}, ragged lens and a row with no valid key; checks the zero
+   gradients of that row and of the key tiles past lens; times kernel,
+   plain version, bound and the ``scaled_dot_product_attention`` forward
+   (C) and backward (D + E); and again at the training shape
+   [37, 16, 1024, 64].
+7. Full-width gradient check: one F5TTS_v1_Base ``cfm.loss`` + backward in
+   fp32 at b=2, n=256 with injected draws, on the card through kernels
+   B, C, D, E against the CPU through the plain versions.
+8. Training: ``Trainer(F5TTS_v1_Base, device="cuda")`` in mixed precision on
+   a seeded synthetic mel dataset at 38,400 frames per update; checks the
+   log, the EMA rule, the checkpoints and the launch counts; then ~8
+   updates on one fixed batch, whose loss must fall.
+9. Prints the kernels' JSON line, then the result line.
 
 Any failed phase exits non-zero without the result line.  Weights are
 random, made from fixed seeds.
@@ -48,6 +62,16 @@ NFE = 32
 # output for convpos); the plain versions compute in fp32 on the same values
 FLASH_TOL = (2e-2, 2e-3)  # (max abs, mean abs), as tests/test_flash_attention.py
 CONVPOS_TOL = (2e-2, 2e-3)
+# training kernels vs plain: o as FLASH_TOL; L (natural log) max abs, from
+# log2-domain scores of bf16-rounded q and k; the gradients, which also
+# round do, p and ds to bf16, relative to the largest reference value
+LSE_TOL = 1e-2
+GRAD_TOL = (2e-2, 4e-3)
+# full-width loss + gradient, card vs CPU, fp32 except the attention kernels'
+# bf16 operands: relative loss error and relative L2 error of the gradient
+FULL_GRAD_REL_TOL = 1e-2
+TRAIN_FRAMES = 38_400  # configs/F5TTS_v1_Base.yaml batch_size_per_gpu
+TRAIN_B = TRAIN_FRAMES // 1024  # rows of a 1024-frame batch at that budget
 # full-width fp32 forward, card vs CPU: max abs error over the output's peak.
 # Kernel B runs fp32 there; kernel A still rounds q, k, v, p to bf16 (2^-9
 # relative), which the gated residual stream carries to the output damped
@@ -320,6 +344,379 @@ def phase_e2e(torch):
     return a, c
 
 
+
+def _rel_err(got, want):
+    scale = want.abs().max().clamp(min=1e-12)
+    err = (got.float() - want).abs() / scale
+    return err.max().item(), err.mean().item()
+
+
+def _time_train_kernels(torch, FA, q, k, v, do, lens, iters):
+    """ms of C, D, E, of their plain versions and of SDPA fwd / bwd."""
+    o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    t = {"C": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens), iters),
+         "D": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens),
+                       iters),
+         "E": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens),
+                       iters)}
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    t["C_plain"] = timed_ms(torch, lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens), 3)
+    t["DE_plain"] = timed_ms(torch, lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
+                                                                         lens), 3)
+    n = q.shape[2]
+    keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    t["C_lib"] = timed_ms(torch, lambda: sdpa(q, k, v, attn_mask=keep), iters)
+    fwd_g = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep), iters)
+    both = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep).backward(do), iters)
+    t["DE_lib"] = both - fwd_g  # the SDPA backward alone
+    return t
+
+
+def _train_bounds(b, h, n, dh, kvs):
+    """(bound_ms, bound_by) of C, D, E for the valid key counts ``kvs``."""
+    flops = {name: sum(c * h * n * kv * dh for kv in kvs) for name, c in
+             (("C", 4.0), ("D", 6.0), ("E", 8.0))}
+    t16, t32 = b * h * n * dh * 2.0, b * h * n * 4.0
+    nbytes = {"C": 4 * t16 + t32, "D": 5 * t16 + 2 * t32, "E": 6 * t16 + 2 * t32}
+    return {name: bound_ms(flops[name], nbytes[name] + 4 * b, PEAK_BF16) for name in flops}
+
+
+def phase_flash_train(torch):
+    """Kernels C, D, E against their plain versions, zero-gradient rules, times."""
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, dh = 16, 64
+    rows, worst = [], {"C": 0.0, "D": 0.0, "E": 0.0}
+    for b, n in ((2, 256), (2, 1000), (2, 1024), (2, 4096), (TRAIN_B, 1024)):
+        q, k, v, do = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        if b == 2:
+            cases = [[n, n - 37]] + ([[0, n - 37]] if n == 1000 else [])
+        else:  # the training shape: ragged rows as a 1024-frame bucket holds them
+            cases = [[n - (37 * i) % 256 for i in range(b)]]
+        for lens_l in cases:
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
+            D = (do.float() * o.float()).sum(-1).contiguous()
+            dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens)
+            dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens)
+            torch.cuda.synchronize()
+            qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+            o_ref, L_ref = FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens)
+            ref = FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D, lens)
+            err = (o.float() - o_ref).abs()
+            o_max, o_mean = err.max().item(), err.mean().item()
+            l_max = (L - L_ref).abs().max().item()
+            errs = [_rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+            del ref, o_ref
+            tag = f"flash train b={b} n={n} lens={lens_l if b == 2 else 'ragged'}"
+            print(f"{tag}: o max {o_max:.3e} mean {o_mean:.3e} (tol {FLASH_TOL}); L max "
+                  f"{l_max:.3e} (tol {LSE_TOL}); dq/dk/dv rel max/mean "
+                  + " ".join(f"{a:.3e}/{m:.3e}" for a, m in errs) + f" (tol {GRAD_TOL})",
+                  flush=True)
+            if not (o_max <= FLASH_TOL[0] and o_mean <= FLASH_TOL[1] and l_max <= LSE_TOL):
+                fail(f"{tag}: kernel C disagrees with its plain version")
+            for name, (a, m) in zip(("dq", "dk", "dv"), errs):
+                if not (a <= GRAD_TOL[0] and m <= GRAD_TOL[1]):
+                    fail(f"{tag}: {name} disagrees with the plain backward ({a}, {m})")
+            for i, ln in enumerate(lens_l):
+                if torch.count_nonzero(dk[i, :, ln:]) or torch.count_nonzero(dv[i, :, ln:]):
+                    fail(f"{tag}: keys past lens must get dk = dv = 0 exactly")
+                if ln == 0 and (o[i].abs().max().item() or dq[i].abs().max().item()
+                                or (L[i] != FA.NO_KEY_LSE).any().item()):
+                    fail(f"{tag}: a row with no valid key must give o = 0, L = -1e30 and "
+                         "zero gradients")
+            worst["C"] = max(worst["C"], o_max)
+            worst["D"] = max(worst["D"], errs[0][0])
+            worst["E"] = max(worst["E"], errs[1][0], errs[2][0])
+        lens = torch.tensor(cases[0], dtype=torch.int32, device="cuda")
+        t = _time_train_kernels(torch, FA, q, k, v, do, lens, 20 if n * b <= 4096 else 5)
+        bounds = _train_bounds(b, h, n, dh, cases[0])
+        row = dict(b=b, n=n, **t, bounds=bounds)
+        rows.append(row)
+        print(f"flash train b={b} n={n}: C {t['C']:.4f} ms (plain {t['C_plain']:.4f}, sdpa fwd "
+              f"{t['C_lib']:.4f}, bound {bounds['C'][0]:.4f} {bounds['C'][1]}); D {t['D']:.4f} ms "
+              f"(bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (bound {bounds['E'][0]:.4f}); "
+              f"plain bwd {t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms", flush=True)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _fresh_cfm(torch, arch, seed: int):
+    from f5_tts_tpu_torch.models.cfm import CFM
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return CFM(arch)
+
+
+def phase_grad_check(torch):
+    """F5TTS_v1_Base loss + backward in fp32: card (kernels) vs CPU (plain)."""
+    import copy
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+    from f5_tts_tpu_torch.models.dit import randomize_zero_init
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+
+    arch = MODEL_CONFIGS["F5TTS_v1_Base"].arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _fresh_cfm(torch, arch, 10)
+    randomize_zero_init(model.transformer, torch.Generator().manual_seed(11))
+    rng = np.random.default_rng(12)
+    b, n, lens_l = 2, 256, [256, 201]
+    mel = torch.from_numpy(rng.standard_normal((b, n, arch.mel_dim)).astype(np.float32))
+    text = rng.integers(0, arch.text_num_embeds, (b, 90)).astype(np.int32)
+    text[1, 70:] = -1
+    lens = torch.tensor(lens_l, dtype=torch.int32)
+    span = np.zeros((b, n), bool)
+    span[0, 40:220] = True
+    span[1, 10:160] = True
+    inject = {"x0": torch.from_numpy(rng.standard_normal((b, n, arch.mel_dim)).astype(np.float32)),
+              "time": torch.tensor([0.3, 0.8]), "span_mask": torch.from_numpy(span),
+              "drop_audio": False, "drop_both": False}
+
+    def run(m, dev):
+        inj = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in inject.items()}
+        loss = m(mel.to(dev), torch.from_numpy(text).to(dev), lens.to(dev), inject=inj,
+                 backend="train_auto")
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()}
+
+    card = copy.deepcopy(model).cuda()
+    FA.KERNEL.launches = FA.KERNEL_STATS.launches = FA.KERNEL_DQ.launches = 0
+    FA.KERNEL_DKV.launches = FC.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    loss_card, g_card = run(card, "cuda")
+    t_card = time.perf_counter() - t0
+    counts = (FA.KERNEL_STATS.launches, FA.KERNEL_DQ.launches, FA.KERNEL_DKV.launches,
+              FC.KERNEL.launches, FA.KERNEL.launches)
+    del card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = run(model, "cpu")
+    t_cpu = time.perf_counter() - t0
+    names = list(g_cpu)
+    gc = torch.cat([g_card[k].flatten() for k in names])
+    gr = torch.cat([g_cpu[k].flatten() for k in names])
+    rel_g = ((gc - gr).norm() / gr.norm()).item()
+    rel_l = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    per = {k: ((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp(min=1e-30)).item()
+           for k in names}
+    worst = max(per, key=per.get)
+    print(f"full-width loss+grad fp32 b={b} n={n}: loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"rel {rel_l:.3e}; gradient rel L2 {rel_g:.3e} over {gr.numel()} values "
+          f"(tol {FULL_GRAD_REL_TOL}); worst tensor {worst} rel {per[worst]:.3e}; launches "
+          f"C/D/E/B/A {counts} (card {t_card:.2f} s, cpu {t_cpu:.2f} s)", flush=True)
+    if counts != (arch.depth, arch.depth, arch.depth, 1, 0):
+        fail(f"gradient check launches C/D/E/B/A {counts}, want {arch.depth} x 3, 1, 0")
+    if not (rel_l <= FULL_GRAD_REL_TOL and rel_g <= FULL_GRAD_REL_TOL) or not torch.isfinite(gc).all():
+        fail("full-width loss or gradient: card and CPU disagree")
+    return dict(loss_rel=rel_l, grad_rel=rel_g, worst=worst, worst_rel=per[worst])
+
+
+def _synthetic_dataset(np, vocab, n_rows: int, seed: int):
+    """Seeded mel rows of 3-15 s with texts drawn from the vocab's characters."""
+    from f5_tts_tpu_torch.train.dataset import CustomDataset
+
+    rng = np.random.default_rng(seed)
+    chars = sorted(c for c in vocab if len(c) == 1 and c.isalpha() and c.isascii())
+    rows = []
+    for dur in rng.uniform(3.0, 15.0, n_rows):
+        frames = int(dur * 24_000 / 256)
+        mel = (rng.standard_normal((frames, 100)) * 2.0 - 5.0).astype(np.float32)
+        words = ["".join(rng.choice(chars, int(rng.integers(2, 8)))) for _ in range(int(dur * 2.5))]
+        rows.append({"mel_spec": mel, "text": " ".join(words), "duration": frames * 256 / 24_000})
+    return CustomDataset(rows, preprocessed_mel=True)
+
+
+def _profile_update(torch, fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    the shares of kernels C+D+E and B, and the device busy share of wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"C": ("flash_fwd_kernel",), "D": ("flash_bwd_dq_kernel",),
+              "E": ("flash_bwd_dkv_kernel",), "B": ("convpos_fwd_kernel",),
+              "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
+    ms = dict.fromkeys(groups, 0.0)
+    total = 0.0
+    kernels = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        if ev.device_type.name != "CUDA" or t <= 0:
+            continue
+        total += t
+        kernels.append((t, ev.count, ev.key))
+        for g, pats in groups.items():
+            if any(pat in ev.key.lower() for pat in pats):
+                ms[g] += t
+    out = {"wall_ms": wall_ms, "device_ms": total,
+           "busy_share": total / wall_ms if wall_ms else None, **{f"{g}_ms": v for g, v in ms.items()}}
+    if total:
+        out["CDE_share"] = (ms["C"] + ms["D"] + ms["E"]) / total
+    print("profile of one fixed-batch update: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items() if v is not None), flush=True)
+    for t, count, key in sorted(kernels, reverse=True)[:12]:
+        print(f"  {t:9.3f} ms {count:6d}x {key[:110]}", flush=True)
+    return out
+
+
+def phase_train(torch):
+    """Trainer at full width on the card; then ~8 updates on one fixed batch."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.cfm import CFM
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+    from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.dataset import DynamicBatchSampler, collate_batch
+    from f5_tts_tpu_torch.train.trainer import Trainer
+    from f5_tts_tpu_torch.utils.ckpt import load_dit_state, load_torch_state
+
+    vocab, vocab_size = get_tokenizer(None, "pinyin")
+    cfg = with_vocab_size(MODEL_CONFIGS["F5TTS_v1_Base"], vocab_size)
+    depth = cfg.arch.depth
+    ds = _synthetic_dataset(np, vocab, 320, seed=20)
+    opt = S.OptimConfig(mixed_precision=True, num_warmup_updates=1, ema_update_after_step=1,
+                        ema_update_every=1, ema_decay=0.99)
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)  # git-ignored scratch
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(REPO, ".cache"))
+    try:
+        trainer = Trainer(cfg, vocab, opt, ckpt_dir=workdir, batch_size_per_device=TRAIN_FRAMES,
+                          max_samples=64, save_per_updates=3, last_per_updates=10**9,
+                          keep_last_n_checkpoints=1, log_every_updates=1, device="cuda", seed=21)
+        model = _fresh_cfm(torch, cfg.arch, 22)
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        probe = "transformer.proj_out.bias"  # a tensor the EMA rule is checked on
+        snaps = []
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        hook = register_optimizer_step_post_hook(
+            lambda o, a, kw: snaps.append(dict(model.named_parameters())[probe].detach().clone()))
+        FA.KERNEL.launches = FA.KERNEL_STATS.launches = FA.KERNEL_DQ.launches = 0
+        FA.KERNEL_DKV.launches = FC.KERNEL.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, ema, update = trainer.train(model, ds, epochs=1, resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hook.remove()
+        counts = (FA.KERNEL_STATS.launches, FA.KERNEL_DQ.launches, FA.KERNEL_DKV.launches,
+                  FC.KERNEL.launches, FA.KERNEL.launches)
+        log = [_json.loads(x) for x in open(os.path.join(workdir, "train_log.jsonl"))]
+        micro = log[-1]["micro_step"]
+        for rec in log:
+            print(f"train update {rec['update']}: {rec['step_time_s']:.3f} s wall, "
+                  f"{rec['valid_frames']} frames ({rec['frames']} padded), "
+                  f"{rec['valid_frames'] / rec['step_time_s']:.0f} frames/s, "
+                  f"loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f}, max_memory_allocated "
+                  f"{rec['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        print(f"train: {update} updates ({micro} micro-steps) in {wall:.1f} s with 2 checkpoint "
+              f"writes; launches C/D/E/B/A {counts}", flush=True)
+        if update < 3 or len(log) != update:
+            fail(f"training ran {update} updates, logged {len(log)}; want >= 3, each logged")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in log):
+            fail("training log holds a non-finite loss or grad_norm")
+        if counts != (depth * micro, depth * micro, depth * micro, micro, 0):
+            fail(f"training launches C/D/E/B/A {counts}, want {depth} x {micro} x 3, {micro}, 0")
+        moved = sum(int(not torch.equal(start[k], p.detach().cpu()))
+                    for k, p in model.named_parameters())
+        if moved != len(start):
+            fail(f"only {moved} of {len(start)} parameter tensors moved")
+        want = None
+        for u, snap in enumerate(snaps, start=1):  # ema_update_every=1: every update
+            want = snap if u <= opt.ema_update_after_step else \
+                want * opt.ema_decay + snap * (1 - opt.ema_decay)
+        ema_err = (dict(ema.named_parameters())[probe] - want).abs().max().item()
+        print(f"train: EMA of {probe} vs the rule over {len(snaps)} updates: max abs {ema_err:.3e}",
+              flush=True)
+        if len(snaps) != update or ema_err > 1e-6:
+            fail("the EMA did not follow its rule")
+        files = sorted(os.listdir(workdir))  # save_per_updates=3, keep_last_n_checkpoints=1
+        if files != sorted([f"model_{update - update % 3}.pt", "model_last.pt",
+                            "train_log.jsonl"]):
+            fail(f"checkpoints after {update} updates: {files}")
+        for use_ema, src in ((True, ema), (False, model)):
+            fresh = CFM(cfg.arch)
+            load_dit_state(fresh, load_torch_state(os.path.join(workdir, "model_last.pt"),
+                                                   use_ema=use_ema))
+            ref = src.state_dict()
+            bad = [k for k, v in fresh.state_dict().items() if not torch.equal(v, ref[k].cpu())]
+            if bad:
+                fail(f"model_last.pt (ema={use_ema}) does not read back: {bad[:3]}")
+        print(f"train: {files} read back through load_torch_state (EMA and raw)", flush=True)
+        steps = [r for r in log if r["update"] > 1]  # update 1 pays one-time setup
+        step_s = sum(r["step_time_s"] for r in steps) / len(steps)
+        result = dict(update_s=step_s, frames_per_s=sum(r["valid_frames"] for r in steps)
+                      / sum(r["step_time_s"] for r in steps),
+                      peak_gib=log[-1]["max_memory_allocated"] / 2**30, updates=update,
+                      launches=dict(zip("CDE", counts)))
+        del trainer, ema, start, snaps
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # one fixed batch, fixed draws: the loss must fall
+    sampler = DynamicBatchSampler(ds, TRAIN_FRAMES, max_samples=64, random_seed=21)
+    batch = collate_batch([ds[i] for i in next(iter(sampler))], vocab, cfg.tokenizer)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    b, n, d = batch["mel"].shape
+    g = torch.Generator(device="cuda").manual_seed(23)
+    from f5_tts_tpu_torch.models.cfm import mask_from_frac_lengths
+
+    inject = {"x0": torch.randn((b, n, d), generator=g, device="cuda"),
+              "time": torch.rand((b,), generator=g, device="cuda"),
+              "span_mask": mask_from_frac_lengths(batch["lens"], n, g),
+              "drop_audio": False, "drop_both": False}
+    fixed = S.OptimConfig(mixed_precision=True, num_warmup_updates=1, learning_rate=3e-4)
+    optim = S.make_optimizer(list(model.parameters()), fixed)
+    params = dict(model.named_parameters())
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        low = {k: p.to(torch.bfloat16) for k, p in params.items()}
+        loss = torch.func.functional_call(
+            model, low, (batch["mel"].to(torch.bfloat16), batch["text_ids"], batch["lens"]),
+            {"inject": inject})
+        optim.step(torch.autograd.grad(loss, list(params.values())))
+        losses.append(loss.item())
+    fixed_s = (time.perf_counter() - t0) / 8
+    print(f"fixed batch [{b}, {n}]: losses {[round(x, 5) for x in losses]} ({fixed_s:.3f} s "
+          "per update)", flush=True)
+    if not losses[-1] < losses[0]:
+        fail("the loss on a fixed batch did not fall")
+    result.update(fixed_first=losses[0], fixed_last=losses[-1])
+
+    def one_update():
+        low = {k: p.to(torch.bfloat16) for k, p in params.items()}
+        loss = torch.func.functional_call(
+            model, low, (batch["mel"].to(torch.bfloat16), batch["text_ids"], batch["lens"]),
+            {"inject": inject})
+        optim.step(torch.autograd.grad(loss, list(params.values())))
+        torch.cuda.synchronize()
+
+    result["profile"] = _profile_update(torch, one_update)
+    del model, optim, params
+    torch.cuda.empty_cache()
+    return result
+
 def main() -> int:
     import torch
 
@@ -351,6 +748,10 @@ def main() -> int:
     if rel > FULL_WIDTH_REL_TOL:
         fail(f"full-width forward rel err {rel} > {FULL_WIDTH_REL_TOL}")
     launches_a, launches_b = phase_e2e(torch)
+    train_rows, train_err = phase_flash_train(torch)
+    grad = phase_grad_check(torch)
+    train = phase_train(torch)  # sets the counts to 0 just before its Trainer run
+    print(f"summary: grad check {grad}; training {train}", flush=True)
 
     def entry(name, source, replaces, launches, err, rows):
         r = next(r for r in rows if r["n"] == 1024)  # the 1024-frame bucket
@@ -359,11 +760,29 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape_n": 1024}
 
+    def train_entry(name, key, plain, lib, replaces, launches, source):
+        r = next(r for r in train_rows if r["n"] == 1024 and r["b"] == 2)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": train_err[key], "ms": r[key],
+                "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
+                "bound_by": r["bounds"][key][1], "library_ms": r[lib], "shape_n": 1024,
+                "err_kind": "abs" if key == "C" else "relative to max |reference|",
+                "plain_covers": "dq+dk+dv" if key != "C" else "o+L",
+                "library_covers": "sdpa forward" if key == "C" else "sdpa backward (dq+dk+dv)"}
+
+    fa = "f5_tts_tpu_torch/csrc/flash_attention.cu"
+    fab = "f5_tts_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
-        entry("flash_attention_fwd", "f5_tts_tpu_torch/csrc/flash_attention.cu",
-              "f5_tts_tpu/ops/flash_attention.py:150", launches_a, flash_err, flash_rows),
+        entry("flash_attention_fwd", fa, "f5_tts_tpu/ops/flash_attention.py:150", launches_a,
+              flash_err, flash_rows),
         entry("fused_convpos_fwd", "f5_tts_tpu_torch/csrc/fused_convpos.cu",
               "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows),
+        train_entry("flash_attention_fwd_stats", "C", "C_plain", "C_lib",
+                    "f5_tts_tpu/ops/flash_attention.py:45", train["launches"]["C"], fa),
+        train_entry("flash_attention_bwd_dq", "D", "DE_plain", "DE_lib",
+                    "f5_tts_tpu/ops/flash_attention.py:81", train["launches"]["D"], fab),
+        train_entry("flash_attention_bwd_dkv", "E", "DE_plain", "DE_lib",
+                    "f5_tts_tpu/ops/flash_attention.py:112", train["launches"]["E"], fab),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

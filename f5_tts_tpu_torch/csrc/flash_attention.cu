@@ -1,9 +1,16 @@
-// Masked flash attention, forward only, for Hopper (sm_90a).
+// Masked flash attention, forward, for Hopper (sm_90a): kernels A and C.
 //
-// Replaces the Pallas TPU kernel f5_tts_tpu/ops/flash_attention.py::_kernel
-// (called through _flash / flash_attention).  Computes, per (batch, head),
+// Kernel A replaces the Pallas TPU kernel f5_tts_tpu/ops/flash_attention.py::
+// _kernel (called through _flash / flash_attention).  Computes, per (batch,
+// head),
 //   o = softmax(q k^T / sqrt(dh), keys restricted to [0, lens[b])) v
 // over q, k, v [b, h, n, 64]; a query row with no valid key gives 0.
+//
+// Kernel C (the same template with WITH_LSE) replaces _kernel_fwd_stats
+// (called through _flash_fwd_stats), the forward of the training VJP: it
+// also writes the natural-log logsumexp L_i = ln sum_{j valid} exp(s_ij)
+// as fp32 [b, h, n], and L = -1e30 for a row with no valid key.  The
+// backward kernels (flash_attention_bwd.cu) recompute p from it.
 //
 // Design.  One block of 4 warps per (b*h, tile of 64 query rows); each warp
 // owns 16 rows.  The block loops over key tiles of 64 staged in shared
@@ -20,7 +27,8 @@
 // against 4*n*dh*2 bytes moved, i.e. ~n/2 flops per byte: compute-bound for
 // n above ~600 at the bf16 tensor-core rate.  This first version issues
 // mma.sync from registers with no TMA / wgmma pipelining, so it reaches a
-// fraction of that rate; the wgmma + TMA version is later work.
+// fraction of that rate; the wgmma + TMA version is later work.  Kernel C
+// adds n*4 bytes of L and no products, so the same bound holds for it.
 
 #include "common.cuh"
 
@@ -31,29 +39,14 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per shared-memory tile
 constexpr int NTHREADS = 128; // 4 warps x 16 query rows
 constexpr int LDS = DH + 8;   // padded row (bf16): conflict-free fragment loads
+constexpr float LOG2E_F = 1.4426950408889634f;
+constexpr float NO_KEY_LSE = -1e30f;  // L of a row with no valid key
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T>
+template <typename T, bool WITH_LSE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ lens, T* __restrict__ o, int heads, int n, float qscale) {
+                 const int* __restrict__ lens, T* __restrict__ o, float* __restrict__ lse,
+                 int heads, int n, float qscale) {
   __shared__ __align__(16) __nv_bfloat16 sQ[BQ][LDS];
   __shared__ __align__(16) __nv_bfloat16 sK[BK][LDS];
   __shared__ __align__(16) __nv_bfloat16 sVt[DH][BK + 8];
@@ -199,6 +192,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       dst[1] = from_float<T>(acc[d][3] / dh_);
     }
   }
+  if constexpr (WITH_LSE) {
+    // natural-log logsumexp from the log2-domain max and sum: the four lanes
+    // of a quad hold the same row values, lane t4 == 0 writes them
+    if (t4 == 0) {
+      float* dst = lse + static_cast<size_t>(bh) * n;
+      if (r_lo < n) dst[r_lo] = l_lo > 0.f ? (m_lo + log2f(l_lo)) * (1.f / LOG2E_F) : NO_KEY_LSE;
+      if (r_hi < n) dst[r_hi] = l_hi > 0.f ? (m_hi + log2f(l_hi)) * (1.f / LOG2E_F) : NO_KEY_LSE;
+    }
+  }
+}
+
+template <bool WITH_LSE>
+int launch_fwd(const void* q, const void* k, const void* v, const void* lens, void* o, float* lse,
+               int b, int h, int n, int dh, int dtype, float qscale, void* stream) {
+  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((n + BQ - 1) / BQ, b * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) {
+    flash_fwd_kernel<__nv_bfloat16, WITH_LSE><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
+        static_cast<__nv_bfloat16*>(o), lse, h, n, qscale);
+  } else if (dtype == kFloat32) {
+    flash_fwd_kernel<float, WITH_LSE><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const int*>(lens), static_cast<float*>(o), lse, h, n, qscale);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -210,20 +233,13 @@ F5_EXPORT_ERROR_STRING
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* lens,
                                    void* o, int b, int h, int n, int dh, int dtype, float qscale,
                                    void* stream) {
-  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((n + BQ - 1) / BQ, b * h);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) {
-    flash_fwd_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
-        static_cast<__nv_bfloat16*>(o), h, n, qscale);
-  } else if (dtype == kFloat32) {
-    flash_fwd_kernel<float><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const int*>(lens), static_cast<float*>(o), h, n, qscale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(q, k, v, lens, o, nullptr, b, h, n, dh, dtype, qscale, stream);
+}
+
+// Kernel C: as flash_attention_fwd, plus lse: fp32 [b, h, n] contiguous.
+extern "C" int flash_attention_fwd_stats(const void* q, const void* k, const void* v,
+                                         const void* lens, void* o, void* lse, int b, int h,
+                                         int n, int dh, int dtype, float qscale, void* stream) {
+  return launch_fwd<true>(q, k, v, lens, o, static_cast<float*>(lse), b, h, n, dh, dtype, qscale,
+                          stream);
 }

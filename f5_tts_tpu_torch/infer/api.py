@@ -40,17 +40,9 @@ from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
 from f5_tts_tpu_torch.utils import ckpt as ckpt_util
+from f5_tts_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
-
-
-def resolve_device(device: str | None) -> torch.device:
-    """``None`` means the card; the CPU only when asked for by name."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("F5TTS runs on a CUDA device and none is available; "
-                           "pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _seeded(build, seed: int):

@@ -1,14 +1,22 @@
-"""Conditional flow matching: the zero-shot infilling sampler.
+"""Conditional flow matching: the zero-shot infilling sampler and the
+training loss.
 
 JAX counterpart: ``f5_tts_tpu/models/cfm.py`` (``timestep_schedule`` and
-``SampleOptions`` :28-87, ``sample`` :174-457).  The NFE loop is a Python
-loop of fused-CFG forwards (cond and uncond as one 2B batch), with the
-AdaLN modulations of the whole schedule precomputed before it (Euler) and
-the carry kept in the compute dtype.  The time-parallel (Picard) window and
-the training loss are not ported yet; asking for the window raises.
+``SampleOptions`` :28-87, ``sample`` :174-457, ``mask_from_frac_lengths``
+and ``loss`` :460-575).  The NFE loop is a Python loop of fused-CFG
+forwards (cond and uncond as one 2B batch), with the AdaLN modulations of
+the whole schedule precomputed before it (Euler) and the carry kept in the
+compute dtype.  The time-parallel (Picard) window is not ported yet; asking
+for it raises.
+
+The loss draws its randomness from explicit ``torch.Generator``s: the noise,
+times and span masks from one on the mel's device, the two CFG drop
+decisions (one Bernoulli each per step, shared by the whole batch) from one
+on the CPU, so reading them costs no device sync.
 
 ``CFM`` is the reference's top-level module: its state dict holds the
-backbone under ``transformer.``, as released checkpoints do.
+backbone under ``transformer.``, as released checkpoints do, and its
+``forward`` is the training loss, as the reference's is.
 """
 
 from __future__ import annotations
@@ -39,7 +47,13 @@ class CFM(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
+        self.cfg = cfg
         self.transformer = D.DiT(cfg)
+
+    def forward(self, mel, text_ids, lens, generator=None, drop_generator=None, **kw):
+        """The training loss (``loss`` below), as the reference CFM.forward."""
+        return loss(self.transformer, self.cfg, mel, text_ids, lens, generator=generator,
+                    drop_generator=drop_generator, **kw)
 
 
 def timestep_schedule(steps: int, sway_sampling_coef: float | None = -1.0,
@@ -146,3 +160,83 @@ def sample(model: D.DiT, cfg: DiTConfig, cond: torch.Tensor, text_ids: torch.Ten
 
     out = torch.where(cond_mask[..., None], cond, x)
     return torch.where(mask[..., None], out, torch.zeros_like(out))
+
+
+def mask_from_frac_lengths(lens: torch.Tensor, length: int, generator: torch.Generator | None = None,
+                           frac_range=(0.7, 1.0)) -> torch.Tensor:
+    """Random contiguous span covering a fraction in ``frac_range`` of each
+    row's length (reference model/utils.py:61-77) -> bool [b, length]."""
+    b, dev = lens.shape[0], lens.device
+    frac = torch.rand((b,), generator=generator, device=dev) * (frac_range[1] - frac_range[0]) \
+        + frac_range[0]
+    span = (frac * lens).to(torch.int32)
+    max_start = lens - span
+    start = (max_start * torch.rand((b,), generator=generator, device=dev)).to(torch.int32)
+    start = start.clamp(min=0)
+    pos = torch.arange(length, device=dev)[None, :]
+    return (pos >= start[:, None]) & (pos < (start + span)[:, None])
+
+
+def loss(model: D.DiT, cfg: DiTConfig, mel: torch.Tensor, text_ids: torch.Tensor,
+         lens: torch.Tensor, generator: torch.Generator | None = None,
+         drop_generator: torch.Generator | None = None, audio_drop_prob: float = 0.3,
+         cond_drop_prob: float = 0.2, frac_lengths_mask=(0.7, 1.0),
+         backend: str = "train_auto", valid: torch.Tensor | None = None,
+         inject: dict | None = None) -> torch.Tensor:
+    """CFM training loss (reference cfm.py:231-302): flow-matching MSE over a
+    random infilling span, with CFG condition drops.
+
+    mel [b, n, d] (x1), text_ids [b, nt] (-1 padded), lens [b].  ``generator``
+    lives on mel's device, ``drop_generator`` on the CPU.  ``inject``
+    overrides the draws: "x0" [b, n, d], "time" [b], "span_mask" [b, n] bool,
+    "drop_audio" / "drop_both" bool.  ``valid`` [b] zeroes padded rows'
+    contribution.  Returns the fp32 masked mean.
+    """
+    b, n, d = mel.shape
+    dev = mel.device
+    inject = inject or {}
+    mask = lens_to_mask(lens, n)
+    span = inject.get("span_mask")
+    if span is None:
+        span = mask_from_frac_lengths(lens, n, generator, frac_lengths_mask)
+    span = span.to(dev) & mask
+
+    x1 = mel
+    x0 = inject.get("x0")
+    if x0 is None:
+        x0 = torch.randn(x1.shape, generator=generator, device=dev)
+    x0 = x0.to(device=dev, dtype=x1.dtype)
+    time = inject.get("time")
+    if time is None:
+        time = torch.rand((b,), generator=generator, device=dev)
+    time = time.to(device=dev, dtype=x1.dtype)
+
+    t = time[:, None, None]
+    phi = (1.0 - t) * x0 + t * x1
+    flow = x1 - x0
+    cond = torch.where(span[..., None], torch.zeros((), dtype=x1.dtype, device=dev), x1)
+
+    drop_audio = inject.get("drop_audio")
+    if drop_audio is None:
+        drop_audio = bool(torch.rand((), generator=drop_generator) < audio_drop_prob)
+    drop_both = inject.get("drop_both")
+    if drop_both is None:
+        drop_both = bool(torch.rand((), generator=drop_generator) < cond_drop_prob)
+    drop_audio = bool(drop_audio) or bool(drop_both)
+
+    # both text streams are computed and one is selected, as in JAX: every
+    # text-encoder parameter then gets a gradient (zero or not) every step
+    te = D.text_embedding(model, cfg, text_ids, n, lens=lens).to(x1.dtype)
+    te_uncond = D.text_embedding(model, cfg, text_ids, n, lens=lens, drop_text=True).to(x1.dtype)
+    te = torch.where(torch.tensor(drop_both, device=dev), te_uncond, te)
+    cond_in = torch.zeros_like(cond) if drop_audio else cond
+
+    pred = D.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend)
+
+    sq = (pred - flow).square()
+    w = span[..., None].float()
+    if valid is not None:
+        w = w * valid.to(dev).float()[:, None, None]
+    total = (sq.float() * w).sum()
+    count = torch.clamp(w.sum() * d, min=1.0)
+    return total / count

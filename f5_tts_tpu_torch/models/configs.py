@@ -1,9 +1,10 @@
 """Model architecture configs.
 
-JAX counterpart: ``f5_tts_tpu/models/configs.py:17-140``.  A copy rather than
+JAX counterpart: ``f5_tts_tpu/models/configs.py:17-181``.  A copy rather than
 an import, because the JAX module pulls in JAX through ``ops/mel.py``.  Only
 the DiT backbone is ported so far; the UNetT and MMDiT entries come with
-their backbones.
+their backbones.  ``from_yaml_dict`` / ``to_yaml_dict`` read and write the
+reference YAML's ``model:`` section (the train CLI uses them).
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ class DiTConfig:
     conv_mult: int = 2
     pe_attn_head: int | None = None
     long_skip_connection: bool = False
+    # activation checkpointing: parsed so the reference YAML reads, not
+    # ported yet (the trainer raises when it is on; see ROADMAP.md)
+    checkpoint_activations: bool = False
+    remat_policy: str = "auto"
     backbone: str = "DiT"
     # rope / abs-pos table horizon: 8192 frames ~ 87 s at 24 kHz, hop 256
     max_pos: int = 8192
@@ -71,3 +76,30 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
 
 def with_vocab_size(cfg: ModelConfig, vocab_size: int) -> ModelConfig:
     return dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, text_num_embeds=vocab_size))
+
+
+def from_yaml_dict(model: dict) -> ModelConfig:
+    """A ``ModelConfig`` from a reference-format ``model:`` YAML section."""
+    backbone = model.get("backbone", "DiT")
+    if backbone != "DiT":
+        raise NotImplementedError(f"the {backbone} backbone is not ported yet; see ROADMAP.md")
+    arch_kw = dict(model.get("arch", {}))
+    for k in ("attn_backend", "attn_mask_enabled"):  # reference-only knobs
+        arch_kw.pop(k, None)
+    valid = {f.name for f in dataclasses.fields(DiTConfig)}
+    arch = DiTConfig(**{k: v for k, v in arch_kw.items() if k in valid})
+    valid_mel = {f.name for f in dataclasses.fields(MelConfig)}
+    mel = MelConfig(**{k: v for k, v in dict(model.get("mel_spec", {})).items() if k in valid_mel})
+    return ModelConfig(name=model.get("name", "custom"), arch=arch, mel=mel,
+                       tokenizer=model.get("tokenizer", "pinyin"))
+
+
+def to_yaml_dict(cfg: ModelConfig) -> dict:
+    """Inverse of ``from_yaml_dict``: the ``model:`` section of a config."""
+    return {
+        "name": cfg.name,
+        "backbone": "DiT",
+        "tokenizer": cfg.tokenizer,
+        "arch": dataclasses.asdict(cfg.arch),
+        "mel_spec": dataclasses.asdict(cfg.mel),
+    }

@@ -6,9 +6,11 @@ module tree (``time_embed``, ``text_embed``, ``input_embed``,
 mirror the JAX ones: ``text_embedding`` (ids + 1 with filler 0, pad mask
 taken before ``drop_text``, abs-pos masked by the valid length, optional
 average upsampling), ``input_embedding``, ``precompute_adaln``, ``forward``
-and the fused-CFG ``forward_cfg`` (cond and uncond packed as one 2B batch).
-``fuse_for_inference`` is the serving qkv fusion.  No activation
-checkpointing: that comes with training.
+the training forward ``forward_with_text`` and the fused-CFG ``forward_cfg``
+(cond and uncond packed as one 2B batch).  ``forward`` is differentiable end
+to end; with ``backend="train_auto"`` its attention runs the training
+kernels.  ``fuse_for_inference`` is the serving qkv fusion.  No activation
+checkpointing yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -194,6 +196,16 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
     else:
         h = L.adaln_final(model.norm_out, h, t_emb)
     return L.linear(model.proj_out, h)
+
+
+def forward_with_text(model: DiT, cfg: DiTConfig, x, cond, text_ids, time, mask=None, lens=None,
+                      drop_audio_cond: bool = False, drop_text: bool = False,
+                      backend: str = "auto"):
+    """Training-path forward (JAX ``forward_with_text``, dit.py:293-316):
+    the text encoder runs inline with the drop flags."""
+    te = text_embedding(model, cfg, text_ids, x.shape[1], lens=lens, drop_text=drop_text)
+    return forward(model, cfg, x, cond, te.to(x.dtype), time, mask=mask,
+                   drop_audio_cond=drop_audio_cond, backend=backend)
 
 
 def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_emb_uncond, time,

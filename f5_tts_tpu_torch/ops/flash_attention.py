@@ -1,19 +1,39 @@
-"""Masked flash attention (forward): the CUDA kernel and its plain version.
+"""Masked flash attention: the CUDA kernels, their plain versions, and the
+differentiable training attention built on them.
 
-JAX counterpart: ``f5_tts_tpu/ops/flash_attention.py::_kernel`` (:150-191),
-called through ``_flash`` (:195-229) and ``flash_attention`` (:543-556).
-The kernel is ``csrc/flash_attention.cu``; its header says what bounds it on
-the H100 and how its blocking departs from the TPU kernel's.
+JAX counterparts, all in ``f5_tts_tpu/ops/flash_attention.py``:
+
+- kernel A, the serving forward: ``_kernel`` (:150-191) through ``_flash``
+  (:195-229) and ``flash_attention`` (:543-556);
+- kernel C, the forward with logsumexp stats: ``_kernel_fwd_stats``
+  (:45-78) through ``_flash_fwd_stats`` (:233-260);
+- kernels D and E, the backward: ``_kernel_dq`` (:81-109) and
+  ``_kernel_dkv`` (:112-147) through ``_flash_bwd`` (:264-310);
+- the custom VJP ``_flash_diff`` / ``_flash_stats_diff`` (:313-384) and the
+  public ``flash_attention_with_stats`` (:387-397) and
+  ``flash_attention_trainable`` (:423-442), here one
+  ``torch.autograd.Function`` whose forward is kernel C and whose backward
+  computes ``D = rowsum(do * o)`` in fp32 and launches D and E.
+
+The kernels are ``csrc/flash_attention.cu`` (A, C) and
+``csrc/flash_attention_bwd.cu`` (D, E); their headers say what bounds them
+on the H100 and how their blocking departs from the TPU kernels'.  Only the
+single-prefix key mask is ported; the two-segment (MMDiT) mode comes with
+``flash_attention_two_segment``.
 
 Semantics: non-causal attention over q, k, v [b, h, n, 64]; key columns are
 valid only in [0, lens[b]); a query row with no valid key gives 0.  The
 kernel takes bf16 (the serving dtype) or fp32 tensors and, like the TPU
 kernel, rounds q (prescaled by scale*log2 e), k, v and the probabilities to
-bf16 for its tensor-core products, accumulating in fp32.
+bf16 for its tensor-core products, accumulating in fp32; the backward
+kernels also round do and ds.  The logsumexp ``L`` is natural-log, fp32
+[b, h, n], and ``-1e30`` for a row with no valid key, whose output and
+gradients are 0.  ``lens`` gets no gradient.
 
-Dispatch is by device: a CPU tensor runs ``flash_attention_plain``; a CUDA
-tensor launches the kernel, and anything the kernel does not take raises.
-There is no length gate: any n works.
+Dispatch is by device: a CPU tensor runs the plain version; a CUDA tensor
+launches the kernel, and anything the kernel does not take raises.  There
+is no length gate: any n works.  Each kernel's ``CudaKernel`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -29,27 +49,69 @@ HEAD_DIM = 64  # the kernel's head width (every F5-TTS config)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = CudaKernel(
+_F = ctypes.c_float
+KERNEL = CudaKernel(  # kernel A
     "flash_attention_fwd", "flash_attention.cu",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 )
+KERNEL_STATS = CudaKernel(  # kernel C
+    "flash_attention_fwd_stats", "flash_attention.cu",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+)
+KERNEL_DQ = CudaKernel(  # kernel D
+    "flash_attention_bwd_dq", "flash_attention_bwd.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+)
+KERNEL_DKV = CudaKernel(  # kernel E
+    "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+)
+NO_KEY_LSE = -1e30  # the logsumexp of a row with no valid key
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """fp32 scores q.k^T * scale, -inf on keys past ``lens``."""
+    n = k.shape[2]
+    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    valid = torch.arange(n, device=q.device)[None, :] < lens.to(q.device)[:, None]  # [b, n]
+    return s.masked_fill(~valid[:, None, None, :], float("-inf"))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lens: torch.Tensor) -> torch.Tensor:
     """Exact fp32 attention with the kernel's key mask and zero-row rule."""
-    n = q.shape[2]
-    scale = q.shape[-1] ** -0.5
-    qf, kf, vf = q.float(), k.float(), v.float()
-    s = (qf @ kf.transpose(-1, -2)) * scale
-    valid = torch.arange(n, device=q.device)[None, :] < lens.to(q.device)[:, None]  # [b, n]
-    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    vf = v.float()
+    s = _masked_scores(q, k, lens)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # rows with no valid key
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     return ((p @ vf) / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention_fwd_stats_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact fp32 (o, L): kernel C's function, with its no-valid-key rule."""
+    s = _masked_scores(q, k, lens)
+    L = torch.logsumexp(s, dim=-1)
+    L = torch.where(torch.isfinite(L), L, torch.full_like(L, NO_KEY_LSE))
+    p = torch.exp(s - L[..., None])  # 0 on masked keys
+    return (p @ v.float()).to(q.dtype), L
+
+
+def flash_attention_bwd_plain(q, k, v, do, L, D, lens):
+    """(dq, dk, dv) by the backward kernels' formulas in fp32 (not autograd):
+    p = exp(s - L), 0 on masked keys; ds = p (do.v^T - D); dq = scale ds.k;
+    dk = scale ds^T.q; dv = p^T.do."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(_masked_scores(q, k, lens) - L.float()[..., None])
+    dof = do.float()
+    ds = p * (dof @ v.float().transpose(-1, -2) - D.float()[..., None])
+    dq = (ds @ k.float()) * scale
+    dk = (ds.transpose(-1, -2) @ q.float()) * scale
+    dv = p.transpose(-1, -2) @ dof
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, lens):
@@ -89,12 +151,142 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_fwd_stats_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel C: (o, L fp32 [b, h, n])."""
+    _check(q, k, v, lens)
+    b, h, n, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    if n == 0 or b == 0 or h == 0:
+        return out, lse
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    KERNEL_STATS.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), b, h, n, dh, _DTYPE_CODE[q.dtype],
+                        float(dh) ** -0.5 * LOG2E, stream)
+    return out, lse
+
+
+def _check_bwd(q, k, v, do, L, D, lens):
+    _check(q, k, v, lens)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q ({q.dtype} {tuple(q.shape)}), got "
+                         f"{do.dtype} {tuple(do.shape)} on {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("flash_attention backward needs a contiguous, 16-byte aligned do")
+    for name, t in (("L", L), ("D", D)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 {tuple(q.shape[:3])} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _bwd_args(q, k, v, do, L, D, lens):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
+            lens.data_ptr())
+
+
+def _bwd_tail(q):
+    b, h, n, dh = q.shape
+    scale = float(dh) ** -0.5
+    return (b, h, n, dh, _DTYPE_CODE[q.dtype], scale * LOG2E, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens) -> torch.Tensor:
+    """Launch kernel D: dq."""
+    _check_bwd(q, k, v, do, L, D, lens)
+    dq = torch.empty_like(q)
+    if q.numel():
+        KERNEL_DQ.launch(*_bwd_args(q, k, v, do, L, D, lens), dq.data_ptr(), *_bwd_tail(q))
+    return dq
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel E: (dk, dv)."""
+    _check_bwd(q, k, v, do, L, D, lens)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        KERNEL_DKV.launch(*_bwd_args(q, k, v, do, L, D, lens), dk.data_ptr(), dv.data_ptr(),
+                          *_bwd_tail(q))
+    return dk, dv
+
+
+def _dispatch(name, plain, cuda, x, *args):
+    if x.device.type == "cpu":
+        return plain(x, *args)
+    if x.device.type == "cuda":
+        return cuda(x, *args)
+    raise ValueError(f"{name}: no implementation for device {x.device}")
+
+
+def flash_attention_fwd_stats(q, k, v, lens):
+    """Device dispatch of kernel C: the plain version for CPU tensors."""
+    return _dispatch("flash_attention_fwd_stats", flash_attention_fwd_stats_plain,
+                     flash_attention_fwd_stats_cuda, q, k, v, lens)
+
+
+def _bwd_cuda(q, k, v, do, L, D, lens):
+    return (flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens),
+            *flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens))
+
+
+def flash_attention_bwd(q, k, v, do, L, D, lens):
+    """Device dispatch of kernels D and E: the plain version for CPU tensors."""
+    return _dispatch("flash_attention_bwd", flash_attention_bwd_plain, _bwd_cuda,
+                     q, k, v, do, L, D, lens)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lens: torch.Tensor) -> torch.Tensor:
-    """Device dispatch: plain version for CPU tensors, the kernel for CUDA."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lens)
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, lens)
-    raise ValueError(f"flash_attention: no implementation for device {q.device}")
+    """Device dispatch of kernel A: the plain version for CPU tensors."""
+    return _dispatch("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v, lens)
 
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """(o, L) = attention with stats; the backward takes both cotangents."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens):
+        o, L = flash_attention_fwd_stats(q, k, v, lens)
+        ctx.save_for_backward(q, k, v, lens, o, L)
+        ctx.set_materialize_grads(False)
+        return o, L
+
+    @staticmethod
+    def backward(ctx, do, dL):
+        q, k, v, lens, o, L = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.to(q.dtype).contiguous()
+        # D_i = rowsum(do_i * o_i), the softmax-jacobian term; a logsumexp
+        # cotangent shifts it: ds = p (dp - D + dL)
+        D = (do.float() * o.float()).sum(dim=-1)
+        if dL is not None:
+            D = D - dL.float()
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, L, D.contiguous(), lens)
+        return dq, dk, dv, None
+
+
+def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable attention returning ``(out, logsumexp)``; gradients flow
+    through both.  ``lens`` [b] int32 may hold 0: that row's output is 0,
+    its logsumexp -1e30 and its gradients 0."""
+    n, nk = q.shape[2], k.shape[2]
+    if n != nk:
+        raise ValueError(f"flash_attention_with_stats needs len(q)==len(k), got {n} vs {nk}")
+    return _FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), lens)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Differentiable masked attention (kernel C forward, D and E backward).
+    ``mask`` is a prefix (length) mask [b, n].  Padded query rows must get
+    zero upstream gradient, as the caller's re-mask of the output gives
+    (``models/layers.py`` ``mha``)."""
+    b, _, n, _ = q.shape
+    if mask is None:
+        lens = torch.full((b,), n, dtype=torch.int32, device=q.device)
+    else:
+        lens = mask.sum(dim=-1, dtype=torch.int32)
+    return flash_attention_with_stats(q, k, v, lens)[0]

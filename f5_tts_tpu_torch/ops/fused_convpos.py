@@ -1,8 +1,9 @@
-"""Fused ConvPositionEmbedding (forward): the CUDA kernel and its plain version.
+"""Fused ConvPositionEmbedding: the CUDA forward kernel, its plain version
+and the autograd Function around them.
 
 JAX counterpart: ``f5_tts_tpu/ops/fused_convpos.py::_kernel`` (:37-83),
 called through ``_conv_pos_fused`` (:87-119) and ``conv_pos_fused``
-(:168-173).  The kernel is ``csrc/fused_convpos.cu``; its header says what
+(:168-173), differentiated by ``_fused_diff`` (:130-150).  The kernel is ``csrc/fused_convpos.cu``; its header says what
 bounds it on the H100 and how its blocking departs from the TPU kernel's.
 
 The function: for x [b, n, d] and a prefix mask of lengths ``lens``,
@@ -14,6 +15,11 @@ conv1d(k=31, bias) -> Mish -> mask``.  Weights arrive in torch's
 Dispatch is by device: a CPU tensor runs ``conv_pos_plain``; a CUDA tensor
 launches the kernel, and a shape or dtype it does not take raises (the
 kernel takes 64-channel groups, the F5-TTS width of 1024 / 16).
+
+The backward is not a kernel, in JAX either: ``_fused_diff`` linearizes the
+plain XLA composition.  Here ``_ConvPosFn.backward`` re-runs
+``conv_pos_plain`` on the saved inputs under autograd and returns its
+gradients for x, both weights and both biases.
 """
 
 from __future__ import annotations
@@ -98,10 +104,33 @@ def conv_pos_cuda(x, w1, b1, w2, b2, lens, groups: int) -> torch.Tensor:
     return out
 
 
-def conv_pos_fused(x, w1, b1, w2, b2, lens, groups: int = 16) -> torch.Tensor:
+def _conv_pos_forward(x, w1, b1, w2, b2, lens, groups: int) -> torch.Tensor:
     """Device dispatch: plain version for CPU tensors, the kernel for CUDA."""
     if x.device.type == "cpu":
         return conv_pos_plain(x, w1, b1, w2, b2, lens, groups)
     if x.device.type == "cuda":
         return conv_pos_cuda(x, w1, b1, w2, b2, lens, groups)
     raise ValueError(f"conv_pos_fused: no implementation for device {x.device}")
+
+
+class _ConvPosFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, lens, groups):
+        ctx.save_for_backward(x, w1, b1, w2, b2, lens)
+        ctx.groups = groups
+        return _conv_pos_forward(x, w1, b1, w2, b2, lens, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, lens = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+            y = conv_pos_plain(*ins, lens, ctx.groups)
+            grads = torch.autograd.grad(y, ins, g)
+        return (*grads, None, None)
+
+
+def conv_pos_fused(x, w1, b1, w2, b2, lens, groups: int = 16) -> torch.Tensor:
+    """Differentiable fused ConvPositionEmbedding: the kernel (CUDA) or the
+    plain version (CPU) forward, the plain composition's gradients backward."""
+    return _ConvPosFn.apply(x, w1, b1, w2, b2, lens, groups)

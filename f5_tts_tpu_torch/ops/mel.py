@@ -1,7 +1,8 @@
 """Log-mel spectrogram extraction (the Vocos front end).
 
 JAX counterpart: ``f5_tts_tpu/ops/mel.py`` (``MelConfig`` :90-108,
-``log_mel_prepadded`` :137-162, ``stft_pad_amount``, ``num_frames``).  The
+``log_mel_prepadded`` :137-162, ``log_mel_np`` :165-186, ``stft_pad_amount``,
+``num_frames``).  The
 Vocos mel is torchaudio's MelSpectrogram(power=1, center=True, norm=None,
 mel_scale="htk") then clamp(1e-5).log(): an htk filterbank built in numpy
 over the matmul STFT of ``ops/stft.py``.  The BigVGAN (slaney, uncentered)
@@ -17,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from f5_tts_tpu_torch.ops.stft import STFTConfig, frame_signal, stft_basis
+from f5_tts_tpu_torch.ops.stft import (STFTConfig, _padded_window, dft_matrices, frame_signal,
+                                       stft_basis)
 
 
 def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
@@ -76,6 +78,26 @@ def log_mel_prepadded(wav_padded: torch.Tensor, cfg: MelConfig = MelConfig()) ->
     im = -(frames @ sin_m)
     mel = torch.sqrt(re * re + im * im) @ _fbank(cfg, wav_padded.device, wav_padded.dtype)
     return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def log_mel_np(wav: np.ndarray, cfg: MelConfig = MelConfig()) -> np.ndarray:
+    """Host-side numpy log-mel [b, n_frames, n_mels] of a (batch of)
+    waveform(s), centered STFT with reflect padding: the dataset's mel for
+    raw-audio rows (same math as ``log_mel_prepadded``)."""
+    if wav.ndim == 1:
+        wav = wav[None]
+    s = cfg.stft
+    pad = stft_pad_amount(cfg)
+    x = np.pad(wav, ((0, 0), (pad, pad)), mode="reflect")
+    n_frames = 1 + (x.shape[-1] - s.n_fft) // s.hop_length
+    idx = np.arange(n_frames)[:, None] * s.hop_length + np.arange(s.n_fft)[None, :]
+    frames = x[:, idx]
+    cos_m, sin_m = dft_matrices(s.n_fft, _padded_window(s.n_fft, s.win_length))
+    re = frames @ cos_m
+    im = -(frames @ sin_m)
+    mel = np.sqrt(re * re + im * im) @ mel_filterbank(cfg.target_sample_rate, s.n_fft,
+                                                      cfg.n_mel_channels)
+    return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
 
 
 def stft_pad_amount(cfg: MelConfig = MelConfig()) -> int:

@@ -1,0 +1,289 @@
+"""Trainer: the single-device training loop.
+
+JAX counterpart: ``f5_tts_tpu/train/trainer.py:51-609``.  What it keeps:
+
+- a producer thread (load + collate on the host) and an uploader thread
+  (pinned host memory, ``non_blocking`` copies on CUDA) ahead of the step
+  loop; an exception in either poisons its queue and is raised in the loop;
+- ``total_updates`` derived from the run length when not pinned;
+- checkpoints ``model_{update}.pt`` (rotated to ``keep_last_n_checkpoints``)
+  and ``model_last.pt``, in the reference's ``.pt`` layout
+  (``utils/ckpt.save_train_checkpoint``);
+- resume from ``model_last.pt`` (else the newest ``model_N.pt``) at the exact
+  micro-step, with the sampler fast-forwarded;
+- the JSONL log, the SIGTERM save (finish the step, write ``model_last.pt``,
+  return), and ``log_samples_fn(ema_model, update, model)`` at each save.
+
+Each micro-step's generators are seeded from ``(seed, micro_step)`` alone,
+so a resumed run draws what an uninterrupted one draws.  The mesh modes
+(``mesh``, ``zero1``, ``tensor_parallel``, ``pipeline_microbatches``,
+``sequence_parallel``), ``convpos_taps``, ``mel_in_graph``, activation
+checkpointing and the wandb / tensorboard loggers are not ported and raise.
+The trainer runs on the card: ``device=None`` means ``"cuda"``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import math
+import os
+import queue
+import signal
+import threading
+import time
+
+import numpy as np
+import torch
+
+from f5_tts_tpu_torch.train.dataset import (DynamicBatchSampler, SampleBatchSampler,
+                                            collate_batch)
+from f5_tts_tpu_torch.train.step import OptimConfig, make_optimizer, train_step
+from f5_tts_tpu_torch.utils.ckpt import save_train_checkpoint
+from f5_tts_tpu_torch.utils.device import resolve_device
+
+_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+
+
+def micro_step_seed(seed: int, micro: int) -> int:
+    """The generator seed of micro-step ``micro`` of a run seeded ``seed``."""
+    return int(np.random.SeedSequence([seed, micro]).generate_state(1)[0])
+
+
+class Trainer:
+    def __init__(
+        self,
+        model_cfg,  # models.configs.ModelConfig
+        vocab: dict | None,
+        opt_cfg: OptimConfig = OptimConfig(),
+        ckpt_dir: str = "ckpts/run",
+        batch_size_per_device: int = 38_400,
+        batch_size_type: str = "frame",
+        max_samples: int = 64,
+        grad_accumulation_steps: int = 1,
+        save_per_updates: int = 50_000,
+        keep_last_n_checkpoints: int = -1,
+        last_per_updates: int = 5_000,
+        log_file: str | None = None,
+        logger: str | None = None,
+        mesh=None,
+        seed: int = 666,
+        log_samples_fn=None,  # callback(ema_model, update, model), at each save
+        zero1: bool = False,
+        tensor_parallel: bool = False,
+        pipeline_microbatches: int = 0,
+        sequence_parallel: bool = False,
+        convpos_taps: bool | None = None,
+        mel_in_graph: bool = False,
+        preemption_save: bool = True,
+        device: str | None = None,
+        log_every_updates: int = 10,  # the JSONL log's cadence (and update 1)
+    ):
+        for name, value in (("mesh", mesh is not None), ("zero1", zero1),
+                            ("tensor_parallel", tensor_parallel),
+                            ("pipeline_microbatches", pipeline_microbatches),
+                            ("sequence_parallel", sequence_parallel),
+                            ("convpos_taps", convpos_taps), ("mel_in_graph", mel_in_graph),
+                            ("logger", logger is not None)):
+            if value:
+                raise NotImplementedError(f"Trainer({name}=...) {_NOT_PORTED}")
+        if model_cfg.arch.checkpoint_activations:
+            raise NotImplementedError(f"activation checkpointing {_NOT_PORTED}")
+        if grad_accumulation_steps > 1 and opt_cfg.grad_accumulation_steps == 1:
+            opt_cfg = dataclasses.replace(opt_cfg, grad_accumulation_steps=grad_accumulation_steps)
+        self.device = resolve_device(device, "Trainer")
+        self.model_cfg = model_cfg
+        self.vocab = vocab
+        self.opt_cfg = opt_cfg
+        self.ckpt_dir = ckpt_dir
+        self.batch_size_per_device = batch_size_per_device
+        self.batch_size_type = batch_size_type
+        self.max_samples = max_samples
+        self.save_per_updates = save_per_updates
+        self.keep_last_n_checkpoints = keep_last_n_checkpoints
+        self.last_per_updates = last_per_updates
+        self.seed = seed
+        self.log_samples_fn = log_samples_fn
+        self.preemption_save = preemption_save
+        self.log_every_updates = log_every_updates
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.log_file = log_file or os.path.join(ckpt_dir, "train_log.jsonl")
+
+    # ------------------------------------------------------------------ ckpt
+    def _ckpt_path(self, tag) -> str:
+        return os.path.join(self.ckpt_dir, f"model_{tag}.pt")
+
+    def _numbered(self) -> list[str]:
+        names = [f for f in os.listdir(self.ckpt_dir)
+                 if f.startswith("model_") and f.endswith(".pt") and f[6:-3].isdigit()]
+        return sorted(names, key=lambda f: int(f[6:-3]))
+
+    def save_checkpoint(self, model, ema_model, optimizer, micro: int, update: int,
+                        last: bool = False) -> None:
+        acc = optimizer.accumulation_state()
+        save_train_checkpoint(
+            self._ckpt_path("last" if last else update), model, ema_model,
+            optimizer.adamw.state_dict(), optimizer.scheduler.state_dict(), micro, update,
+            extra=None if acc is None else {"grad_accumulation": acc})
+        if not last and self.keep_last_n_checkpoints >= 0:
+            numbered = self._numbered()
+            keep = self.keep_last_n_checkpoints
+            for f in numbered[:len(numbered) - keep] if keep else numbered:
+                os.remove(os.path.join(self.ckpt_dir, f))
+
+    def load_checkpoint(self) -> dict | None:
+        path = self._ckpt_path("last")
+        if not os.path.exists(path):
+            numbered = self._numbered()
+            if not numbered:
+                return None
+            path = os.path.join(self.ckpt_dir, numbered[-1])
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    # ------------------------------------------------------------------ log
+    def _log(self, rec: dict) -> None:
+        with open(self.log_file, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    # ---------------------------------------------------------------- train
+    def train(self, model, dataset, epochs: int = 1, resume: bool = True):
+        """Runs the loop on ``model`` (a ``models.cfm.CFM``, moved to the
+        trainer's device); returns (model, ema_model, update).
+
+        On SIGTERM (installed only from the main thread) the in-flight step
+        finishes, ``model_last.pt`` is written and train() returns; a later
+        ``resume=True`` run continues from that micro-step.
+        """
+        preempt = {"hit": False}
+        old = None
+        if self.preemption_save and threading.current_thread() is threading.main_thread():
+            old = signal.signal(signal.SIGTERM, lambda s, f: preempt.update(hit=True))
+        try:
+            return self._train_impl(model, dataset, epochs, resume, preempt)
+        finally:
+            if old is not None:
+                signal.signal(signal.SIGTERM, old)
+
+    def _sampler(self, dataset):
+        if self.batch_size_type == "sample":
+            return SampleBatchSampler(dataset, batch_size=self.batch_size_per_device,
+                                      random_seed=self.seed)
+        return DynamicBatchSampler(dataset, frames_threshold=self.batch_size_per_device,
+                                   max_samples=self.max_samples, random_seed=self.seed)
+
+    def _train_impl(self, model, dataset, epochs, resume, preempt):
+        sampler = self._sampler(dataset)
+        if self.opt_cfg.total_updates is None:
+            # the LR decay horizon from the run length (reference trainer.py:316-326)
+            k = max(self.opt_cfg.grad_accumulation_steps, 1)
+            total = max(math.ceil(len(sampler) / k) * max(epochs, 1),
+                        self.opt_cfg.num_warmup_updates + 1)
+            self.opt_cfg = dataclasses.replace(self.opt_cfg, total_updates=total)
+        model = model.to(self.device)
+        ema_model = copy.deepcopy(model).requires_grad_(False)
+        optimizer = make_optimizer(list(model.parameters()), self.opt_cfg)
+        micro = 0
+        if resume:
+            ckpt = self.load_checkpoint()
+            if ckpt is not None:
+                model.load_state_dict(ckpt["model_state_dict"])
+                ema_model.load_state_dict({k[len("ema_model."):]: v
+                                           for k, v in ckpt["ema_model_state_dict"].items()
+                                           if k.startswith("ema_model.")})
+                optimizer.adamw.load_state_dict(ckpt["optimizer_state_dict"])
+                optimizer.scheduler.load_state_dict(ckpt["scheduler_state_dict"])
+                optimizer.load_accumulation_state(ckpt.get("grad_accumulation"))
+                micro = int(ckpt["step"])
+                print(f"resumed at micro-step {micro} (update {micro // optimizer.k})")
+        k_accum = optimizer.k
+        update = micro // k_accum
+        batches_per_epoch = max(len(sampler), 1)
+        skip = micro % batches_per_epoch
+        start_epoch = micro // batches_per_epoch
+        cuda = self.device.type == "cuda"
+
+        errors: list = []
+
+        def guarded(fn, down: queue.Queue):
+            """A failure in a pipeline thread is recorded and poisons the
+            downstream queue, so the step loop raises it."""
+            def run(*args):
+                try:
+                    fn(*args)
+                except BaseException as e:  # noqa: BLE001 - re-raised in the step loop
+                    errors.append(e)
+                    down.put(None)
+            return run
+
+        def produce(skip_n: int, out_q: queue.Queue):
+            for bi, idx in enumerate(sampler):
+                if bi < skip_n:
+                    continue
+                items = [dataset[i] for i in idx]
+                out_q.put(collate_batch(items, self.vocab, self.model_cfg.tokenizer))
+            out_q.put(None)
+
+        def upload(in_q: queue.Queue, out_q: queue.Queue):
+            while True:
+                batch = in_q.get()
+                if batch is None:
+                    out_q.put(None)
+                    return
+                b_real, n_frames = batch["mel"].shape[:2]
+                valid_frames = int(batch["lens"].sum())
+                tensors = {}
+                for key, arr in batch.items():
+                    t = torch.from_numpy(np.ascontiguousarray(arr))
+                    if cuda:
+                        t = t.pin_memory().to(self.device, non_blocking=True)
+                    tensors[key] = t
+                out_q.put((tensors, b_real, n_frames, valid_frames))
+
+        state = (model, ema_model, optimizer)
+        for epoch in range(start_epoch, epochs):
+            sampler.set_epoch(epoch)
+            q1: queue.Queue = queue.Queue(maxsize=4)
+            q2: queue.Queue = queue.Queue(maxsize=2)
+            threading.Thread(target=guarded(produce, q1),
+                             args=(skip if epoch == start_epoch else 0, q1), daemon=True).start()
+            threading.Thread(target=guarded(upload, q2), args=(q1, q2), daemon=True).start()
+            while True:
+                item = q2.get()
+                if item is None:
+                    if errors:
+                        raise errors[0]
+                    break
+                batch, b_real, n_frames, valid_frames = item
+                t0 = time.perf_counter()
+                micro, metrics = train_step(model, optimizer, ema_model, micro, batch,
+                                            micro_step_seed(self.seed, micro), self.opt_cfg)
+                did_update = micro % k_accum == 0
+                if did_update:
+                    update = micro // k_accum
+                if did_update and (update % self.log_every_updates == 0 or update == 1):
+                    rec = {"update": update, "micro_step": micro, "epoch": epoch,
+                           "loss": float(metrics["loss"]),
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "step_time_s": time.perf_counter() - t0,
+                           "frames": int(b_real * n_frames), "valid_frames": valid_frames}
+                    if cuda:
+                        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+                    self._log(rec)
+                if did_update and update % self.save_per_updates == 0:
+                    self.save_checkpoint(*state, micro, update)
+                    if self.log_samples_fn is not None:  # reference log_samples (:408-438)
+                        try:
+                            self.log_samples_fn(ema_model, update, model)
+                        except Exception as e:  # noqa: BLE001 - sampling must not stop training
+                            print(f"log_samples failed at update {update}: {e}")
+                if did_update and update % self.last_per_updates == 0:
+                    self.save_checkpoint(*state, micro, update, last=True)
+                if preempt["hit"]:
+                    self.save_checkpoint(*state, micro, update, last=True)
+                    self._log({"preempted": True, "update": update, "micro_step": micro})
+                    print(f"SIGTERM: model_last.pt at micro-step {micro}; exiting")
+                    return model, ema_model, update
+            skip = 0
+        self.save_checkpoint(*state, micro, update, last=True)
+        return model, ema_model, update

@@ -3,7 +3,9 @@ package's parameter trees.
 
 JAX counterpart: ``f5_tts_tpu/utils/ckpt.py`` (``load_torch_state`` :31-64,
 ``dit_params_from_state`` :102-153, ``dit_params_to_state`` :156-210,
-``vocos_params_from_state`` :351-384).  The port's modules carry the
+``vocos_params_from_state`` :351-384; JAX trains into orbax checkpoints,
+the port into the reference's ``.pt`` layout, ``save_train_checkpoint``).
+The port's modules carry the
 reference's own parameter names, so a released state dict loads into them
 directly: ``load_torch_state`` reads ``.pt`` / ``.safetensors`` files,
 strips the EMA prefix, picks the EMA or raw weights and drops bookkeeping
@@ -16,6 +18,8 @@ use them to give both implementations the same weights).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -82,6 +86,26 @@ def load_dit_state(cfm: nn.Module, state: dict) -> nn.Module:
     if any(k.startswith("transformer.") for k in state):
         return load_into(cfm, state)
     return load_into(cfm.transformer, state)
+
+
+def save_train_checkpoint(path: str, model: nn.Module, ema_model: nn.Module, optimizer_state: dict,
+                          scheduler_state: dict, step: int, update: int,
+                          extra: dict | None = None) -> None:
+    """Write a training checkpoint in the reference trainer's ``.pt`` layout,
+    which ``load_torch_state`` reads (EMA or raw): ``model_state_dict``,
+    ``ema_model_state_dict`` (ema_pytorch's keys: ``ema_model.``-prefixed
+    weights plus ``initted`` and ``step``), ``optimizer_state_dict``,
+    ``scheduler_state_dict`` and ``step`` (micro-steps taken), plus
+    ``extra``'s keys.  Written to a temporary file, then renamed into place."""
+    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    ema = {"initted": torch.tensor(True), "step": torch.tensor(update)}
+    ema.update({f"ema_model.{k}": v for k, v in cpu(ema_model.state_dict()).items()})
+    obj = {"model_state_dict": cpu(model.state_dict()), "ema_model_state_dict": ema,
+           "optimizer_state_dict": optimizer_state, "scheduler_state_dict": scheduler_state,
+           "step": step, **(extra or {})}
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ no JAX, so it runs on the GPU machine, where the repository's conftest
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: bf16 inputs, and both kernels round to bf16 where the TPU
+Tolerances: bf16 inputs, and the kernels round to bf16 where the TPU
 kernels do, against plain versions computed in fp32 on the same values.
+The backward kernels round do, p and ds to bf16 as well; their gradients
+are compared relative to the largest reference value (2e-2 max, 4e-3 mean).
 """
 
 import pytest
@@ -78,3 +80,71 @@ def test_convpos_kernel_rejects_other_group_widths(gen):
     with pytest.raises(ValueError, match="64-channel groups"):
         FC.conv_pos_fused(x, w, b, w, b, torch.tensor([8], dtype=torch.int32, device="cuda"),
                           groups=16)
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().clamp(min=1e-6)
+    err = (got - want).abs() / scale
+    return err.max().item(), err.mean().item()
+
+
+def _train_inputs(gen, n, lens, b=2, h=4, dtype=torch.bfloat16):
+    q, k, v, do = (torch.randn((b, h, n, 64), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    return q, k, v, do, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("n,lens", [(256, [256, 219]), (200, [0, 163]), (65, [65, 1])])
+def test_flash_train_kernels_match_plain(gen, n, lens):
+    """Kernels C, D and E against their plain versions on the same inputs."""
+    q, k, v, do, lens_t = _train_inputs(gen, n, lens)
+    c0, d0, e0 = FA.KERNEL_STATS.launches, FA.KERNEL_DQ.launches, FA.KERNEL_DKV.launches
+    o, L = FA.flash_attention_fwd_stats(q, k, v, lens_t)
+    o_ref, L_ref = FA.flash_attention_fwd_stats_plain(q, k, v, lens_t)
+    err = (o.float() - o_ref.float()).abs()
+    assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    assert (L - L_ref).abs().max().item() < 1e-2  # log2-domain scores of bf16-rounded q
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, do, L, D, lens_t)
+    ref = FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens_t)
+    for got, want in zip((dq, dk, dv), ref):
+        mx, mean = _rel(got, want)
+        assert mx < 2e-2 and mean < 4e-3, (mx, mean)
+    assert (FA.KERNEL_STATS.launches - c0, FA.KERNEL_DQ.launches - d0,
+            FA.KERNEL_DKV.launches - e0) == (1, 1, 1)
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert torch.all(o[i] == 0) and torch.all(L[i] == FA.NO_KEY_LSE)
+            assert torch.all(dq[i] == 0)
+        # keys past lens get exactly zero gradient (whole tiles and the ragged one)
+        assert torch.all(dk[i, :, ln:] == 0) and torch.all(dv[i, :, ln:] == 0)
+
+
+def test_flash_trainable_grads_match_fp32_autograd(gen):
+    """The autograd Function (kernels C, D, E) against fp32 autograd through
+    the plain attention, padded query rows masked out of the loss."""
+    n, lens = 300, [300, 211]
+    q, k, v, do, lens_t = _train_inputs(gen, n, lens)
+    mask = torch.arange(n, device="cuda")[None, :] < lens_t[:, None]
+    mq = mask[:, None, :, None].float()
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention_trainable(*xs, mask)
+    got = torch.autograd.grad((out.float() * do.float() * mq).sum(), xs)
+    xf = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad((FA.flash_attention_plain(*xf, lens_t) * do.float() * mq).sum(), xf)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.bfloat16
+        mx, mean = _rel(g_, w_)
+        assert mx < 2e-2 and mean < 4e-3, (mx, mean)
+
+
+def test_flash_bwd_kernels_take_fp32(gen):
+    q, k, v, do, lens_t = _train_inputs(gen, 130, [130, 64], dtype=torch.float32)
+    o, L = FA.flash_attention_fwd_stats(q, k, v, lens_t)
+    D = (do * o).sum(-1).contiguous()
+    for got, want in zip(FA.flash_attention_bwd(q, k, v, do, L, D, lens_t),
+                         FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens_t)):
+        assert got.dtype == torch.float32
+        mx, mean = _rel(got, want)
+        assert mx < 2e-2 and mean < 4e-3, (mx, mean)
