@@ -33,7 +33,27 @@ Run from the repository root:  python3 chip_smoke.py
    a seeded synthetic mel dataset at 38,400 frames per update; checks the
    log, the EMA rule, the checkpoints and the launch counts; then ~8
    updates on one fixed batch, whose loss must fall.
-9. Prints the kernels' JSON line, then the result line.
+9. Kernel F (two-segment flash attention, MMDiT's joint-attention mask)
+   and kernels C, D, E in the two-segment mode against their plain versions:
+   the MMDiT serving shape under CFG [2, 16, 2048, 64] with seg 1024, a
+   training-like shape [8, 16, 1280, 64] with ragged segments, an odd
+   boundary (n 1077, seg 1000) in bf16 and fp32, and rows with an empty text
+   segment or no valid key; times each beside its bound, its plain version,
+   kernel A at the same valid-key count, and ``scaled_dot_product_attention``
+   forward / backward with the same boolean key mask.
+10. Full-width fp32 forwards, card vs CPU: F5TTS_MMDiT_Base
+    ``forward_with_text(attn_mask_enabled=True)`` (22 launches of F, none
+    of A) and E2TTS_Base ``forward_cfg`` (24 of A, 1 of B).
+11. Full-width F5TTS_MMDiT_Base masked gradient, card vs CPU, fp32, on the
+    training kernels (22 launches each of C, D, E in the two-segment mode).
+12. End to end: ``F5TTS(model="E2TTS_Base")`` serves a short and a long
+    request, ``F5TTS(model="F5TTS_MMDiT_Base")`` a short one (bucket <= 1024);
+    the launch counts prove every attention and ConvPositionEmbedding call
+    ran a kernel.
+13. Training: ``Trainer(E2TTS_Base, device="cuda")`` in mixed precision, 3
+    updates on seeded synthetic mels at ``E2TTS_TRAIN_FRAMES`` per update;
+    peak memory and valid frames per second.
+14. Prints the kernels' JSON line, then the result line.
 
 Any failed phase exits non-zero without the result line.  Weights are
 random, made from fixed seeds.
@@ -56,6 +76,16 @@ HBM_BPS = 3.35e12
 REF_WAV = os.path.join(REPO, "examples", "assets", "basic_ref_en.wav")
 REF_TEXT = "Some call me nature, others call me mother nature."
 NFE = 32
+SHORT_TEXT = "I don't really care what you call me."
+LONG_TEXT = " ".join([
+    "I've been a silent spectator, watching species evolve, empires rise and fall.",
+    "But always remember, I am mighty and enduring.",
+    "Respect me and I'll nurture you; ignore me and you shall face the consequences.",
+    "The rivers carve the valleys, the winds shape the mountains, and the seasons turn.",
+    "Every creature that walks, swims or flies is part of the story I keep telling.",
+    "When you plant a tree, you speak my language; when you poison a river, I listen.",
+    "Take only what you need, give back what you can, and the balance will hold.",
+])
 
 # kernel vs plain tolerances (bf16 inputs; both kernels round to bf16 where
 # the TPU kernels do: q, k, v and p for attention, the intermediate and the
@@ -72,6 +102,7 @@ GRAD_TOL = (2e-2, 4e-3)
 FULL_GRAD_REL_TOL = 1e-2
 TRAIN_FRAMES = 38_400  # configs/F5TTS_v1_Base.yaml batch_size_per_gpu
 TRAIN_B = TRAIN_FRAMES // 1024  # rows of a 1024-frame batch at that budget
+E2TTS_TRAIN_FRAMES = 38_400  # configs/E2TTS_Base.yaml batch_size_per_gpu
 # full-width fp32 forward, card vs CPU: max abs error over the output's peak.
 # Kernel B runs fp32 there; kernel A still rounds q, k, v, p to bf16 (2^-9
 # relative), which the gated residual stream carries to the output damped
@@ -188,6 +219,7 @@ def phase_full_width(torch):
     import copy
 
     from f5_tts_tpu_torch.models import dit as D
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
 
     cfg = MODEL_CONFIGS["F5TTS_v1_Base"].arch
@@ -196,7 +228,7 @@ def phase_full_width(torch):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = D.DiT(cfg).eval()
-    D.randomize_zero_init(model, torch.Generator().manual_seed(2))
+    randomize_zero_init(model, torch.Generator().manual_seed(2))
     gen = torch.Generator().manual_seed(3)
     b, n = 1, 256
     x = torch.randn((b, n, cfg.mel_dim), generator=gen)
@@ -247,7 +279,7 @@ def phase_e2e(torch):
     from f5_tts_tpu_torch.audio.preprocess import preprocess_ref_audio_text
     from f5_tts_tpu_torch.infer.api import F5TTS
     from f5_tts_tpu_torch.infer.pipeline import PipelineOptions, infer_batch_process
-    from f5_tts_tpu_torch.models.dit import randomize_zero_init
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.ops import fused_convpos as FC
     from f5_tts_tpu_torch.text.chunk import chunk_text
@@ -271,16 +303,7 @@ def phase_e2e(torch):
 
     eng.generate_batch_from_wavs = recording
     quiet = lambda *a, **k: None  # noqa: E731
-    short = "I don't really care what you call me."
-    long = " ".join([
-        "I've been a silent spectator, watching species evolve, empires rise and fall.",
-        "But always remember, I am mighty and enduring.",
-        "Respect me and I'll nurture you; ignore me and you shall face the consequences.",
-        "The rivers carve the valleys, the winds shape the mountains, and the seasons turn.",
-        "Every creature that walks, swims or flies is part of the story I keep telling.",
-        "When you plant a tree, you speak my language; when you poison a river, I listen.",
-        "Take only what you need, give back what you can, and the balance will hold.",
-    ])
+    short, long = SHORT_TEXT, LONG_TEXT
 
     def expected_len(lengths):
         total = lengths[0]
@@ -447,10 +470,12 @@ def phase_flash_train(torch):
     return rows, worst
 
 
-def _fresh_cfm(torch, arch, seed: int):
+def _fresh_cfm(torch, arch, seed: int, device: str = "cpu"):
+    """A seeded CFM built on ``device`` (on the card, the init of a full-width
+    model takes well under a second; on the CPU several)."""
     from f5_tts_tpu_torch.models.cfm import CFM
 
-    with torch.random.fork_rng(devices=[]):
+    with torch.random.fork_rng(devices=[0]), torch.device(device):
         torch.manual_seed(seed)
         return CFM(arch)
 
@@ -461,8 +486,8 @@ def phase_grad_check(torch):
 
     import numpy as np
 
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
-    from f5_tts_tpu_torch.models.dit import randomize_zero_init
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.ops import fused_convpos as FC
 
@@ -538,16 +563,19 @@ def _synthetic_dataset(np, vocab, n_rows: int, seed: int):
     return CustomDataset(rows, preprocessed_mel=True)
 
 
-def _profile_update(torch, fn) -> dict:
-    """Device time by kernel over one call of ``fn`` (torch.profiler):
-    the shares of kernels C+D+E and B, and the device busy share of wall."""
+def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool = True) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler): the
+    shares of kernels C+D+E (or A) and B, and the device busy share of wall.
+    ``host=False`` records device activity only (the host-side op records
+    of a request of ~50k small launches would slow it several times)."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         fn()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"C": ("flash_fwd_kernel",), "D": ("flash_bwd_dq_kernel",),
+    groups = {"C": ("flash_fwd_kernel",), "D": ("flash_bwd_dq_kernel",),  # C: every forward instance
               "E": ("flash_bwd_dkv_kernel",), "B": ("convpos_fwd_kernel",),
               "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
     ms = dict.fromkeys(groups, 0.0)
@@ -562,11 +590,12 @@ def _profile_update(torch, fn) -> dict:
         for g, pats in groups.items():
             if any(pat in ev.key.lower() for pat in pats):
                 ms[g] += t
-    out = {"wall_ms": wall_ms, "device_ms": total,
-           "busy_share": total / wall_ms if wall_ms else None, **{f"{g}_ms": v for g, v in ms.items()}}
+    out = {"wall_ms": wall_ms, "device_ms": total, "kernels": sum(c for _, c, _ in kernels),
+           "busy_share": total / wall_ms if wall_ms else None, **{f"{g}_ms": v for g, v in ms.items()},
+           "other_ms": total - sum(ms.values())}
     if total:
         out["CDE_share"] = (ms["C"] + ms["D"] + ms["E"]) / total
-    print("profile of one fixed-batch update: " + ", ".join(
+    print(f"profile of {label}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.items() if v is not None), flush=True)
     for t, count, key in sorted(kernels, reverse=True)[:12]:
         print(f"  {t:9.3f} ms {count:6d}x {key[:110]}", flush=True)
@@ -717,6 +746,452 @@ def phase_train(torch):
     torch.cuda.empty_cache()
     return result
 
+
+# ---------------------------------------------------------------------------
+# the UNetT / MMDiT slice: kernel F, the two-segment mode of C, D, E, and the
+# two backbones end to end
+
+
+def reset_counts() -> None:
+    """Every kernel instance's launch count to 0."""
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+
+    for kern in (*FA.KERNELS, FC.KERNEL):
+        kern.launches = 0
+
+
+def counts() -> dict:
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+
+    names = ("A", "C", "D", "E", "F", "C_seg", "D_seg", "E_seg")
+    out = {n: k.launches for n, k in zip(names, FA.KERNELS)}
+    out["B"] = FC.KERNEL.launches
+    return out
+
+
+def _seg_case(torch, gen, b, n, seg, la, lt, dtype):
+    h, dh = 16, 64
+    q, k, v, do = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    lens2 = torch.tensor([la, lt], dtype=torch.int32, device="cuda").T.contiguous()
+    return q, k, v, do, lens2
+
+
+def _check_seg(torch, FA, tag, q, k, v, do, lens2, seg):
+    """F and C, D, E (two-segment mode) against their plain versions: errors."""
+    o_f = FA.flash_attention_cuda(q, k, v, lens2, seg)
+    o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg)
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2, seg)
+    dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2, seg)
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o_ref, L_ref = FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens2, seg)
+    ref = FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D, lens2, seg)
+    f_err = (o_f.float() - o_ref).abs()
+    c_err = (o.float() - o_ref).abs()
+    l_max = (L - L_ref).abs().max().item()
+    errs = [_rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+    del ref, o_ref
+    f_max, f_mean = f_err.max().item(), f_err.mean().item()
+    c_max, c_mean = c_err.max().item(), c_err.mean().item()
+    print(f"{tag}: F max {f_max:.3e} mean {f_mean:.3e}; C o max {c_max:.3e} mean {c_mean:.3e} "
+          f"(tol {FLASH_TOL}); L max {l_max:.3e} (tol {LSE_TOL}); dq/dk/dv rel max/mean "
+          + " ".join(f"{a:.3e}/{m:.3e}" for a, m in errs) + f" (tol {GRAD_TOL})", flush=True)
+    for name, mx, mean in (("F", f_max, f_mean), ("C", c_max, c_mean)):
+        if not (mx <= FLASH_TOL[0] and mean <= FLASH_TOL[1]):
+            fail(f"{tag}: kernel {name} disagrees with its plain version")
+    if l_max > LSE_TOL:
+        fail(f"{tag}: kernel C's logsumexp disagrees with its plain version")
+    for name, (a, m) in zip(("dq", "dk", "dv"), errs):
+        if not (a <= GRAD_TOL[0] and m <= GRAD_TOL[1]):
+            fail(f"{tag}: {name} disagrees with the plain backward ({a}, {m})")
+    valid = FA.key_valid(lens2, q.shape[2], seg)
+    for i in range(q.shape[0]):
+        if torch.count_nonzero(dk[i][:, ~valid[i]]) or torch.count_nonzero(dv[i][:, ~valid[i]]):
+            fail(f"{tag}: keys outside both segments must get dk = dv = 0 exactly")
+        if not valid[i].any() and (o_f[i].abs().max().item() or o[i].abs().max().item()
+                                   or dq[i].abs().max().item()
+                                   or (L[i] != FA.NO_KEY_LSE).any().item()):
+            fail(f"{tag}: a row with no valid key must give o = 0, L = -1e30, zero gradients")
+    return {"F": f_max, "C": c_max, "D": errs[0][0], "E": max(errs[1][0], errs[2][0])}
+
+
+def _time_seg(torch, FA, q, k, v, do, lens2, seg, iters):
+    """ms of F, C, D, E (two-segment), of A, C, D, E over a prefix of the same
+    valid-key count (``*_same_kv``), of the plain versions and of SDPA
+    fwd / bwd."""
+    o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg)
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    kv = (lens2[:, 0] + lens2[:, 1]).contiguous()
+    o_p, L_p = FA.flash_attention_fwd_stats_cuda(q, k, v, kv)
+    D_p = (do.float() * o_p.float()).sum(-1).contiguous()
+    t = {"F": timed_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, lens2, seg),
+                       iters),
+         "A_same_kv": timed_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, kv), iters),
+         "C": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg),
+                       iters),
+         "D": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2,
+                                                                     seg), iters),
+         "E": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2,
+                                                                      seg), iters),
+         "C_same_kv": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, kv),
+                               iters),
+         "D_same_kv": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L_p,
+                                                                             D_p, kv), iters),
+         "E_same_kv": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L_p,
+                                                                              D_p, kv), iters)}
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    t["F_plain"] = timed_ms(torch, lambda: FA.flash_attention_two_segment_plain(qf, kf, vf, lens2,
+                                                                                seg), 3)
+    t["C_plain"] = timed_ms(torch, lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens2,
+                                                                              seg), 3)
+    t["DE_plain"] = timed_ms(torch, lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
+                                                                         lens2, seg), 3)
+    keep = FA.key_valid(lens2, q.shape[2], seg)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    t["F_lib"] = timed_ms(torch, lambda: sdpa(q, k, v, attn_mask=keep), iters)
+    fwd_g = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep), iters)
+    both = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep).backward(do), iters)
+    t["DE_lib"] = both - fwd_g
+    return t
+
+
+def phase_flash_seg(torch):
+    """Kernel F and the two-segment C, D, E against their plain versions,
+    zero rules, times."""
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    bf16 = torch.bfloat16
+    train_b = 8
+    cases = [  # (tag, b, n, seg, lens_a, lens_t, dtype, timed)
+        ("serving", 2, 2048, 1024, [1024, 812], [180, 97], bf16, True),
+        ("training", train_b, 1024 + 256, 1024,
+         [1024 - 33 * i for i in range(train_b)], [256 - 19 * i for i in range(train_b)],
+         bf16, True),
+        ("odd", 2, 1077, 1000, [1000, 811], [77, 30], bf16, False),
+        ("odd fp32", 2, 1077, 1000, [1000, 811], [77, 30], torch.float32, False),
+        ("empty", 2, 1077, 1000, [1000, 0], [0, 0], bf16, False),
+    ]
+    worst = {"F": 0.0, "C": 0.0, "D": 0.0, "E": 0.0}
+    rows = {}
+    for tag, b, n, seg, la, lt, dtype, timed in cases:
+        q, k, v, do, lens2 = _seg_case(torch, gen, b, n, seg, la, lt, dtype)
+        errs = _check_seg(torch, FA, f"flash seg {tag} b={b} n={n} seg={seg}", q, k, v, do,
+                          lens2, seg)
+        for key, e in errs.items():
+            worst[key] = max(worst[key], e)
+        if timed:
+            t = _time_seg(torch, FA, q, k, v, do, lens2, seg, 20 if b * n <= 4096 else 10)
+            kvs = [a + c for a, c in zip(la, lt)]
+            bounds = _train_bounds(b, 16, n, 64, kvs)
+            bounds["F"] = bound_ms(sum(4.0 * 16 * n * kv * 64 for kv in kvs),
+                                   4.0 * b * 16 * n * 64 * 2 + 8 * b, PEAK_BF16)
+            rows[tag] = dict(b=b, n=n, seg=seg, **t, bounds=bounds)
+            print(f"flash seg {tag} [{b}, 16, {n}, 64] seg={seg}: F {t['F']:.4f} ms (kernel A "
+                  f"at the same valid keys {t['A_same_kv']:.4f}, plain {t['F_plain']:.4f}, sdpa "
+                  f"{t['F_lib']:.4f}, bound {bounds['F'][0]:.4f} {bounds['F'][1]}); C "
+                  f"{t['C']:.4f} ms (prefix at the same valid keys {t['C_same_kv']:.4f}, plain "
+                  f"{t['C_plain']:.4f}, bound {bounds['C'][0]:.4f}); D {t['D']:.4f} ms (prefix "
+                  f"{t['D_same_kv']:.4f}, bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (prefix "
+                  f"{t['E_same_kv']:.4f}, bound {bounds['E'][0]:.4f}); plain bwd "
+                  f"{t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms", flush=True)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _fresh_backbone(torch, arch, seed: int):
+    """A seeded backbone on the card, zero-initialized gates randomized."""
+    from f5_tts_tpu_torch.models.backbones import build_backbone, randomize_zero_init
+
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(seed)
+        model = build_backbone(arch).eval()
+    randomize_zero_init(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+def _card_vs_cpu(torch, model, run):
+    """run(model, dev) with ``model`` on the card, then moved to the CPU with
+    its gradients cleared; (card result, CPU result, launches, times)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run(model, "cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launched = counts()
+    model.zero_grad(set_to_none=True)
+    model.cpu()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = run(model, "cpu")
+    return got, want, launched, t_card, time.perf_counter() - t0
+
+
+def phase_full_width_backbones(torch):
+    """F5TTS_MMDiT_Base masked forward and E2TTS_Base forward_cfg, fp32:
+    card (kernels) vs CPU (plain versions)."""
+    from f5_tts_tpu_torch.models import mmdit as M
+    from f5_tts_tpu_torch.models import unett as U
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(31)
+    b, n, nt = 2, 256, 64
+    mask = torch.arange(n)[None, :] < torch.tensor([[256], [201]])
+    text = torch.full((b, nt), -1, dtype=torch.int32)
+    text[0, :64] = torch.randint(0, 2545, (64,), generator=gen)
+    text[1, :37] = torch.randint(0, 2545, (37,), generator=gen)
+    x = torch.randn((b, n, 100), generator=gen)
+    cond = torch.randn((b, n, 100), generator=gen)
+    cond[1, 150:] = 0
+    times = torch.tensor([0.3, 0.7])
+    out = {}
+
+    cfg = MODEL_CONFIGS["F5TTS_MMDiT_Base"].arch
+    model = _fresh_backbone(torch, cfg, 32)
+
+    def run_mmdit(m, dev):
+        with torch.inference_mode():
+            args = [t.to(dev) for t in (x, cond, text, times, mask)]
+            return M.forward_with_text(m, cfg, *args[:4], mask=args[4], backend="flash",
+                                       attn_mask_enabled=True).float().cpu()
+
+    got, want, launched, t_card, t_cpu = _card_vs_cpu(torch, model, run_mmdit)
+    del model
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"full-width F5TTS_MMDiT_Base forward_with_text(attn_mask_enabled=True) fp32 b={b} "
+          f"n={n} nt={nt}: rel err {rel:.3e} (tol {FULL_WIDTH_REL_TOL}); launches F "
+          f"{launched['F']} A {launched['A']} B {launched['B']} (card {t_card:.2f} s, cpu "
+          f"{t_cpu:.2f} s)", flush=True)
+    if (launched["F"], launched["A"], launched["B"]) != (cfg.depth, 0, 1):
+        fail(f"MMDiT masked forward launches F/A/B {launched}, want {cfg.depth}, 0, 1")
+    if not torch.isfinite(got).all() or rel > FULL_WIDTH_REL_TOL:
+        fail("MMDiT masked forward: card and CPU disagree")
+    out["mmdit"] = dict(rel=rel, launches=launched)
+
+    cfg = MODEL_CONFIGS["E2TTS_Base"].arch
+    model = _fresh_backbone(torch, cfg, 33)
+    text_u = torch.randint(0, 2545, (b, 90), generator=gen).to(torch.int32)
+
+    def run_unett(m, dev):
+        with torch.inference_mode():
+            tt, xx, cc, ts, mm = (t.to(dev) for t in (text_u, x, cond, times, mask))
+            te_c = U.text_embedding(m, cfg, tt, n)
+            te_u = U.text_embedding(m, cfg, tt, n, drop_text=True)
+            pred, null = U.forward_cfg(m, cfg, xx, cc, te_c, te_u, ts, mask=mm)
+            return torch.cat([pred, null]).float().cpu()
+
+    got, want, launched, t_card, t_cpu = _card_vs_cpu(torch, model, run_unett)
+    del model
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"full-width E2TTS_Base forward_cfg fp32 b={b} n={n}: rel err {rel:.3e} (tol "
+          f"{FULL_WIDTH_REL_TOL}); launches A {launched['A']} B {launched['B']} (card "
+          f"{t_card:.2f} s, cpu {t_cpu:.2f} s)", flush=True)
+    if (launched["A"], launched["B"]) != (cfg.depth, 1):
+        fail(f"E2TTS forward_cfg launches A/B {launched}, want {cfg.depth}, 1")
+    if not torch.isfinite(got).all() or rel > FULL_WIDTH_REL_TOL:
+        fail("E2TTS forward_cfg: card and CPU disagree")
+    out["unett"] = dict(rel=rel, launches=launched)
+    return out
+
+
+def phase_mmdit_grad(torch):
+    """F5TTS_MMDiT_Base masked loss + backward in fp32: card (kernels C, D, E
+    in the two-segment mode) vs CPU (plain versions)."""
+    from f5_tts_tpu_torch.models import mmdit as M
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MODEL_CONFIGS["F5TTS_MMDiT_Base"].arch
+    model = _fresh_backbone(torch, cfg, 34).train()
+    gen = torch.Generator().manual_seed(35)
+    b, n, nt = 2, 256, 64
+    mask = torch.arange(n)[None, :] < torch.tensor([[256], [201]])
+    text = torch.full((b, nt), -1, dtype=torch.int32)
+    text[0, :64] = torch.randint(0, 2545, (64,), generator=gen)
+    text[1, :37] = torch.randint(0, 2545, (37,), generator=gen)
+    x, cond = torch.randn((b, n, 100), generator=gen), torch.randn((b, n, 100), generator=gen)
+    times = torch.tensor([0.3, 0.7])
+
+    def run(m, dev):
+        xx, cc, tt, ts, mm = (t.to(dev) for t in (x, cond, text, times, mask))
+        o = M.forward_with_text(m, cfg, xx, cc, tt, ts, mask=mm, backend="flash_train",
+                                attn_mask_enabled=True)
+        loss = ((o * mm[:, :, None]) ** 2).mean()  # tests/test_flash_attention.py:334-337
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()}
+
+    (loss_card, g_card), (loss_cpu, g_cpu), launched, t_card, t_cpu = _card_vs_cpu(
+        torch, model, run)
+    names = list(g_cpu)
+    gc = torch.cat([g_card[k].flatten() for k in names])
+    gr = torch.cat([g_cpu[k].flatten() for k in names])
+    rel_g = ((gc - gr).norm() / gr.norm()).item()
+    rel_l = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    per = {k: ((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp(min=1e-30)).item()
+           for k in names}
+    worst = max(per, key=per.get)
+    seg_launches = (launched["C_seg"], launched["D_seg"], launched["E_seg"], launched["F"])
+    print(f"full-width F5TTS_MMDiT_Base masked loss+grad fp32 b={b} n={n} nt={nt}: loss card "
+          f"{loss_card:.6f} cpu {loss_cpu:.6f} rel {rel_l:.3e}; gradient rel L2 {rel_g:.3e} over "
+          f"{gr.numel()} values (tol {FULL_GRAD_REL_TOL}); worst tensor {worst} rel "
+          f"{per[worst]:.3e}; launches C/D/E (two-segment) and F {seg_launches} (card "
+          f"{t_card:.2f} s, cpu {t_cpu:.2f} s)", flush=True)
+    if seg_launches != (cfg.depth, cfg.depth, cfg.depth, 0):
+        fail(f"MMDiT gradient launches {seg_launches}, want {cfg.depth} x 3 and 0")
+    if not (rel_l <= FULL_GRAD_REL_TOL and rel_g <= FULL_GRAD_REL_TOL) or not torch.isfinite(gc).all():
+        fail("MMDiT masked loss or gradient: card and CPU disagree")
+    return dict(loss_rel=rel_l, grad_rel=rel_g, worst=worst, worst_rel=per[worst],
+                launches=launched)
+
+
+def phase_e2e_backbone(torch, model_name: str, texts):
+    """``F5TTS(model=model_name, init_random=True)``: one warm-up request,
+    then ``texts`` (name, text) timed; every attention call must run kernel
+    A and every ConvPositionEmbedding call kernel B."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import F5TTS
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+
+    t0 = time.perf_counter()
+    tts = F5TTS(model=model_name, init_random=True, nfe_step=NFE)
+    eng = tts.engine
+    randomize_zero_init(eng.model.transformer, torch.Generator().manual_seed(36))
+    print(f"e2e: built {model_name} on {eng.device} in {eng.dtype} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    depth = tts.model_cfg.arch.depth
+    calls = []  # (rows, bucket) of every engine call
+    inner = eng.generate_batch_from_wavs
+
+    def recording(ref_wavs, text_ids_list, durations, *a, **kw):
+        from f5_tts_tpu_torch.infer.engine import pick_bucket
+
+        out = inner(ref_wavs, text_ids_list, durations, *a, **kw)
+        calls.append((len(durations), pick_bucket(max(durations), eng.buckets)))
+        return out
+
+    eng.generate_batch_from_wavs = recording
+    quiet = lambda *a, **k: None  # noqa: E731
+    t0 = time.perf_counter()
+    tts.infer(REF_WAV, REF_TEXT, texts[0][1], show_info=quiet, seed=1)
+    torch.cuda.synchronize()
+    print(f"e2e {model_name} warm-up request: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    calls.clear()
+    reset_counts()
+    results = []
+    for name, text in texts:
+        before = len(calls)
+        t0 = time.perf_counter()
+        wav, out_sr, _ = tts.infer(REF_WAV, REF_TEXT, text, show_info=quiet, seed=7)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        new = calls[before:]
+        if wav is None or not len(wav) or not np.isfinite(wav).all():
+            fail(f"{model_name} {name}: no finite wav")
+        results.append(dict(request=name, wall_s=wall, audio_s=len(wav) / out_sr,
+                            rtf=wall / (len(wav) / out_sr), rows=sum(c[0] for c in new),
+                            buckets=[c[1] for c in new], calls=len(new)))
+    launched, n_calls = counts(), len(calls)
+    want_a, want_b = depth * NFE * n_calls, NFE * n_calls
+    # one more request under the profiler, after the counts are read; its
+    # device time over the same request's unprofiled wall is the busy share
+    prof = _profile_update(torch, lambda: (tts.infer(REF_WAV, REF_TEXT, texts[0][1],
+                                                     show_info=quiet, seed=7),
+                                           torch.cuda.synchronize()),
+                           f"one {model_name} {texts[0][0]} request (device activity only)",
+                           host=False)
+    prof["busy_share_of_unprofiled_wall"] = prof["device_ms"] / (results[0]["wall_s"] * 1e3)
+    print(f"e2e {model_name} {texts[0][0]}: device busy {prof['device_ms']:.1f} ms of "
+          f"{results[0]['wall_s'] * 1e3:.1f} ms unprofiled wall, share "
+          f"{prof['busy_share_of_unprofiled_wall']:.3f}", flush=True)
+    print(f"e2e {model_name} launches: flash_attention {launched['A']} (want {depth} x {NFE} x "
+          f"{n_calls}), fused_convpos {launched['B']} (want {NFE} x {n_calls}), F "
+          f"{launched['F']}", flush=True)
+    if launched["A"] != want_a or launched["B"] != want_b:
+        fail(f"{model_name}: an attention or ConvPositionEmbedding call bypassed its kernel")
+    for r in results:
+        print(f"e2e {model_name} {r['request']}: {r['calls']} engine call(s), {r['rows']} row(s) "
+              f"at bucket(s) {r['buckets']}, {r['audio_s']:.2f} s audio in {r['wall_s']:.2f} s "
+              f"wall, RTF {r['rtf']:.4f}", flush=True)
+    del tts, eng
+    torch.cuda.empty_cache()
+    return dict(results=results, launches=launched, profile=prof)
+
+
+def phase_train_e2tts(torch):
+    """Trainer(E2TTS_Base) at full width on the card, mixed precision."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+    from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import Trainer
+
+    vocab, vocab_size = get_tokenizer(None, "pinyin")
+    cfg = with_vocab_size(MODEL_CONFIGS["E2TTS_Base"], vocab_size)
+    depth = cfg.arch.depth
+    # rows of 3-15 s hold ~840 frames on average: ~3 updates' worth
+    ds = _synthetic_dataset(np, vocab, 3 * E2TTS_TRAIN_FRAMES // 840, seed=40)
+    opt = S.OptimConfig(mixed_precision=True, num_warmup_updates=1)
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_e2tts_", dir=os.path.join(REPO, ".cache"))
+    try:
+        trainer = Trainer(cfg, vocab, opt, ckpt_dir=workdir,
+                          batch_size_per_device=E2TTS_TRAIN_FRAMES, max_samples=64,
+                          save_per_updates=10**9, last_per_updates=10**9, log_every_updates=1,
+                          device="cuda", seed=42)
+        model = _fresh_cfm(torch, cfg.arch, 43, device="cuda")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, ema, update = trainer.train(model, ds, epochs=1, resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        log = [_json.loads(x) for x in open(os.path.join(workdir, "train_log.jsonl"))]
+        micro = log[-1]["micro_step"]
+        for rec in log:
+            print(f"E2TTS train update {rec['update']}: {rec['step_time_s']:.3f} s wall, "
+                  f"{rec['valid_frames']} frames ({rec['frames']} padded), "
+                  f"{rec['valid_frames'] / rec['step_time_s']:.0f} frames/s, loss "
+                  f"{rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f}, max_memory_allocated "
+                  f"{rec['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        print(f"E2TTS train: {update} updates at {E2TTS_TRAIN_FRAMES} frames per update in "
+              f"{wall:.1f} s (with the final checkpoint write); launches C/D/E/B/A "
+              f"{[launched[k] for k in 'CDEBA']}", flush=True)
+        if update < 3 or len(log) != update:
+            fail(f"E2TTS training ran {update} updates, logged {len(log)}; want >= 3")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in log):
+            fail("E2TTS training log holds a non-finite loss or grad_norm")
+        if [launched[k] for k in "CDEBA"] != [depth * micro] * 3 + [micro, 0]:
+            fail(f"E2TTS training launches {launched}, want {depth} x {micro} x 3, {micro}, 0")
+        steps = [r for r in log if r["update"] > 1]  # update 1 pays one-time setup
+        result = dict(frames_per_update=E2TTS_TRAIN_FRAMES, updates=update,
+                      update_s=sum(r["step_time_s"] for r in steps) / len(steps),
+                      frames_per_s=sum(r["valid_frames"] for r in steps)
+                      / sum(r["step_time_s"] for r in steps),
+                      peak_gib=max(r["max_memory_allocated"] for r in log) / 2**30,
+                      launches=launched)
+        del trainer, model, ema
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -742,16 +1217,48 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
+    t_start = time.perf_counter()
+    clock = {"t": t_start}
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock['t']:.1f} s", flush=True)
+        clock["t"] = now
+
     flash_rows, flash_err = phase_flash(torch)
     conv_rows, conv_err = phase_convpos(torch)
+    lap("2-3 (kernels A, B)")
     rel = phase_full_width(torch)
     if rel > FULL_WIDTH_REL_TOL:
         fail(f"full-width forward rel err {rel} > {FULL_WIDTH_REL_TOL}")
+    lap("4 (DiT forward)")
     launches_a, launches_b = phase_e2e(torch)
+    lap("5 (DiT serving)")
     train_rows, train_err = phase_flash_train(torch)
+    lap("6 (kernels C, D, E)")
     grad = phase_grad_check(torch)
+    lap("7 (DiT gradient)")
     train = phase_train(torch)  # sets the counts to 0 just before its Trainer run
+    lap("8 (DiT training)")
     print(f"summary: grad check {grad}; training {train}", flush=True)
+
+    seg_rows, seg_err = phase_flash_seg(torch)
+    lap("9 (kernel F, two-segment C, D, E)")
+    full = phase_full_width_backbones(torch)  # counts set to 0 before each card forward
+    lap("10 (MMDiT, UNetT forwards)")
+    mm_grad = phase_mmdit_grad(torch)  # likewise
+    lap("11 (MMDiT gradient)")
+    e2tts = phase_e2e_backbone(torch, "E2TTS_Base", [("short", SHORT_TEXT),
+                                                     ("long", LONG_TEXT)])
+    mmdit = phase_e2e_backbone(torch, "F5TTS_MMDiT_Base", [("short", SHORT_TEXT)])
+    lap("12 (E2TTS, MMDiT serving)")
+    e2tts_train = phase_train_e2tts(torch)
+    lap("13 (E2TTS training)")
+    print(f"summary: full-width {full}; MMDiT gradient {mm_grad}; E2TTS serving {e2tts}; MMDiT "
+          f"serving {mmdit}; E2TTS training {e2tts_train}", flush=True)
+    # the card and the build again, where the end of a long output still shows them
+    print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
+          f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
 
     def entry(name, source, replaces, launches, err, rows):
         r = next(r for r in rows if r["n"] == 1024)  # the 1024-frame bucket
@@ -783,6 +1290,30 @@ def main() -> int:
                     "f5_tts_tpu/ops/flash_attention.py:81", train["launches"]["D"], fab),
         train_entry("flash_attention_bwd_dkv", "E", "DE_plain", "DE_lib",
                     "f5_tts_tpu/ops/flash_attention.py:112", train["launches"]["E"], fab),
+    ]
+    def seg_entry(name, key, plain, lib, replaces, launches, row, err_kind):
+        r = seg_rows[row]
+        return {"name": name, "route": "cuda", "source": fa if key in "FC" else fab,
+                "replaces": replaces, "launches": launches, "max_abs_err": seg_err[key],
+                "ms": r[key], "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
+                "bound_by": r["bounds"][key][1], "library_ms": r[lib],
+                "shape": [r["b"], 16, r["n"], 64], "seg": r["seg"], "err_kind": err_kind,
+                "launches_from": "F5TTS_MMDiT_Base masked forward" if key == "F"
+                else "F5TTS_MMDiT_Base masked gradient"}
+
+    kernels += [
+        seg_entry("flash_attention_fwd_seg", "F", "F_plain", "F_lib",
+                  "f5_tts_tpu/ops/flash_attention.py:463", full["mmdit"]["launches"]["F"],
+                  "serving", "abs"),
+        seg_entry("flash_attention_fwd_stats_seg", "C", "C_plain", "F_lib",
+                  "f5_tts_tpu/ops/flash_attention.py:45", mm_grad["launches"]["C_seg"],
+                  "training", "abs"),
+        seg_entry("flash_attention_bwd_dq_seg", "D", "DE_plain", "DE_lib",
+                  "f5_tts_tpu/ops/flash_attention.py:81", mm_grad["launches"]["D_seg"],
+                  "training", "relative to max |reference|"),
+        seg_entry("flash_attention_bwd_dkv_seg", "E", "DE_plain", "DE_lib",
+                  "f5_tts_tpu/ops/flash_attention.py:112", mm_grad["launches"]["E_seg"],
+                  "training", "relative to max |reference|"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -58,7 +58,62 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-#define F5_EXPORT_ERROR_STRING                                   \
+// Key-column mask of the flash-attention kernels: keys valid in
+// [0, a) U [s0, s1).  The single-prefix mode reads lens int32 [b] and has an
+// empty second segment; the two-segment mode (MMDiT's joint [audio, text]
+// sequence, the TPU kernels' static `seg`) reads lens int32 [b, 2] as
+// (len_a, len_t) and puts the second segment at [seg, seg + len_t).  Every
+// bound is clamped to [0, n], so a column at or past n is never valid.
+struct KeyMask {
+  int a, s0, s1;
+  __device__ __forceinline__ bool valid(int col) const {
+    return col < a || (col >= s0 && col < s1);
+  }
+  // does [c0, c1) hold a valid key?
+  __device__ __forceinline__ bool any(int c0, int c1) const {
+    return c0 < a || (s0 < s1 && c0 < s1 && c1 > s0);
+  }
+};
+
+template <bool SEG>
+__device__ __forceinline__ KeyMask key_mask(const int* __restrict__ lens, int b, int n, int seg) {
+  KeyMask m;
+  if constexpr (SEG) {
+    m.a = min(max(lens[2 * b], 0), n);
+    const int lt = min(max(lens[2 * b + 1], 0), n);
+    m.s0 = min(max(seg, 0), n);
+    m.s1 = min(m.s0 + lt, n);
+  } else {
+    m.a = min(max(lens[b], 0), n);
+    m.s0 = m.s1 = 0;
+  }
+  return m;
+}
+
+// The key tiles of width bk that hold a valid key, in order: [0, t1) (the
+// first segment) and [t2, t3) (the tiles covering the second segment that
+// the first range has not visited).  Tiles wholly inside the gap [a, s0)
+// are skipped; a tile that straddles a boundary is visited once and keeps
+// its per-column test.
+struct KeyTiles {
+  int t1, t2, t3;
+  __device__ __forceinline__ int count() const { return t1 + t3 - t2; }
+  __device__ __forceinline__ int tile(int i) const { return i < t1 ? i : t2 + (i - t1); }
+};
+
+__device__ __forceinline__ KeyTiles key_tiles(const KeyMask& m, int bk) {
+  KeyTiles t;
+  t.t1 = (m.a + bk - 1) / bk;
+  if (m.s1 > m.s0) {
+    t.t2 = max(t.t1, m.s0 / bk);
+    t.t3 = max(t.t2, (m.s1 + bk - 1) / bk);
+  } else {
+    t.t2 = t.t3 = t.t1;
+  }
+  return t;
+}
+
+#define F5_EXPORT_ERROR_STRING                                 \
   extern "C" const char* cuda_error_string(int code) {           \
     return cudaGetErrorString(static_cast<cudaError_t>(code));   \
   }

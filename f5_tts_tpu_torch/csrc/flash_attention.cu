@@ -12,6 +12,14 @@
 // as fp32 [b, h, n], and L = -1e30 for a row with no valid key.  The
 // backward kernels (flash_attention_bwd.cu) recompute p from it.
 //
+// Kernel F (the template with SEG) replaces _kernel_seg (called through
+// _flash_seg / flash_attention_two_segment), MMDiT's joint attention over
+// the concatenated [audio, text] sequence: keys are valid in
+// [0, len_a) U [seg, seg + len_t), lens int32 [b, 2].  With WITH_LSE too it
+// is kernel C's two-segment mode, _kernel_fwd_stats with a static `seg`.
+// A row whose two segments are both empty gives o = 0 and L = -1e30 (the
+// TPU kernel gives the mean of v there).
+//
 // Design.  One block of 4 warps per (b*h, tile of 64 query rows); each warp
 // owns 16 rows.  The block loops over key tiles of 64 staged in shared
 // memory (K row-major, V transposed), so any n works and shared memory stays
@@ -19,16 +27,22 @@
 // (512 KB each at n = 4096) does not fit Hopper's 227 KB.  Scores and P.V run
 // on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the
 // online softmax runs in the exp2 domain with scale*log2(e) folded into q
-// before its bf16 cast, as the TPU kernel does.  The key loop stops at the
-// last tile holding a valid key (the tiles past it contribute exactly 0),
-// and ragged query / key tails are masked, so no length is rejected.
+// before its bf16 cast, as the TPU kernel does.  The key loop visits only
+// the tiles holding a valid key (common.cuh key_tiles): the prefix tiles
+// and, in the two-segment mode, the tiles covering [seg, seg + len_t),
+// skipping the gap between the segments; the tiles it skips contribute
+// exactly 0.  Every visited tile keeps the per-column test, so a segment
+// boundary inside a tile (seg need not be a multiple of 64) and the ragged
+// query / key tails are masked, and no length is rejected.
 //
 // Bound on the H100: at dh = 64 the work is 4*n*n*dh flops per (b, h)
 // against 4*n*dh*2 bytes moved, i.e. ~n/2 flops per byte: compute-bound for
 // n above ~600 at the bf16 tensor-core rate.  This first version issues
 // mma.sync from registers with no TMA / wgmma pipelining, so it reaches a
 // fraction of that rate; the wgmma + TMA version is later work.  Kernel C
-// adds n*4 bytes of L and no products, so the same bound holds for it.
+// adds n*4 bytes of L and no products, so the same bound holds for it; in
+// the two-segment mode the work is 4*n*kv*dh flops for kv = len_a + len_t
+// valid keys.
 
 #include "common.cuh"
 
@@ -42,19 +56,19 @@ constexpr int LDS = DH + 8;   // padded row (bf16): conflict-free fragment loads
 constexpr float LOG2E_F = 1.4426950408889634f;
 constexpr float NO_KEY_LSE = -1e30f;  // L of a row with no valid key
 
-template <typename T, bool WITH_LSE>
+template <typename T, bool WITH_LSE, bool SEG>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ lens, T* __restrict__ o, float* __restrict__ lse,
-                 int heads, int n, float qscale) {
+                 int heads, int n, int seg, float qscale) {
   __shared__ __align__(16) __nv_bfloat16 sQ[BQ][LDS];
   __shared__ __align__(16) __nv_bfloat16 sK[BK][LDS];
   __shared__ __align__(16) __nv_bfloat16 sVt[DH][BK + 8];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  int L = lens[bh / heads];
-  L = L < 0 ? 0 : (L > n ? n : L);
+  const KeyMask km = key_mask<SEG>(lens, bh / heads, n, seg);
+  const KeyTiles tiles = key_tiles(km, BK);
   const size_t base = static_cast<size_t>(bh) * n * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
@@ -88,9 +102,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, rows g and g + 8
   float l_lo = 0.f, l_hi = 0.f;              // running denominators
 
-  const int n_tiles = (L + BK - 1) / BK;  // every tile below has >= 1 valid key
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
+  const int n_tiles = tiles.count();  // every tile visited has >= 1 valid key
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = tiles.tile(it) * BK;
     __syncthreads();  // the previous tile is consumed
     for (int idx = tid; idx < BK * DH / 8; idx += NTHREADS) {
       const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
@@ -126,7 +140,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        if (col >= L) s[j][e] = -INFINITY;
+        if (!km.valid(col)) s[j][e] = -INFINITY;
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
@@ -175,7 +189,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
-  // o = acc / max(l, 1e-30): a row with no valid key (L == 0) stays 0
+  // o = acc / max(l, 1e-30): a row with no valid key (no tile visited) stays 0
   const float dl = fmaxf(l_lo, 1e-30f), dh_ = fmaxf(l_hi, 1e-30f);
   const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
 #pragma unroll
@@ -203,21 +217,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <bool WITH_LSE>
+template <bool WITH_LSE, bool SEG>
 int launch_fwd(const void* q, const void* k, const void* v, const void* lens, void* o, float* lse,
-               int b, int h, int n, int dh, int dtype, float qscale, void* stream) {
+               int b, int h, int n, int dh, int dtype, int seg, float qscale, void* stream) {
   if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
+  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
   const dim3 grid((n + BQ - 1) / BQ, b * h);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
-    flash_fwd_kernel<__nv_bfloat16, WITH_LSE><<<grid, NTHREADS, 0, st>>>(
+    flash_fwd_kernel<__nv_bfloat16, WITH_LSE, SEG><<<grid, NTHREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
-        static_cast<__nv_bfloat16*>(o), lse, h, n, qscale);
+        static_cast<__nv_bfloat16*>(o), lse, h, n, seg, qscale);
   } else if (dtype == kFloat32) {
-    flash_fwd_kernel<float, WITH_LSE><<<grid, NTHREADS, 0, st>>>(
+    flash_fwd_kernel<float, WITH_LSE, SEG><<<grid, NTHREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const int*>(lens), static_cast<float*>(o), lse, h, n, qscale);
+        static_cast<const int*>(lens), static_cast<float*>(o), lse, h, n, seg, qscale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -233,13 +248,33 @@ F5_EXPORT_ERROR_STRING
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* lens,
                                    void* o, int b, int h, int n, int dh, int dtype, float qscale,
                                    void* stream) {
-  return launch_fwd<false>(q, k, v, lens, o, nullptr, b, h, n, dh, dtype, qscale, stream);
+  return launch_fwd<false, false>(q, k, v, lens, o, nullptr, b, h, n, dh, dtype, 0, qscale,
+                                  stream);
 }
 
 // Kernel C: as flash_attention_fwd, plus lse: fp32 [b, h, n] contiguous.
 extern "C" int flash_attention_fwd_stats(const void* q, const void* k, const void* v,
                                          const void* lens, void* o, void* lse, int b, int h,
                                          int n, int dh, int dtype, float qscale, void* stream) {
-  return launch_fwd<true>(q, k, v, lens, o, static_cast<float*>(lse), b, h, n, dh, dtype, qscale,
-                          stream);
+  return launch_fwd<true, false>(q, k, v, lens, o, static_cast<float*>(lse), b, h, n, dh, dtype,
+                                 0, qscale, stream);
+}
+
+// Kernel F: as flash_attention_fwd with the two-segment key mask; lens:
+// int32 [b, 2] (len_a, len_t) on the device, 0 <= seg <= n.
+extern "C" int flash_attention_fwd_seg(const void* q, const void* k, const void* v,
+                                       const void* lens, void* o, int b, int h, int n, int dh,
+                                       int dtype, int seg, float qscale, void* stream) {
+  return launch_fwd<false, true>(q, k, v, lens, o, nullptr, b, h, n, dh, dtype, seg, qscale,
+                                 stream);
+}
+
+// Kernel C in the two-segment mode: as flash_attention_fwd_stats, with lens
+// and seg as flash_attention_fwd_seg.
+extern "C" int flash_attention_fwd_stats_seg(const void* q, const void* k, const void* v,
+                                             const void* lens, void* o, void* lse, int b, int h,
+                                             int n, int dh, int dtype, int seg, float qscale,
+                                             void* stream) {
+  return launch_fwd<true, true>(q, k, v, lens, o, static_cast<float*>(lse), b, h, n, dh, dtype,
+                                seg, qscale, stream);
 }

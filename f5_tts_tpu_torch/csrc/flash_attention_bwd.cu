@@ -9,7 +9,10 @@
 // logsumexp L (kernel C), ds_ij = p_ij (do_i . v_j - D_i), D_i the caller's
 // rowsum(do_i * o_i) (minus the logsumexp cotangent, for
 // flash_attention_with_stats).  Keys are valid only in [0, lens[b]); every
-// query row is computed, padded ones included.
+// query row is computed, padded ones included.  The SEG instances are the
+// TPU kernels' two-segment mode (static `seg`, MMDiT's joint attention):
+// lens int32 [b, 2] = (len_a, len_t), keys valid in
+// [0, len_a) U [seg, seg + len_t) (common.cuh KeyMask).
 //
 // Design.  As in the TPU kernels the two halves are separate launches: D
 // walks key tiles for a fixed query tile, E walks query tiles for a fixed
@@ -23,8 +26,10 @@
 // whatever n is.  Rounding follows the TPU kernels: q prescaled by
 // scale*log2(e) then rounded to bf16 for the scores (p = exp2(s2 - L log2 e)),
 // raw q, k, v, do, p and ds rounded to bf16 for the products.  p is forced
-// to 0 on masked keys.  D stops at the last key tile holding a valid key;
-// E writes zeros for a key tile that starts at or past lens[b] and returns.
+// to 0 on masked keys.  D visits only the key tiles holding a valid key
+// (common.cuh key_tiles: the prefix, and in the two-segment mode the tiles
+// covering the second segment, skipping the gap); E writes zeros for a key
+// tile that holds no valid key in either segment and returns.
 //
 // Bound on the H100: per (b, h), with kv valid keys, D does 6*n*kv*dh flops
 // and E 8*n*kv*dh against ~(5*n*dh*2 + 2*n*4) bytes, i.e. ~n flops per byte:
@@ -44,10 +49,6 @@ constexpr int NTHREADS = 128;  // 4 warps x 16 rows
 constexpr int LDS = DH + 8;    // padded row-major tile row (bf16)
 constexpr int LDT = BR + 8;    // padded transposed tile row (bf16)
 constexpr float LOG2E_F = 1.4426950408889634f;
-
-// Key-column validity: the single valid prefix [0, len).  The two-segment
-// MMDiT mask (the TPU kernels' static `seg` mode) belongs here too.
-__device__ __forceinline__ bool key_valid(int col, int len) { return col < len; }
 
 // Stage rows [r0, r0 + BR) of a [n, DH] matrix as bf16: row-major into rm
 // (scaled by mul before rounding) and, when tr is given, transposed and
@@ -101,20 +102,20 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int j, const float* 
   a[kc][hi + 1] = pack_bf16(c[2], c[3]);
 }
 
-template <typename T>
+template <typename T, bool SEG>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ lens,
-                    T* __restrict__ dq, int heads, int n, float qscale, float scale) {
+                    T* __restrict__ dq, int heads, int n, int seg, float qscale, float scale) {
   __shared__ __align__(16) __nv_bfloat16 sA[BR][LDS];  // q tile, then each K tile
   __shared__ __align__(16) __nv_bfloat16 sB[BR][LDS];  // do tile, then each V tile
   __shared__ __align__(16) __nv_bfloat16 sKt[DH][LDT];
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BR;
-  int len = lens[bh / heads];
-  len = len < 0 ? 0 : (len > n ? n : len);
+  const KeyMask km = key_mask<SEG>(lens, bh / heads, n, seg);
+  const KeyTiles tiles = key_tiles(km, BR);
   const size_t base = static_cast<size_t>(bh) * n * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -139,9 +140,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int d = 0; d < 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  const int n_tiles = (len + BR - 1) / BR;  // every tile below has >= 1 valid key
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BR;
+  const int n_tiles = tiles.count();  // every tile visited has >= 1 valid key
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = tiles.tile(it) * BR;
     __syncthreads();  // the previous tile (or the q / do fragments) is consumed
     stage(k + base, k0, n, 1.f, sA, sKt);
     stage(v + base, k0, n, 1.f, sB, nullptr);
@@ -157,7 +158,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        const float p = key_valid(col, len) ? exp2f(s[e] - (e < 2 ? l2_lo : l2_hi)) : 0.f;
+        const float p = km.valid(col) ? exp2f(s[e] - (e < 2 ? l2_lo : l2_hi)) : 0.f;
         ds[e] = p * (dp[e] - (e < 2 ? d_lo : d_hi));
       }
       pack_a(dsa, j, ds);
@@ -182,13 +183,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T>
+template <typename T, bool SEG>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ lens,
-                     T* __restrict__ dk, T* __restrict__ dv, int heads, int n, float qscale,
-                     float scale) {
+                     T* __restrict__ dk, T* __restrict__ dv, int heads, int n, int seg,
+                     float qscale, float scale) {
   __shared__ __align__(16) __nv_bfloat16 sQs[BR][LDS];  // K tile, then each prescaled q tile
   __shared__ __align__(16) __nv_bfloat16 sDO[BR][LDS];  // V tile, then each do tile
   __shared__ __align__(16) __nv_bfloat16 sQt[DH][LDT];  // raw q, transposed
@@ -197,11 +198,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BR;
-  int len = lens[bh / heads];
-  len = len < 0 ? 0 : (len > n ? n : len);
+  const KeyMask km = key_mask<SEG>(lens, bh / heads, n, seg);
   const size_t base = static_cast<size_t>(bh) * n * DH;
 
-  if (k0 >= len) {  // no valid key in this tile: its gradients are exactly 0
+  if (!km.any(k0, k0 + BR)) {  // no valid key in this tile: its gradients are exactly 0
     for (int idx = threadIdx.x; idx < BR * DH; idx += NTHREADS) {
       const int r = idx / DH;
       if (k0 + r < n) {
@@ -225,7 +225,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   load_a(sDO, wk, g, t4, va);
 
   const int r_lo = k0 + wk + g, r_hi = r_lo + 8;
-  const bool valid_lo = key_valid(r_lo, len), valid_hi = key_valid(r_hi, len);
+  const bool valid_lo = km.valid(r_lo), valid_hi = km.valid(r_hi);
   const float* lrow = lse + static_cast<size_t>(bh) * n;
   const float* drow = delta + static_cast<size_t>(bh) * n;
 
@@ -294,8 +294,60 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-bool bad_shape(int b, int h, int n, int dh) {
-  return dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535;
+template <bool SEG>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* lens, void* dq, int b, int h, int n, int dh,
+              int dtype, int seg, float qscale, float scale, void* stream) {
+  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
+  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
+  const dim3 grid((n + BR - 1) / BR, b * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* L = static_cast<const float*>(lse);
+  const float* D = static_cast<const float*>(delta);
+  const int* ln = static_cast<const int*>(lens);
+  if (dtype == kBFloat16) {
+    using T = __nv_bfloat16;
+    flash_bwd_dq_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, seg, qscale, scale);
+  } else if (dtype == kFloat32) {
+    using T = float;
+    flash_bwd_dq_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, seg, qscale, scale);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SEG>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, const void* lens, void* dk, void* dv, int b, int h, int n,
+               int dh, int dtype, int seg, float qscale, float scale, void* stream) {
+  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
+  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
+  const dim3 grid((n + BR - 1) / BR, b * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* L = static_cast<const float*>(lse);
+  const float* D = static_cast<const float*>(delta);
+  const int* ln = static_cast<const int*>(lens);
+  if (dtype == kBFloat16) {
+    using T = __nv_bfloat16;
+    flash_bwd_dkv_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
+        seg, qscale, scale);
+  } else if (dtype == kFloat32) {
+    using T = float;
+    flash_bwd_dkv_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
+        seg, qscale, scale);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -309,26 +361,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       const void* lens, void* dq, int b, int h, int n, int dh,
                                       int dtype, float qscale, float scale, void* stream) {
-  if (bad_shape(b, h, n, dh)) return cudaErrorInvalidValue;
-  const dim3 grid((n + BR - 1) / BR, b * h);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* L = static_cast<const float*>(lse);
-  const float* D = static_cast<const float*>(delta);
-  const int* ln = static_cast<const int*>(lens);
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dq_kernel<T><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, qscale, scale);
-  } else if (dtype == kFloat32) {
-    using T = float;
-    flash_bwd_dq_kernel<T><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, qscale, scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq<false>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, dtype, 0, qscale,
+                          scale, stream);
 }
 
 // Kernel E.  As kernel D, with dk, dv: [b, h, n, dh] in the inputs' dtype.
@@ -337,26 +371,27 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        const void* lens, void* dk, void* dv, int b, int h, int n,
                                        int dh, int dtype, float qscale, float scale,
                                        void* stream) {
-  if (bad_shape(b, h, n, dh)) return cudaErrorInvalidValue;
-  const dim3 grid((n + BR - 1) / BR, b * h);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* L = static_cast<const float*>(lse);
-  const float* D = static_cast<const float*>(delta);
-  const int* ln = static_cast<const int*>(lens);
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dkv_kernel<T><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
-        qscale, scale);
-  } else if (dtype == kFloat32) {
-    using T = float;
-    flash_bwd_dkv_kernel<T><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
-        qscale, scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv<false>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, dtype, 0,
+                           qscale, scale, stream);
+}
+
+// Kernel D in the two-segment mode: lens int32 [b, 2] (len_a, len_t),
+// 0 <= seg <= n.
+extern "C" int flash_attention_bwd_dq_seg(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          const void* lens, void* dq, int b, int h, int n,
+                                          int dh, int dtype, int seg, float qscale, float scale,
+                                          void* stream) {
+  return launch_dq<true>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, dtype, seg, qscale,
+                         scale, stream);
+}
+
+// Kernel E in the two-segment mode: lens and seg as kernel D's.
+extern "C" int flash_attention_bwd_dkv_seg(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           const void* lens, void* dk, void* dv, int b, int h,
+                                           int n, int dh, int dtype, int seg, float qscale,
+                                           float scale, void* stream) {
+  return launch_dkv<true>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, dtype, seg,
+                          qscale, scale, stream);
 }

@@ -4,9 +4,11 @@ JAX counterpart: ``f5_tts_tpu/infer/api.py:43-296`` (itself the reference
 ``f5_tts.api.F5TTS`` surface): the same constructor keywords and the same
 ``infer()`` signature and (wav, sr, spec) return.
 
-The engine runs on the card: ``device=None`` means ``"cuda"`` and raises if
-CUDA is unavailable; only an explicit ``device="cpu"`` runs on the CPU (the
-DiT then runs in fp32, on the card in bf16).  Checkpoints load from
+``model`` names any shipped architecture of the three backbones
+(``F5TTS_v1_Base``, ``E2TTS_Base``, ``F5TTS_MMDiT_Base`` ...).  The engine
+runs on the card: ``device=None`` means ``"cuda"`` and raises if CUDA is
+unavailable; only an explicit ``device="cpu"`` runs on the CPU (the
+backbone then runs in fp32, on the card in bf16).  Checkpoints load from
 ``ckpt_file`` / ``vocoder_local_path`` (reference-named ``.pt`` or
 ``.safetensors``); ``init_random=True`` builds seeded random weights.  Hub
 resolution, the Whisper fallback for an empty ``ref_text`` and AOT artifacts

@@ -3,13 +3,17 @@
 JAX counterpart: ``f5_tts_tpu/infer/engine.py``.  ``sample_and_decode_from_wav``
 is the counterpart of the fused ``_sample_and_decode_from_wav`` graph:
 ref-mel extraction, ``cfm.sample`` (the NFE Euler loop over the fused-CFG
-DiT) and the Vocos decode, each on the engine's device.  It takes the noise
+backbone: DiT, UNetT or MMDiT) and the Vocos decode, each on the engine's
+device.  It takes the noise
 as an explicit tensor; the engine's public methods draw it per row from
 ``torch.Generator(device).manual_seed(seed)``, so a row's noise depends only
 on its seed and the bucket, not on the batch it rides in.
 
 Target durations round up to frame buckets; every dynamic length is a mask.
-The DiT runs in the engine's dtype (bf16 on the card), the vocoder in fp32.
+The text ids are padded to the bucket width, so MMDiT, whose text stream
+is capped at ``text_max_pos`` tokens, serves buckets up to that length and
+raises above it.  The backbone runs in the engine's dtype (bf16 on the
+card), the vocoder in fp32.
 Options that belong to later slices of the port (W8A8, the time-parallel
 window, the einsum-tap convpos) raise if set.
 """
@@ -23,8 +27,8 @@ import numpy as np
 import torch
 
 from f5_tts_tpu_torch.models import cfm, vocos
+from f5_tts_tpu_torch.models.backbones import get_backbone
 from f5_tts_tpu_torch.models.configs import ModelConfig
-from f5_tts_tpu_torch.models.dit import fuse_for_inference
 from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, num_frames, stft_pad_amount
 
 SILENCE_FLOOR = float(np.log(1e-5))
@@ -130,8 +134,8 @@ def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarr
 
 
 class InferenceEngine:
-    """Holds the DiT (``CFM.transformer``) and vocoder on one device; exposes
-    batch mel / waveform generation."""
+    """Holds the backbone (``CFM.transformer``) and vocoder on one device;
+    exposes batch mel / waveform generation."""
 
     def __init__(self, model, model_cfg: ModelConfig, vocoder=None, dtype=torch.float32,
                  buckets=DEFAULT_BUCKETS, options: EngineOptions = EngineOptions()):
@@ -141,7 +145,9 @@ class InferenceEngine:
         self.options = options
         self.model = model.to(dtype=dtype).eval()
         self.device = next(self.model.parameters()).device
-        fuse_for_inference(self.model.transformer)
+        backbone = get_backbone(model_cfg.arch)
+        if hasattr(backbone, "fuse_for_inference"):  # DiT and UNetT, as JAX engine.py:231-236
+            backbone.fuse_for_inference(self.model.transformer)
         self.vocoder = None if vocoder is None else vocoder.to(self.device, torch.float32).eval()
         self.hop = model_cfg.mel.hop_length
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)

@@ -3,10 +3,13 @@ training loss.
 
 JAX counterpart: ``f5_tts_tpu/models/cfm.py`` (``timestep_schedule`` and
 ``SampleOptions`` :28-87, ``sample`` :174-457, ``mask_from_frac_lengths``
-and ``loss`` :460-575).  The NFE loop is a Python loop of fused-CFG
-forwards (cond and uncond as one 2B batch), with the AdaLN modulations of
-the whole schedule precomputed before it (Euler) and the carry kept in the
-compute dtype.  The time-parallel (Picard) window is not ported yet; asking
+and ``loss`` :460-575).  Both run any backbone through
+``backbones.get_backbone`` (JAX :227, :548); MMDiT also gets the text
+stream's mask ``c_mask = text_ids != -1``.  The NFE loop is a Python loop of
+fused-CFG forwards (cond and uncond as one 2B batch), with the AdaLN
+modulations of the whole schedule precomputed before it where the backbone
+has ``precompute_adaln`` (DiT; Euler) and the carry kept in the compute
+dtype.  The time-parallel (Picard) window is not ported yet; asking
 for it raises.
 
 The loss draws its randomness from explicit ``torch.Generator``s: the noise,
@@ -15,7 +18,8 @@ decisions (one Bernoulli each per step, shared by the whole batch) from one
 on the CPU, so reading them costs no device sync.
 
 ``CFM`` is the reference's top-level module: its state dict holds the
-backbone under ``transformer.``, as released checkpoints do, and its
+backbone (DiT, UNetT or MMDiT) under ``transformer.``, as released
+checkpoints do, and its
 ``forward`` is the training loss, as the reference's is.
 """
 
@@ -27,8 +31,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from f5_tts_tpu_torch.models import dit as D
-from f5_tts_tpu_torch.models.configs import DiTConfig
+from f5_tts_tpu_torch.models.backbones import build_backbone, get_backbone
+from f5_tts_tpu_torch.models.configs import ArchConfig, MMDiTConfig
 
 # Empirically Pruned Step Sampling tables (reference model/utils.py:205-218),
 # as fractions of 32
@@ -43,12 +47,12 @@ _EPSS = {
 
 
 class CFM(nn.Module):
-    """Holds the DiT as ``transformer`` (reference cfm.py:34-80 naming)."""
+    """Holds the backbone as ``transformer`` (reference cfm.py:34-80 naming)."""
 
-    def __init__(self, cfg: DiTConfig):
+    def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.transformer = D.DiT(cfg)
+        self.transformer = build_backbone(cfg)
 
     def forward(self, mel, text_ids, lens, generator=None, drop_generator=None, **kw):
         """The training loss (``loss`` below), as the reference CFM.forward."""
@@ -84,8 +88,13 @@ def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:
     return torch.arange(length, device=lens.device)[None, :] < lens[:, None]
 
 
+def _stream_kwargs(cfg: ArchConfig, text_ids: torch.Tensor) -> dict:
+    """MMDiT keeps the text as its own stream and needs its valid mask."""
+    return {"c_mask": text_ids != -1} if isinstance(cfg, MMDiTConfig) else {}
+
+
 @torch.inference_mode()
-def sample(model: D.DiT, cfg: DiTConfig, cond: torch.Tensor, text_ids: torch.Tensor,
+def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torch.Tensor,
            duration: torch.Tensor, noise: torch.Tensor, lens: torch.Tensor | None = None,
            opts: SampleOptions = SampleOptions(), edit_mask: torch.Tensor | None = None,
            no_ref_audio: bool = False, backend: str = "auto") -> torch.Tensor:
@@ -120,31 +129,36 @@ def sample(model: D.DiT, cfg: DiTConfig, cond: torch.Tensor, text_ids: torch.Ten
     duration = duration.clamp(max=n)
     mask = lens_to_mask(duration, n)
 
-    te_cond = D.text_embedding(model, cfg, text_ids, n, lens=duration).to(compute_dtype)
+    bb = get_backbone(cfg)
+    te_cond = bb.text_embedding(model, cfg, text_ids, n, lens=duration).to(compute_dtype)
     use_cfg = opts.cfg_strength >= 1e-5
     if use_cfg:
-        te_uncond = D.text_embedding(model, cfg, text_ids, n, lens=duration,
-                                     drop_text=True).to(compute_dtype)
+        te_uncond = bb.text_embedding(model, cfg, text_ids, n, lens=duration,
+                                      drop_text=True).to(compute_dtype)
 
     x = torch.where(mask[..., None], noise.to(compute_dtype), torch.zeros((), dtype=compute_dtype,
                                                                           device=dev))
 
     ts = timestep_schedule(opts.steps, opts.sway_sampling_coef, opts.use_epss)
 
+    extra = _stream_kwargs(cfg, text_ids)
+
     def velocity(x, t_k, adaln_mods=None):
         time = torch.full((b,), float(t_k), dtype=torch.float32, device=dev).to(compute_dtype)
+        kw = dict(extra) if adaln_mods is None else dict(extra, adaln_mods=adaln_mods)
         if use_cfg:
-            pred, null = D.forward_cfg(model, cfg, x, step_cond, te_cond, te_uncond, time,
-                                       mask=mask, backend=backend, adaln_mods=adaln_mods)
+            pred, null = bb.forward_cfg(model, cfg, x, step_cond, te_cond, te_uncond, time,
+                                        mask=mask, backend=backend, **kw)
             return pred + (pred - null) * opts.cfg_strength
-        return D.forward(model, cfg, x, step_cond, te_cond, time, mask=mask, backend=backend,
-                         adaln_mods=adaln_mods)
+        return bb.forward(model, cfg, x, step_cond, te_cond, time, mask=mask, backend=backend,
+                          **kw)
 
-    # the schedule is known ahead: every Euler step's AdaLN modulations in one go
+    # the schedule is known ahead: every Euler step's AdaLN modulations in one
+    # go, where the backbone has them as tables (DiT)
     tables = None
-    if opts.ode_method == "euler":
-        tables = D.precompute_adaln(model, cfg, torch.as_tensor(ts[:-1], device=dev),
-                                    dtype=compute_dtype)
+    if opts.ode_method == "euler" and hasattr(bb, "precompute_adaln"):
+        tables = bb.precompute_adaln(model, cfg, torch.as_tensor(ts[:-1], device=dev),
+                                     dtype=compute_dtype)
 
     for k in range(len(ts) - 1):
         t_k = np.float32(ts[k])
@@ -155,7 +169,8 @@ def sample(model: D.DiT, cfg: DiTConfig, cond: torch.Tensor, text_ids: torch.Ten
             t_mid = np.float32(t_k + np.float32(0.5) * dt_k)
             x = x + dt_c * velocity(x + 0.5 * dt_c * k1, t_mid)
         else:
-            x = x + dt_c * velocity(x, t_k, adaln_mods=(tables[0][k], tables[1][k]))
+            mods = None if tables is None else (tables[0][k], tables[1][k])
+            x = x + dt_c * velocity(x, t_k, adaln_mods=mods)
         x = x.to(compute_dtype)  # fp32 params with bf16 activations would promote
 
     out = torch.where(cond_mask[..., None], cond, x)
@@ -177,7 +192,7 @@ def mask_from_frac_lengths(lens: torch.Tensor, length: int, generator: torch.Gen
     return (pos >= start[:, None]) & (pos < (start + span)[:, None])
 
 
-def loss(model: D.DiT, cfg: DiTConfig, mel: torch.Tensor, text_ids: torch.Tensor,
+def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.Tensor,
          lens: torch.Tensor, generator: torch.Generator | None = None,
          drop_generator: torch.Generator | None = None, audio_drop_prob: float = 0.3,
          cond_drop_prob: float = 0.2, frac_lengths_mask=(0.7, 1.0),
@@ -226,12 +241,14 @@ def loss(model: D.DiT, cfg: DiTConfig, mel: torch.Tensor, text_ids: torch.Tensor
 
     # both text streams are computed and one is selected, as in JAX: every
     # text-encoder parameter then gets a gradient (zero or not) every step
-    te = D.text_embedding(model, cfg, text_ids, n, lens=lens).to(x1.dtype)
-    te_uncond = D.text_embedding(model, cfg, text_ids, n, lens=lens, drop_text=True).to(x1.dtype)
+    bb = get_backbone(cfg)
+    te = bb.text_embedding(model, cfg, text_ids, n, lens=lens).to(x1.dtype)
+    te_uncond = bb.text_embedding(model, cfg, text_ids, n, lens=lens, drop_text=True).to(x1.dtype)
     te = torch.where(torch.tensor(drop_both, device=dev), te_uncond, te)
     cond_in = torch.zeros_like(cond) if drop_audio else cond
 
-    pred = D.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend)
+    pred = bb.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend,
+                      **_stream_kwargs(cfg, text_ids))
 
     sq = (pred - flow).square()
     w = span[..., None].float()

@@ -1,10 +1,11 @@
 """Model architecture configs.
 
 JAX counterpart: ``f5_tts_tpu/models/configs.py:17-181``.  A copy rather than
-an import, because the JAX module pulls in JAX through ``ops/mel.py``.  Only
-the DiT backbone is ported so far; the UNetT and MMDiT entries come with
-their backbones.  ``from_yaml_dict`` / ``to_yaml_dict`` read and write the
-reference YAML's ``model:`` section (the train CLI uses them).
+an import, because the JAX module pulls in JAX through ``ops/mel.py``.  The
+three backbones' arch configs (DiT, UNetT, MMDiT) and the shipped
+architectures; ``from_yaml_dict`` / ``to_yaml_dict`` read and write the
+reference YAML's ``model:`` section for all three (the train CLI uses
+them).
 """
 
 from __future__ import annotations
@@ -44,9 +45,57 @@ class DiTConfig:
 
 
 @dataclass(frozen=True)
+class UNetTConfig:
+    """UNetT (E2-TTS) backbone arch (reference backbones/unett.py:108-307)."""
+
+    dim: int = 1024
+    depth: int = 24
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 4
+    mel_dim: int = 100
+    text_num_embeds: int = 2545
+    text_dim: int | None = None  # None -> mel_dim
+    text_mask_padding: bool = True
+    qk_norm: str | None = None
+    conv_layers: int = 0
+    conv_mult: int = 2
+    pe_attn_head: int | None = None
+    skip_connect_type: str = "concat"  # "concat" | "add" | "none"
+    checkpoint_activations: bool = False  # parsed only, as DiTConfig's
+    remat_policy: str = "auto"
+    backbone: str = "UNetT"
+    max_pos: int = 4096
+
+
+@dataclass(frozen=True)
+class MMDiTConfig:
+    """MMDiT dual-stream backbone arch (reference backbones/mmdit.py:87-262)."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 4
+    mel_dim: int = 100
+    text_num_embeds: int = 2545
+    text_mask_padding: bool = True
+    qk_norm: str | None = None
+    checkpoint_activations: bool = False  # parsed only, as DiTConfig's
+    remat_policy: str = "auto"
+    backbone: str = "MMDiT"
+    max_pos: int = 4096
+    text_max_pos: int = 1024  # the text stream's absolute-position table
+
+
+ArchConfig = DiTConfig | UNetTConfig | MMDiTConfig
+_BACKBONES = {"DiT": DiTConfig, "UNetT": UNetTConfig, "MMDiT": MMDiTConfig}
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch: DiTConfig
+    arch: ArchConfig
     mel: MelConfig = MelConfig()
     tokenizer: str = "pinyin"
 
@@ -67,6 +116,22 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
                            pe_attn_head=None),
     "F5TTS_Small": _dit("F5TTS_Small", dim=768, depth=18, heads=12, ff_mult=2,
                         text_dim=512, text_mask_padding=False, conv_layers=4, pe_attn_head=1),
+    "E2TTS_Base": ModelConfig(
+        name="E2TTS_Base",
+        arch=UNetTConfig(dim=1024, depth=24, heads=16, ff_mult=4,
+                         text_mask_padding=False, pe_attn_head=1),
+    ),
+    "E2TTS_Small": ModelConfig(
+        name="E2TTS_Small",
+        arch=UNetTConfig(dim=768, depth=20, heads=12, ff_mult=4,
+                         text_mask_padding=False, pe_attn_head=1),
+    ),
+    # experimental dual-stream config (the reference defines MMDiT but ships
+    # no checkpoint for it)
+    "F5TTS_MMDiT_Base": ModelConfig(
+        name="F5TTS_MMDiT_Base",
+        arch=MMDiTConfig(dim=1024, depth=22, heads=16, ff_mult=4),
+    ),
     # test/smoke-only tiny config (not a released architecture)
     "F5TTS_Tiny": _dit("F5TTS_Tiny", tokenizer="char", dim=64, depth=2, heads=4,
                        ff_mult=2, text_dim=32, text_mask_padding=True, conv_layers=1,
@@ -81,13 +146,14 @@ def with_vocab_size(cfg: ModelConfig, vocab_size: int) -> ModelConfig:
 def from_yaml_dict(model: dict) -> ModelConfig:
     """A ``ModelConfig`` from a reference-format ``model:`` YAML section."""
     backbone = model.get("backbone", "DiT")
-    if backbone != "DiT":
-        raise NotImplementedError(f"the {backbone} backbone is not ported yet; see ROADMAP.md")
+    if backbone not in _BACKBONES:
+        raise ValueError(f"unknown backbone {backbone!r} (one of {sorted(_BACKBONES)})")
+    cls = _BACKBONES[backbone]
     arch_kw = dict(model.get("arch", {}))
     for k in ("attn_backend", "attn_mask_enabled"):  # reference-only knobs
         arch_kw.pop(k, None)
-    valid = {f.name for f in dataclasses.fields(DiTConfig)}
-    arch = DiTConfig(**{k: v for k, v in arch_kw.items() if k in valid})
+    valid = {f.name for f in dataclasses.fields(cls)}
+    arch = cls(**{k: v for k, v in arch_kw.items() if k in valid})
     valid_mel = {f.name for f in dataclasses.fields(MelConfig)}
     mel = MelConfig(**{k: v for k, v in dict(model.get("mel_spec", {})).items() if k in valid_mel})
     return ModelConfig(name=model.get("name", "custom"), arch=arch, mel=mel,
@@ -98,7 +164,7 @@ def to_yaml_dict(cfg: ModelConfig) -> dict:
     """Inverse of ``from_yaml_dict``: the ``model:`` section of a config."""
     return {
         "name": cfg.name,
-        "backbone": "DiT",
+        "backbone": cfg.arch.backbone,
         "tokenizer": cfg.tokenizer,
         "arch": dataclasses.asdict(cfg.arch),
         "mel_spec": dataclasses.asdict(cfg.mel),

@@ -15,15 +15,13 @@ checkpointing yet (see ROADMAP.md).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.models import layers as L
 from f5_tts_tpu_torch.models.configs import DiTConfig
-from f5_tts_tpu_torch.ops.rope import abs_pos_table, rotary_freqs
+from f5_tts_tpu_torch.ops.rope import device_table
 
 
 class TextEmbedding(nn.Module):
@@ -68,20 +66,11 @@ class DiT(nn.Module):
                 lin.weight.zero_()
                 lin.bias.zero_()
 
-
-def randomize_zero_init(model: DiT, generator: torch.Generator) -> None:
-    """Give the zero-initialized AdaLN gates, final norm and ``proj_out``
-    uniform torch-default-scale weights.  With the gates at zero every block
-    is the identity and the output is zero, which makes a comparison of two
-    implementations vacuous."""
-    lins = [blk.attn_norm.linear for blk in model.transformer_blocks]
-    lins += [model.norm_out.linear, model.proj_out]
-    with torch.no_grad():
-        for lin in lins:
-            bound = lin.in_features ** -0.5
-            for t in (lin.weight, lin.bias):
-                r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
-                t.copy_((r * 2 - 1) * bound)
+    def zero_init_linears(self) -> list[nn.Linear]:
+        """The projections the reference zero-initializes (AdaLN, final norm,
+        ``proj_out``); ``backbones.randomize_zero_init`` fills them."""
+        return [blk.attn_norm.linear for blk in self.transformer_blocks] + [
+            self.norm_out.linear, self.proj_out]
 
 
 def _avg_upsample(emb, text_lens, audio_lens, seq_len):
@@ -99,12 +88,6 @@ def _avg_upsample(emb, text_lens, audio_lens, seq_len):
     out = torch.gather(emb, 1, idx[..., None].expand(-1, -1, emb.shape[-1]))
     keep = (p < al) & (text_lens > 0)[:, None]
     return torch.where(keep[..., None], out, torch.zeros_like(out))
-
-
-@functools.lru_cache(maxsize=32)
-def _table(kind: str, max_len: int, dim: int, device: torch.device) -> torch.Tensor:
-    fn = rotary_freqs if kind == "rope" else abs_pos_table
-    return torch.as_tensor(fn(max_len, dim), device=device)
 
 
 def text_embedding(model: DiT, cfg: DiTConfig, text_ids: torch.Tensor, seq_len: int,
@@ -128,7 +111,7 @@ def text_embedding(model: DiT, cfg: DiTConfig, text_ids: torch.Tensor, seq_len: 
     if valid is not None:
         emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
     if cfg.conv_layers > 0:
-        freqs = _table("abs", cfg.max_pos, cfg.text_dim, emb.device)[:seq_len].to(emb.dtype)
+        freqs = device_table("abs", cfg.max_pos, cfg.text_dim, emb.device)[:seq_len].to(emb.dtype)
         if valid is not None:
             freqs = freqs[None] * valid[..., None].to(emb.dtype)
         emb = emb + freqs
@@ -183,7 +166,7 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
     else:
         t_emb = None
     h = input_embedding(model, x, cond, text_emb, drop_audio_cond=drop_audio_cond, mask=mask)
-    rope = _table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
+    rope = device_table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
     residual = h if cfg.long_skip_connection else None
     for i, blk in enumerate(model.transformer_blocks):
         mod = None if adaln_mods is None else adaln_mods[0][i].to(h.dtype)

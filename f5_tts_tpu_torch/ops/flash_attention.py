@@ -9,20 +9,28 @@ JAX counterparts, all in ``f5_tts_tpu/ops/flash_attention.py``:
   (:45-78) through ``_flash_fwd_stats`` (:233-260);
 - kernels D and E, the backward: ``_kernel_dq`` (:81-109) and
   ``_kernel_dkv`` (:112-147) through ``_flash_bwd`` (:264-310);
+- kernel F, the two-segment (MMDiT joint-attention) forward: ``_kernel_seg``
+  (:463-490) through ``_flash_seg`` (:493-515) and
+  ``flash_attention_two_segment`` (:518-525);
 - the custom VJP ``_flash_diff`` / ``_flash_stats_diff`` (:313-384) and the
-  public ``flash_attention_with_stats`` (:387-397) and
-  ``flash_attention_trainable`` (:423-442), here one
+  public ``flash_attention_with_stats`` (:387-397),
+  ``flash_attention_trainable`` (:423-442) and
+  ``flash_attention_two_segment_trainable`` (:445-453), here one
   ``torch.autograd.Function`` whose forward is kernel C and whose backward
   computes ``D = rowsum(do * o)`` in fp32 and launches D and E.
 
-The kernels are ``csrc/flash_attention.cu`` (A, C) and
+The kernels are ``csrc/flash_attention.cu`` (A, C, F) and
 ``csrc/flash_attention_bwd.cu`` (D, E); their headers say what bounds them
-on the H100 and how their blocking departs from the TPU kernels'.  Only the
-single-prefix key mask is ported; the two-segment (MMDiT) mode comes with
-``flash_attention_two_segment``.
+on the H100 and how their blocking departs from the TPU kernels'.
 
-Semantics: non-causal attention over q, k, v [b, h, n, 64]; key columns are
-valid only in [0, lens[b]); a query row with no valid key gives 0.  The
+Semantics: non-causal attention over q, k, v [b, h, n, 64].  Key columns
+are valid only in [0, lens[b]) (lens int32 [b]), or, in the two-segment
+mode that a static ``seg`` selects (the TPU kernels' ``seg`` argument), in
+[0, lens[b, 0]) U [seg, seg + lens[b, 1]) (lens int32 [b, 2]): MMDiT's
+joint [audio, text] sequence with the text stream at ``seg``.  Kernels C,
+D and E take both modes (instances ``KERNEL_STATS_SEG``, ``KERNEL_DQ_SEG``,
+``KERNEL_DKV_SEG``); kernel F is kernel A's two-segment instance.  A query
+row with no valid key gives 0.  The
 kernel takes bf16 (the serving dtype) or fp32 tensors and, like the TPU
 kernel, rounds q (prescaled by scale*log2 e), k, v and the probabilities to
 bf16 for its tensor-core products, accumulating in fp32; the backward
@@ -32,8 +40,8 @@ gradients are 0.  ``lens`` gets no gradient.
 
 Dispatch is by device: a CPU tensor runs the plain version; a CUDA tensor
 launches the kernel, and anything the kernel does not take raises.  There
-is no length gate: any n works.  Each kernel's ``CudaKernel`` counts its
-launches.
+is no length gate: any n and any 0 <= seg <= n work.  Each kernel
+instance's ``CudaKernel`` counts its launches.
 """
 
 from __future__ import annotations
@@ -66,23 +74,51 @@ KERNEL_DKV = CudaKernel(  # kernel E
     "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 )
+# the two-segment instances: one more int, seg, before the scales
+KERNEL_SEG = CudaKernel(  # kernel F
+    "flash_attention_fwd_seg", "flash_attention.cu",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+)
+KERNEL_STATS_SEG = CudaKernel(  # kernel C, two-segment mode
+    "flash_attention_fwd_stats_seg", "flash_attention.cu",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+)
+KERNEL_DQ_SEG = CudaKernel(  # kernel D, two-segment mode
+    "flash_attention_bwd_dq_seg", "flash_attention_bwd.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+)
+KERNEL_DKV_SEG = CudaKernel(  # kernel E, two-segment mode
+    "flash_attention_bwd_dkv_seg", "flash_attention_bwd.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+)
+KERNELS = (KERNEL, KERNEL_STATS, KERNEL_DQ, KERNEL_DKV,
+           KERNEL_SEG, KERNEL_STATS_SEG, KERNEL_DQ_SEG, KERNEL_DKV_SEG)
 NO_KEY_LSE = -1e30  # the logsumexp of a row with no valid key
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _masked_scores(q: torch.Tensor, k: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """fp32 scores q.k^T * scale, -inf on keys past ``lens``."""
-    n = k.shape[2]
+def key_valid(lens: torch.Tensor, n: int, seg: int | None = None) -> torch.Tensor:
+    """The kernels' key mask, bool [b, n]: [0, lens) for lens [b]; with
+    ``seg``, [0, lens[:, 0]) U [seg, seg + lens[:, 1]) for lens [b, 2]."""
+    col = torch.arange(n, device=lens.device)[None, :]
+    if seg is None:
+        return col < lens[:, None]
+    return (col < lens[:, 0:1]) | ((col >= seg) & (col < seg + lens[:, 1:2]))
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, lens: torch.Tensor,
+                   seg: int | None = None) -> torch.Tensor:
+    """fp32 scores q.k^T * scale, -inf on the keys the mask drops."""
     s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
-    valid = torch.arange(n, device=q.device)[None, :] < lens.to(q.device)[:, None]  # [b, n]
+    valid = key_valid(lens.to(q.device), k.shape[2], seg)
     return s.masked_fill(~valid[:, None, None, :], float("-inf"))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lens: torch.Tensor) -> torch.Tensor:
+                          lens: torch.Tensor, seg: int | None = None) -> torch.Tensor:
     """Exact fp32 attention with the kernel's key mask and zero-row rule."""
     vf = v.float()
-    s = _masked_scores(q, k, lens)
+    s = _masked_scores(q, k, lens, seg)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # rows with no valid key
     p = torch.exp(s - m)
@@ -90,22 +126,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ((p @ vf) / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
+def flash_attention_two_segment_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      lens2: torch.Tensor, seg: int) -> torch.Tensor:
+    """Kernel F's function in fp32: keys valid in [0, lens2[:, 0]) U
+    [seg, seg + lens2[:, 1]); a row with both segments empty gives 0."""
+    return flash_attention_plain(q, k, v, lens2, seg)
+
+
 def flash_attention_fwd_stats_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                    lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                                    lens: torch.Tensor, seg: int | None = None
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact fp32 (o, L): kernel C's function, with its no-valid-key rule."""
-    s = _masked_scores(q, k, lens)
+    s = _masked_scores(q, k, lens, seg)
     L = torch.logsumexp(s, dim=-1)
     L = torch.where(torch.isfinite(L), L, torch.full_like(L, NO_KEY_LSE))
     p = torch.exp(s - L[..., None])  # 0 on masked keys
     return (p @ v.float()).to(q.dtype), L
 
 
-def flash_attention_bwd_plain(q, k, v, do, L, D, lens):
+def flash_attention_bwd_plain(q, k, v, do, L, D, lens, seg: int | None = None):
     """(dq, dk, dv) by the backward kernels' formulas in fp32 (not autograd):
     p = exp(s - L), 0 on masked keys; ds = p (do.v^T - D); dq = scale ds.k;
     dk = scale ds^T.q; dv = p^T.do."""
     scale = q.shape[-1] ** -0.5
-    p = torch.exp(_masked_scores(q, k, lens) - L.float()[..., None])
+    p = torch.exp(_masked_scores(q, k, lens, seg) - L.float()[..., None])
     dof = do.float()
     ds = p * (dof @ v.float().transpose(-1, -2) - D.float()[..., None])
     dq = (ds @ k.float()) * scale
@@ -114,7 +158,7 @@ def flash_attention_bwd_plain(q, k, v, do, L, D, lens):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, lens):
+def _check(q, k, v, lens, seg=None):
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
         raise ValueError(f"q, k, v must share one [b, h, n, dh] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -129,46 +173,59 @@ def _check(q, k, v, lens):
             raise ValueError(f"flash_attention kernel needs a contiguous, 16-byte aligned {name}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if lens.shape != (b,) or lens.dtype != torch.int32 or lens.device != q.device:
-        raise ValueError(f"lens must be int32 [{b}] on {q.device}, got "
+    want = (b,) if seg is None else (b, 2)
+    if lens.shape != want or lens.dtype != torch.int32 or lens.device != q.device \
+            or not lens.is_contiguous():
+        raise ValueError(f"lens must be contiguous int32 {list(want)} on {q.device}, got "
                          f"{lens.dtype} {tuple(lens.shape)} on {lens.device}")
+    if seg is not None and not 0 <= seg <= n:
+        raise ValueError(f"seg must lie in [0, {n}], got {seg}")
     if b * h > 65535:
         raise ValueError(f"b*h = {b * h} exceeds the kernel grid's 65535")
 
 
+def _seg_args(seg):
+    """The kernel-instance selector's extra launch argument: none for the
+    prefix mode, (seg,) for the two-segment mode."""
+    return () if seg is None else (int(seg),)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lens: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream."""
-    _check(q, k, v, lens)
+                         lens: torch.Tensor, seg: int | None = None) -> torch.Tensor:
+    """Launch kernel A (kernel F with ``seg``) on PyTorch's current stream."""
+    _check(q, k, v, lens, seg)
     b, h, n, dh = q.shape
     out = torch.empty_like(q)
     if n == 0 or b == 0 or h == 0:
         return out
     qscale = float(dh) ** -0.5 * LOG2E
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  b, h, n, dh, _DTYPE_CODE[q.dtype], qscale, stream)
+    kernel = KERNEL if seg is None else KERNEL_SEG
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), qscale, stream)
     return out
 
 
 def flash_attention_fwd_stats_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                   lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel C: (o, L fp32 [b, h, n])."""
-    _check(q, k, v, lens)
+                                   lens: torch.Tensor, seg: int | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel C (its two-segment instance with ``seg``): (o, L fp32 [b, h, n])."""
+    _check(q, k, v, lens, seg)
     b, h, n, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if n == 0 or b == 0 or h == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    KERNEL_STATS.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), b, h, n, dh, _DTYPE_CODE[q.dtype],
-                        float(dh) ** -0.5 * LOG2E, stream)
+    kernel = KERNEL_STATS if seg is None else KERNEL_STATS_SEG
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), b, h, n, dh, _DTYPE_CODE[q.dtype],
+                  *_seg_args(seg), float(dh) ** -0.5 * LOG2E, stream)
     return out, lse
 
 
-def _check_bwd(q, k, v, do, L, D, lens):
-    _check(q, k, v, lens)
+def _check_bwd(q, k, v, do, L, D, lens, seg=None):
+    _check(q, k, v, lens, seg)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q ({q.dtype} {tuple(q.shape)}), got "
                          f"{do.dtype} {tuple(do.shape)} on {do.device}")
@@ -186,55 +243,58 @@ def _bwd_args(q, k, v, do, L, D, lens):
             lens.data_ptr())
 
 
-def _bwd_tail(q):
+def _bwd_tail(q, seg):
     b, h, n, dh = q.shape
     scale = float(dh) ** -0.5
-    return (b, h, n, dh, _DTYPE_CODE[q.dtype], scale * LOG2E, scale,
+    return (b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), scale * LOG2E, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens) -> torch.Tensor:
-    """Launch kernel D: dq."""
-    _check_bwd(q, k, v, do, L, D, lens)
+def flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg: int | None = None) -> torch.Tensor:
+    """Launch kernel D (its two-segment instance with ``seg``): dq."""
+    _check_bwd(q, k, v, do, L, D, lens, seg)
     dq = torch.empty_like(q)
     if q.numel():
-        KERNEL_DQ.launch(*_bwd_args(q, k, v, do, L, D, lens), dq.data_ptr(), *_bwd_tail(q))
+        kernel = KERNEL_DQ if seg is None else KERNEL_DQ_SEG
+        kernel.launch(*_bwd_args(q, k, v, do, L, D, lens), dq.data_ptr(), *_bwd_tail(q, seg))
     return dq
 
 
-def flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel E: (dk, dv)."""
-    _check_bwd(q, k, v, do, L, D, lens)
+def flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg: int | None = None
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel E (its two-segment instance with ``seg``): (dk, dv)."""
+    _check_bwd(q, k, v, do, L, D, lens, seg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():
-        KERNEL_DKV.launch(*_bwd_args(q, k, v, do, L, D, lens), dk.data_ptr(), dv.data_ptr(),
-                          *_bwd_tail(q))
+        kernel = KERNEL_DKV if seg is None else KERNEL_DKV_SEG
+        kernel.launch(*_bwd_args(q, k, v, do, L, D, lens), dk.data_ptr(), dv.data_ptr(),
+                      *_bwd_tail(q, seg))
     return dk, dv
 
 
-def _dispatch(name, plain, cuda, x, *args):
+def _dispatch(name, plain, cuda, x, *args, **kw):
     if x.device.type == "cpu":
-        return plain(x, *args)
+        return plain(x, *args, **kw)
     if x.device.type == "cuda":
-        return cuda(x, *args)
+        return cuda(x, *args, **kw)
     raise ValueError(f"{name}: no implementation for device {x.device}")
 
 
-def flash_attention_fwd_stats(q, k, v, lens):
+def flash_attention_fwd_stats(q, k, v, lens, seg: int | None = None):
     """Device dispatch of kernel C: the plain version for CPU tensors."""
     return _dispatch("flash_attention_fwd_stats", flash_attention_fwd_stats_plain,
-                     flash_attention_fwd_stats_cuda, q, k, v, lens)
+                     flash_attention_fwd_stats_cuda, q, k, v, lens, seg=seg)
 
 
-def _bwd_cuda(q, k, v, do, L, D, lens):
-    return (flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens),
-            *flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens))
+def _bwd_cuda(q, k, v, do, L, D, lens, seg=None):
+    return (flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg),
+            *flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg))
 
 
-def flash_attention_bwd(q, k, v, do, L, D, lens):
+def flash_attention_bwd(q, k, v, do, L, D, lens, seg: int | None = None):
     """Device dispatch of kernels D and E: the plain version for CPU tensors."""
     return _dispatch("flash_attention_bwd", flash_attention_bwd_plain, _bwd_cuda,
-                     q, k, v, do, L, D, lens)
+                     q, k, v, do, L, D, lens, seg=seg)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,14 +303,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _dispatch("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v, lens)
 
 
+def _lens2(lens_a: torch.Tensor, lens_t: torch.Tensor) -> torch.Tensor:
+    return torch.stack([lens_a.to(torch.int32), lens_t.to(torch.int32)], dim=1).contiguous()
+
+
+def flash_attention_two_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                lens_a: torch.Tensor, lens_t: torch.Tensor, seg: int
+                                ) -> torch.Tensor:
+    """Attention with the two-prefix key mask: columns [0, lens_a[i]) and
+    [seg, seg + lens_t[i]) are valid for batch row i (JAX
+    ``flash_attention_two_segment``).  Device dispatch of kernel F: the
+    plain version for CPU tensors."""
+    return _dispatch("flash_attention_two_segment", flash_attention_two_segment_plain,
+                     flash_attention_cuda, q.contiguous(), k.contiguous(), v.contiguous(),
+                     _lens2(lens_a, lens_t), int(seg))
+
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """(o, L) = attention with stats; the backward takes both cotangents."""
+    """(o, L) = attention with stats; the backward takes both cotangents.
+    ``seg`` (a Python int, or None for the single-prefix mask) selects the
+    two-segment instances of kernels C, D and E."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lens):
-        o, L = flash_attention_fwd_stats(q, k, v, lens)
+    def forward(ctx, q, k, v, lens, seg=None):
+        o, L = flash_attention_fwd_stats(q, k, v, lens, seg=seg)
         ctx.save_for_backward(q, k, v, lens, o, L)
+        ctx.seg = seg
         ctx.set_materialize_grads(False)
         return o, L
 
@@ -263,8 +341,8 @@ class _FlashAttentionFn(torch.autograd.Function):
         D = (do.float() * o.float()).sum(dim=-1)
         if dL is not None:
             D = D - dL.float()
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, L, D.contiguous(), lens)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, L, D.contiguous(), lens, seg=ctx.seg)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,3 +368,17 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         lens = mask.sum(dim=-1, dtype=torch.int32)
     return flash_attention_with_stats(q, k, v, lens)[0]
+
+
+def flash_attention_two_segment_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                          lens_a: torch.Tensor, lens_t: torch.Tensor,
+                                          seg: int) -> torch.Tensor:
+    """Differentiable two-segment attention (MMDiT's training path): kernel
+    C's two-segment instance forward, D's and E's backward.  When no input
+    needs a gradient the forward is kernel F, as the primal of JAX's
+    ``_flash_diff`` is ``_flash_seg``.  Padded query rows must get zero
+    upstream gradient, as MMDiT's re-mask of both streams gives."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_two_segment(q, k, v, lens_a, lens_t, seg)
+    return _FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   _lens2(lens_a, lens_t), int(seg))[0]

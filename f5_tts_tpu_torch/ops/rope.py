@@ -42,3 +42,11 @@ def abs_pos_table(max_len: int, dim: int, theta: float = 10000.0) -> np.ndarray:
     inv_freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
     freqs = np.outer(np.arange(max_len, dtype=np.float64), inv_freq)
     return np.concatenate([np.cos(freqs), np.sin(freqs)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def device_table(kind: str, max_len: int, dim: int, device: torch.device) -> torch.Tensor:
+    """``rotary_freqs`` (kind "rope") or ``abs_pos_table`` (kind "abs") as an
+    fp32 tensor on ``device``, built once per (kind, length, dim, device)."""
+    fn = rotary_freqs if kind == "rope" else abs_pos_table
+    return torch.as_tensor(fn(max_len, dim), device=device)

@@ -10,6 +10,11 @@ reference ``.pt`` / ``.safetensors`` checkpoint.  The dataset comes from
 ``data/<name>_<tokenizer>/`` (``train/dataset.load_dataset``).
 
     python -m f5_tts_tpu_torch.train.cli --config configs/F5TTS_v1_Base.yaml
+    python -m f5_tts_tpu_torch.train.cli --config configs/E2TTS_Base.yaml
+    python -m f5_tts_tpu_torch.train.cli --model F5TTS_MMDiT_Base
+
+Any of the three backbones (DiT, UNetT, MMDiT) trains; ``cfm.loss``
+dispatches on the config.
 """
 
 from __future__ import annotations

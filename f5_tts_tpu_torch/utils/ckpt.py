@@ -3,18 +3,21 @@ package's parameter trees.
 
 JAX counterpart: ``f5_tts_tpu/utils/ckpt.py`` (``load_torch_state`` :31-64,
 ``dit_params_from_state`` :102-153, ``dit_params_to_state`` :156-210,
+``unett_params_from_state`` :213-273, ``mmdit_params_from_state``
+:276-331, the dispatch ``params_from_state`` :334-344,
 ``vocos_params_from_state`` :351-384; JAX trains into orbax checkpoints,
 the port into the reference's ``.pt`` layout, ``save_train_checkpoint``).
-The port's modules carry the
-reference's own parameter names, so a released state dict loads into them
-directly: ``load_torch_state`` reads ``.pt`` / ``.safetensors`` files,
-strips the EMA prefix, picks the EMA or raw weights and drops bookkeeping
-keys; ``load_into`` loads by key and raises on any missing one.
+The port's modules carry the reference's own parameter names for all three
+backbones, so a released state dict loads into them directly:
+``load_torch_state`` reads ``.pt`` / ``.safetensors`` files, strips the EMA
+prefix, picks the EMA or raw weights and drops bookkeeping keys;
+``load_into`` loads by key and raises on any missing one.
 
-``state_from_jax_params`` / ``vocos_state_from_jax_params`` turn the JAX
-package's canonical (unfused) parameter pytree, as nested dicts of numpy
-arrays, into the port's reference-named state dict (pure numpy; the tests
-use them to give both implementations the same weights).
+``state_from_jax_params`` (dispatching on the config's backbone to the
+DiT, UNetT and MMDiT converters) and ``vocos_state_from_jax_params`` turn
+the JAX package's canonical (unfused) parameter pytree, as nested dicts of
+numpy arrays, into the port's reference-named state dict (pure numpy; the
+tests use them to give both implementations the same weights).
 """
 
 from __future__ import annotations
@@ -24,8 +27,6 @@ import os
 import numpy as np
 import torch
 import torch.nn as nn
-
-from f5_tts_tpu_torch.models.configs import DiTConfig
 
 _BOOKKEEPING = ("initted", "step", "update")
 
@@ -82,7 +83,8 @@ def load_into(module: nn.Module, state: dict) -> nn.Module:
 
 
 def load_dit_state(cfm: nn.Module, state: dict) -> nn.Module:
-    """Load a CFM state dict (``transformer.*``) or a bare DiT state dict."""
+    """Load a CFM state dict (``transformer.*``) or a bare backbone state
+    dict (DiT, UNetT or MMDiT) into ``cfm``."""
     if any(k.startswith("transformer.") for k in state):
         return load_into(cfm, state)
     return load_into(cfm.transformer, state)
@@ -112,62 +114,147 @@ def save_train_checkpoint(path: str, model: nn.Module, ema_model: nn.Module, opt
 # weight carry-over from the JAX parameter pytree
 
 
-def state_from_jax_params(params: dict, cfg: DiTConfig, prefix: str = "transformer."):
+class _StateWriter:
+    """Reference-named numpy state dict from JAX parameter leaves."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self.out: dict[str, np.ndarray] = {}
+
+    def arr(self, name, a):
+        self.out[f"{self.prefix}{name}"] = np.ascontiguousarray(np.asarray(a))
+
+    def lin(self, name, p):  # kernel [in, out] -> weight [out, in]
+        self.arr(f"{name}.weight", np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            self.arr(f"{name}.bias", p["bias"])
+
+    def conv(self, name, p):  # [k, in/g, out] -> [out, in/g, k]
+        self.arr(f"{name}.weight", np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+        if "bias" in p:
+            self.arr(f"{name}.bias", p["bias"])
+
+    def ln(self, name, p):
+        self.arr(f"{name}.weight", p["weight"])
+        self.arr(f"{name}.bias", p["bias"])
+
+    def time_embed(self, p):
+        self.lin("time_embed.time_mlp.0", p["mlp1"])
+        self.lin("time_embed.time_mlp.2", p["mlp2"])
+
+    def text_embed(self, p):
+        self.arr("text_embed.text_embed.weight", p["embed"]["weight"])
+        for i, bp in enumerate(p.get("blocks", [])):
+            name = f"text_embed.text_blocks.{i}"
+            self.conv(f"{name}.dwconv", bp["dwconv"])
+            self.ln(f"{name}.norm", bp["norm"])
+            self.lin(f"{name}.pwconv1", bp["pwconv1"])
+            self.arr(f"{name}.grn.gamma", np.asarray(bp["grn"]["gamma"]).reshape(1, 1, -1))
+            self.arr(f"{name}.grn.beta", np.asarray(bp["grn"]["beta"]).reshape(1, 1, -1))
+            self.lin(f"{name}.pwconv2", bp["pwconv2"])
+
+    def input_embed(self, base, lin_name, p):  # the input projection + ConvPositionEmbedding
+        self.lin(f"{base}.{lin_name}", p["proj"])
+        self.conv(f"{base}.conv_pos_embed.conv1d.0", p["conv_pos"]["conv1"])
+        self.conv(f"{base}.conv_pos_embed.conv1d.2", p["conv_pos"]["conv2"])
+
+    def attn(self, name, p, extra=()):
+        for nm in ("to_q", "to_k", "to_v") + tuple(extra):
+            self.lin(f"{name}.{nm}", p[nm])
+        self.lin(f"{name}.to_out.0", p["to_out"])
+        for nm in ("q_norm", "k_norm", "c_q_norm", "c_k_norm"):
+            if nm in p:
+                self.arr(f"{name}.{nm}.weight", p[nm]["weight"])
+
+    def ff(self, name, p):
+        self.lin(f"{name}.ff.0.0", p["in"])
+        self.lin(f"{name}.ff.2", p["out"])
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a tree stacked on a leading depth axis."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else np.asarray(v)[i]) for k, v in tree.items()}
+
+
+def dit_state_from_jax_params(params: dict, cfg, prefix: str = "transformer."):
     """JAX ``models.dit`` params (blocks stacked on a leading depth axis) ->
     reference-named state dict of numpy arrays (mirrors ``dit_params_to_state``)."""
-    out: dict[str, np.ndarray] = {}
-
-    def put_lin(name, p):
-        out[f"{prefix}{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
-        if "bias" in p:
-            out[f"{prefix}{name}.bias"] = np.asarray(p["bias"])
-
-    def put_conv(name, p):  # [k, in/g, out] -> [out, in/g, k]
-        out[f"{prefix}{name}.weight"] = np.ascontiguousarray(
-            np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
-        if "bias" in p:
-            out[f"{prefix}{name}.bias"] = np.asarray(p["bias"])
-
-    def put_ln(name, p):
-        out[f"{prefix}{name}.weight"] = np.asarray(p["weight"])
-        out[f"{prefix}{name}.bias"] = np.asarray(p["bias"])
-
-    put_lin("time_embed.time_mlp.0", params["time_embed"]["mlp1"])
-    put_lin("time_embed.time_mlp.2", params["time_embed"]["mlp2"])
-    out[f"{prefix}text_embed.text_embed.weight"] = np.asarray(params["text_embed"]["embed"]["weight"])
-    for i, bp in enumerate(params["text_embed"].get("blocks", [])):
-        name = f"text_embed.text_blocks.{i}"
-        put_conv(f"{name}.dwconv", bp["dwconv"])
-        put_ln(f"{name}.norm", bp["norm"])
-        put_lin(f"{name}.pwconv1", bp["pwconv1"])
-        out[f"{prefix}{name}.grn.gamma"] = np.asarray(bp["grn"]["gamma"]).reshape(1, 1, -1)
-        out[f"{prefix}{name}.grn.beta"] = np.asarray(bp["grn"]["beta"]).reshape(1, 1, -1)
-        put_lin(f"{name}.pwconv2", bp["pwconv2"])
-    put_lin("input_embed.proj", params["input_embed"]["proj"])
-    put_conv("input_embed.conv_pos_embed.conv1d.0", params["input_embed"]["conv_pos"]["conv1"])
-    put_conv("input_embed.conv_pos_embed.conv1d.2", params["input_embed"]["conv_pos"]["conv2"])
-    blocks = params["blocks"]
+    w = _StateWriter(prefix)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed("input_embed", "proj", params["input_embed"])
     for i in range(cfg.depth):
-        def at(tree, i=i):
-            return {k: (at(v) if isinstance(v, dict) else np.asarray(v)[i]) for k, v in tree.items()}
-
-        bp = at(blocks)
+        bp = _layer(params["blocks"], i)
         name = f"transformer_blocks.{i}"
-        put_lin(f"{name}.attn_norm.linear", bp["attn_norm"]["linear"])
-        for nm in ("to_q", "to_k", "to_v"):
-            put_lin(f"{name}.attn.{nm}", bp["attn"][nm])
-        put_lin(f"{name}.attn.to_out.0", bp["attn"]["to_out"])
-        if "q_norm" in bp["attn"]:
-            out[f"{prefix}{name}.attn.q_norm.weight"] = bp["attn"]["q_norm"]["weight"]
-            out[f"{prefix}{name}.attn.k_norm.weight"] = bp["attn"]["k_norm"]["weight"]
-        put_lin(f"{name}.ff.ff.0.0", bp["ff"]["in"])
-        put_lin(f"{name}.ff.ff.2", bp["ff"]["out"])
-    put_lin("norm_out.linear", params["norm_out"]["linear"])
-    put_lin("proj_out", params["proj_out"])
+        w.lin(f"{name}.attn_norm.linear", bp["attn_norm"]["linear"])
+        w.attn(f"{name}.attn", bp["attn"])
+        w.ff(f"{name}.ff", bp["ff"])
+    w.lin("norm_out.linear", params["norm_out"]["linear"])
+    w.lin("proj_out", params["proj_out"])
     if "long_skip" in params:
-        out[f"{prefix}long_skip_connection.weight"] = np.ascontiguousarray(
-            np.asarray(params["long_skip"]["kernel"]).T)
-    return out
+        w.lin("long_skip_connection", params["long_skip"])
+    return w.out
+
+
+def unett_state_from_jax_params(params: dict, cfg, prefix: str = "transformer."):
+    """JAX ``models.unett`` params (two halves stacked on a leading axis) ->
+    the reference UNetT state dict: ``layers.{i}.[0 skip_proj, 1 attn_norm,
+    2 attn, 3 ff_norm, 4 ff]`` (the inverse of ``unett_params_from_state``)."""
+    w = _StateWriter(prefix)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed("input_embed", "proj", params["input_embed"])
+    half = cfg.depth // 2
+    for i in range(cfg.depth):
+        bp = _layer(params["first"] if i < half else params["second"], i % half)
+        name = f"layers.{i}"
+        if "skip_proj" in bp:
+            w.lin(f"{name}.0", bp["skip_proj"])
+        w.arr(f"{name}.1.g", bp["attn_norm"]["g"])
+        w.attn(f"{name}.2", bp["attn"])
+        w.arr(f"{name}.3.g", bp["ff_norm"]["g"])
+        w.ff(f"{name}.4", bp["ff"])
+    w.arr("norm_out.g", params["norm_out"]["g"])
+    w.lin("proj_out", params["proj_out"])
+    return w.out
+
+
+def mmdit_state_from_jax_params(params: dict, cfg, prefix: str = "transformer."):
+    """JAX ``models.mmdit`` params (blocks 0..depth-2 stacked, the
+    ``context_pre_only`` last block apart) -> the reference MMDiT state dict
+    (the inverse of ``mmdit_params_from_state``)."""
+    w = _StateWriter(prefix)
+    w.time_embed(params["time_embed"])
+    w.text_embed(params["text_embed"])
+    w.input_embed("audio_embed", "linear", params["audio_embed"])
+    for i in range(cfg.depth):
+        last = i == cfg.depth - 1
+        bp = params["last_block"] if last else _layer(params["blocks"], i)
+        name = f"transformer_blocks.{i}"
+        w.lin(f"{name}.attn_norm_x.linear", bp["attn_norm_x"]["linear"])
+        w.lin(f"{name}.attn_norm_c.linear", bp["attn_norm_c"]["linear"])
+        w.attn(f"{name}.attn", bp["attn"], extra=("to_q_c", "to_k_c", "to_v_c"))
+        if not last:
+            w.lin(f"{name}.attn.to_out_c", bp["attn"]["to_out_c"])
+            w.ff(f"{name}.ff_c", bp["ff_c"])
+        w.ff(f"{name}.ff_x", bp["ff_x"])
+    w.lin("norm_out.linear", params["norm_out"]["linear"])
+    w.lin("proj_out", params["proj_out"])
+    return w.out
+
+
+_CONVERTERS = {"DiT": dit_state_from_jax_params, "UNetT": unett_state_from_jax_params,
+               "MMDiT": mmdit_state_from_jax_params}
+
+
+def state_from_jax_params(params: dict, cfg, prefix: str = "transformer."):
+    """JAX backbone params -> the port's reference-named state dict,
+    dispatching on ``cfg.backbone`` (so the JAX package's config objects
+    serve as well as the port's), as JAX ``params_from_state`` does."""
+    backbone = getattr(cfg, "backbone", "DiT")
+    if backbone not in _CONVERTERS:
+        raise ValueError(f"no converter for the {backbone!r} backbone")
+    return _CONVERTERS[backbone](params, cfg, prefix)
 
 
 def vocos_state_from_jax_params(params: dict) -> dict[str, np.ndarray]:

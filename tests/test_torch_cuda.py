@@ -11,6 +11,9 @@ Tolerances: bf16 inputs, and the kernels round to bf16 where the TPU
 kernels do, against plain versions computed in fp32 on the same values.
 The backward kernels round do, p and ds to bf16 as well; their gradients
 are compared relative to the largest reference value (2e-2 max, 4e-3 mean).
+The two-segment instances (kernel F, and C, D, E with ``seg``) are held to
+the same tolerances, at a segment boundary inside a 64-key tile, an odd
+length, and rows with an empty text segment or no valid key at all.
 """
 
 import pytest
@@ -147,4 +150,64 @@ def test_flash_bwd_kernels_take_fp32(gen):
                          FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens_t)):
         assert got.dtype == torch.float32
         mx, mean = _rel(got, want)
+        assert mx < 2e-2 and mean < 4e-3, (mx, mean)
+
+
+SEG_CASES = [  # (n, seg, lens_a, lens_t)
+    (256, 200, [200, 131], [56, 9]),      # boundary inside a key tile
+    (1077, 1000, [1000, 790], [77, 0]),   # odd length; row 1 without text
+    (300, 256, [0, 256], [0, 44]),        # row 0: both segments empty
+]
+
+
+@pytest.mark.parametrize("n,seg,la,lt", SEG_CASES, ids=["tile", "odd", "empty"])
+def test_two_segment_kernels_match_plain(gen, n, seg, la, lt):
+    """Kernel F and kernels C, D, E in the two-segment mode against their
+    plain versions; keys outside both segments get exactly zero dk, dv."""
+    q, k, v, do, _ = _train_inputs(gen, n, la)
+    lens2 = torch.tensor([la, lt], dtype=torch.int32, device="cuda").T.contiguous()
+    counts = [kern.launches for kern in (FA.KERNEL_SEG, FA.KERNEL_STATS_SEG, FA.KERNEL_DQ_SEG,
+                                         FA.KERNEL_DKV_SEG, FA.KERNEL, FA.KERNEL_STATS)]
+    o_f = FA.flash_attention_two_segment(q, k, v, lens2[:, 0], lens2[:, 1], seg)
+    o, L = FA.flash_attention_fwd_stats(q, k, v, lens2, seg=seg)
+    o_ref, L_ref = FA.flash_attention_fwd_stats_plain(q, k, v, lens2, seg=seg)
+    for got in (o_f, o):
+        err = (got.float() - o_ref.float()).abs()
+        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+    assert (L - L_ref).abs().max().item() < 1e-2
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, do, L, D, lens2, seg=seg)
+    ref = FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens2, seg=seg)
+    for got, want in zip((dq, dk, dv), ref):
+        mx, mean = _rel(got, want)
+        assert mx < 2e-2 and mean < 4e-3, (mx, mean)
+    after = [kern.launches for kern in (FA.KERNEL_SEG, FA.KERNEL_STATS_SEG, FA.KERNEL_DQ_SEG,
+                                        FA.KERNEL_DKV_SEG, FA.KERNEL, FA.KERNEL_STATS)]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1, 0, 0]
+    valid = FA.key_valid(lens2, n, seg)
+    for i in range(2):
+        assert torch.all(dk[i][:, ~valid[i]] == 0) and torch.all(dv[i][:, ~valid[i]] == 0)
+        if la[i] + lt[i] == 0:
+            assert torch.all(o_f[i] == 0) and torch.all(o[i] == 0)
+            assert torch.all(L[i] == FA.NO_KEY_LSE) and torch.all(dq[i] == 0)
+
+
+def test_two_segment_trainable_grads_match_fp32_autograd(gen):
+    """The autograd Function in the two-segment mode (kernels C, D, E)
+    against fp32 autograd through the plain attention; padded query rows of
+    both segments masked out of the loss, as MMDiT's re-mask does."""
+    n, seg = 333, 260
+    q, k, v, do, _ = _train_inputs(gen, n, [0, 0])
+    la = torch.tensor([260, 201], dtype=torch.int32, device="cuda")
+    lt = torch.tensor([73, 12], dtype=torch.int32, device="cuda")
+    lens2 = torch.stack([la, lt], 1).contiguous()
+    mq = FA.key_valid(lens2, n, seg)[:, None, :, None].float()
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention_two_segment_trainable(*xs, la, lt, seg)
+    got = torch.autograd.grad((out.float() * do.float() * mq).sum(), xs)
+    xf = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = FA.flash_attention_two_segment_plain(*xf, lens2, seg)
+    want = torch.autograd.grad((ref * do.float() * mq).sum(), xf)
+    for g_, w_ in zip(got, want):
+        mx, mean = _rel(g_, w_)
         assert mx < 2e-2 and mean < 4e-3, (mx, mean)

@@ -31,7 +31,9 @@ def test_import_every_submodule_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, check=True, timeout=120).stdout.split()
     assert {"f5_tts_tpu_torch.infer.api", "f5_tts_tpu_torch.ops.flash_attention",
-            "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli"} <= set(out)
+            "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli",
+            "f5_tts_tpu_torch.models.unett", "f5_tts_tpu_torch.models.mmdit",
+            "f5_tts_tpu_torch.models.backbones"} <= set(out)
     # optional packages load inside the functions that need them
     assert not {"datasets", "safetensors"} & set(out)
     bad = [m for m in out if _forbidden(m)]
@@ -64,7 +66,9 @@ def test_every_submodule_is_walked():
     assert {"f5_tts_tpu_torch.models.cfm", "f5_tts_tpu_torch.utils.ckpt",
             "f5_tts_tpu_torch.text.pinyin", "f5_tts_tpu_torch.audio.io",
             "f5_tts_tpu_torch.train.step", "f5_tts_tpu_torch.train.dataset",
-            "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli"} <= names
+            "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli",
+            "f5_tts_tpu_torch.models.unett", "f5_tts_tpu_torch.models.mmdit",
+            "f5_tts_tpu_torch.models.backbones"} <= names
 
 
 def test_f5tts_without_device_requires_cuda():
@@ -74,3 +78,13 @@ def test_f5tts_without_device_requires_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         F5TTS(model="F5TTS_Tiny", init_random=True)
+
+
+@pytest.mark.parametrize("model", ["E2TTS_Base", "F5TTS_MMDiT_Base"])
+def test_other_backbones_without_device_require_cuda(model):
+    from f5_tts_tpu_torch.infer.api import F5TTS
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        F5TTS(model=model, init_random=True)
