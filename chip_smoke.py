@@ -3,8 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds both CUDA kernels of the
-   serving path from ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a).
+1. Prints the card's name and power limit, builds every CUDA kernel from
+   ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a, one process per source).
 2. Kernel A (masked flash attention) against its plain version at the
    F5TTS_v1_Base shapes [2, 16, n, 64] bf16, n in {256, 1000, 1024, 4096},
    ragged lens and a row with no valid key; times the kernel, the plain
@@ -53,7 +53,24 @@ Run from the repository root:  python3 chip_smoke.py
 13. Training: ``Trainer(E2TTS_Base, device="cuda")`` in mixed precision, 3
     updates on seeded synthetic mels at ``E2TTS_TRAIN_FRAMES`` per update;
     peak memory and valid frames per second.
-14. Prints the kernels' JSON line, then the result line.
+14. Kernel G (the W8A8 int8 matrix product) against its plain version at
+    the F5TTS_v1_Base serving shapes (m = 1024 with the fused qkv, out, ff
+    in and ff out (k, n)), at m = 1 and 4096 and two ragged shapes; times
+    it (device time, from CUDA-graph replays) beside its bound, ``torch._int_mm``
+    plus the scale epilogue (a yardstick) and dense bf16 ``F.linear``.
+15. W8A8 serving: a dense and a W8A8 F5TTS_v1_Base engine serve the same
+    short request with the same seed; the generated mels must differ, by
+    less than ``MEL_MAE_GATE``; G launches 4 x depth x NFE times per W8A8
+    engine call and never in the dense one, A and B as often in both.  One
+    W8A8 F5TTS_MMDiT_Base request (G = 4 x (depth - 1) x NFE); E2TTS_Base
+    refuses ``quantize=True``.
+16. One full-width W8A8 F5TTS_v1_Base ``forward_cfg`` in fp32, card vs CPU,
+    with the share of int8 activations that the two quantize differently.
+17. Kernels H (pipelined flash attention) and I (fused LayerNorm-modulate
+    matmul), the two experiments, against their plain versions (ragged
+    shapes included), timed beside kernel A / SDPA and beside the unfused
+    composition.
+18. Prints the kernels' JSON line, then the result line.
 
 Any failed phase exits non-zero without the result line.  Weights are
 random, made from fixed seeds.
@@ -69,8 +86,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): bf16 tensor cores, HBM3
+# H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 HBM_BPS = 3.35e12
 
 REF_WAV = os.path.join(REPO, "examples", "assets", "basic_ref_en.wav")
@@ -103,6 +121,20 @@ FULL_GRAD_REL_TOL = 1e-2
 TRAIN_FRAMES = 38_400  # configs/F5TTS_v1_Base.yaml batch_size_per_gpu
 TRAIN_B = TRAIN_FRAMES // 1024  # rows of a 1024-frame batch at that budget
 E2TTS_TRAIN_FRAMES = 38_400  # configs/E2TTS_Base.yaml batch_size_per_gpu
+# kernel G vs its plain version: the int32 sum is exact and the epilogue
+# rounds as the plain version does, so only fp32 rounding may differ
+INT8_REL_TOL = 1e-6
+SERVING_KN = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))  # qkv, out, ff in, ff out
+# W8A8 serving: generated-mel MAE, dense vs W8A8 engine (scripts/quant_ab.py's gate)
+MEL_MAE_GATE = 0.10
+# full-width W8A8 forward, card vs CPU, fp32: an upstream fp32 difference can
+# move an activation across an int8 rounding boundary, one step of its row's
+# scale (~1/127 of the row max), which the remaining layers carry
+W8A8_FULL_REL_TOL = 1e-2
+# kernel I vs its plain version, relative to the largest reference value: the
+# kernel rounds the product + bias once to bf16, the plain version (JAX
+# xla_ref) rounds the product, then the sum
+LN_MATMUL_TOL = (2e-2, 2e-3)
 # full-width fp32 forward, card vs CPU: max abs error over the output's peak.
 # Kernel B runs fp32 there; kernel A still rounds q, k, v, p to bf16 (2^-9
 # relative), which the gated residual stream carries to the output damped
@@ -124,6 +156,35 @@ def timed_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between two events.  For a kernel of tens
+    of microseconds the event-timed loop of ``timed_ms`` measures the host's
+    launch rate instead (one Python wrapper call takes about as long); the
+    graph replays the launches with no host work between them."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on the capture stream, as torch.cuda.graphs asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -214,10 +275,9 @@ def phase_convpos(torch):
     return rows, worst
 
 
-def phase_full_width(torch):
-    """F5TTS_v1_Base forward_cfg, fp32: card (kernels) vs CPU (plain)."""
-    import copy
-
+def _full_width_dit(torch):
+    """(cfg, seeded F5TTS_v1_Base DiT on the CPU with its gates randomized,
+    run(model, device) -> its fp32 forward_cfg output on fixed inputs)."""
     from f5_tts_tpu_torch.models import dit as D
     from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
@@ -250,9 +310,18 @@ def phase_full_width(torch):
                                        adaln_mods=(mods[0], fin[0]))
             return torch.cat([pred, null]).float().cpu()
 
+    return cfg, model, run
+
+
+def phase_full_width(torch):
+    """F5TTS_v1_Base forward_cfg, fp32: card (kernels) vs CPU (plain)."""
+    import copy
+
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.ops import fused_convpos as FC
 
+    cfg, model, run = _full_width_dit(torch)
+    n = 256
     a0, b0 = FA.KERNEL.launches, FC.KERNEL.launches
     t0 = time.perf_counter()
     got = run(copy.deepcopy(model).cuda(), "cuda")
@@ -577,7 +646,7 @@ def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool
     wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"C": ("flash_fwd_kernel",), "D": ("flash_bwd_dq_kernel",),  # C: every forward instance
               "E": ("flash_bwd_dkv_kernel",), "B": ("convpos_fwd_kernel",),
-              "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
+              "G": ("int8_matmul_kernel",), "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
     ms = dict.fromkeys(groups, 0.0)
     total = 0.0
     kernels = []
@@ -752,22 +821,30 @@ def phase_train(torch):
 # two backbones end to end
 
 
+def _single_kernels() -> dict:
+    """The kernels outside flash_attention.KERNELS, by letter: B, G, H, I."""
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+    from f5_tts_tpu_torch.ops import quant as Q
+    from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
+    from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
+
+    return {"B": FC.KERNEL, "G": Q.KERNEL, "H": XH.KERNEL, "I": XI.KERNEL}
+
+
 def reset_counts() -> None:
     """Every kernel instance's launch count to 0."""
     from f5_tts_tpu_torch.ops import flash_attention as FA
-    from f5_tts_tpu_torch.ops import fused_convpos as FC
 
-    for kern in (*FA.KERNELS, FC.KERNEL):
+    for kern in (*FA.KERNELS, *_single_kernels().values()):
         kern.launches = 0
 
 
 def counts() -> dict:
     from f5_tts_tpu_torch.ops import flash_attention as FA
-    from f5_tts_tpu_torch.ops import fused_convpos as FC
 
     names = ("A", "C", "D", "E", "F", "C_seg", "D_seg", "E_seg")
     out = {n: k.launches for n, k in zip(names, FA.KERNELS)}
-    out["B"] = FC.KERNEL.launches
+    out.update({n: k.launches for n, k in _single_kernels().items()})
     return out
 
 
@@ -1192,6 +1269,312 @@ def phase_train_e2tts(torch):
     return result
 
 
+# ---------------------------------------------------------------------------
+# the W8A8 slice: kernel G, W8A8 serving; the experiment kernels H and I
+
+
+def _int8_bound(m, k, n):
+    """Kernel G's bound: 2mkn int8 operations, or x_q, w_q, both scales and
+    the fp32 output moved once."""
+    return bound_ms(2.0 * m * k * n, m * k + n * k + 4.0 * (m + n) + 4.0 * m * n, PEAK_INT8)
+
+
+def phase_int8(torch):
+    """Kernel G against its plain version at the serving shapes, m = 1 and
+    4096, and two ragged shapes; times beside its bound, ``torch._int_mm`` +
+    the scale epilogue (library) and dense bf16 ``F.linear``."""
+    from f5_tts_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    shapes = [(1024, k, n) for k, n in SERVING_KN] + [(1, 1024, 3072), (4096, 1024, 3072),
+                                                      (96, 192, 80), (37, 1000, 200)]
+    rows, worst_rel, worst_abs = [], 0.0, 0.0
+    for m, k, n in shapes:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        x_q, xs = Q.quantize_rows(x)
+        w_q, ws = Q.quantize_weight(w)
+        got = Q.int8_matmul_cuda(x_q, xs, w_q, ws)
+        torch.cuda.synchronize()
+        want = Q.int8_matmul_plain(x_q, xs, w_q, ws)
+        diff = (got - want).abs()
+        rel = (diff / want.abs().clamp(min=1e-30)).max().item()
+        exact = torch.equal(got, want)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff.max().item())
+        if not rel <= INT8_REL_TOL:
+            fail(f"int8_matmul m={m} k={k} n={n}: max relative error {rel} > {INT8_REL_TOL}")
+        # device time per call (the kernels' summed durations): these calls
+        # take tens of microseconds, about what the host needs to issue one
+        iters = 50
+        ms = device_ms(torch, lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
+        loop_ms = timed_ms(torch, lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
+        plain_ms = device_ms(torch, lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
+        lib_ms = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes on CUDA
+            w_t = w_q.t()
+            lib_ms = device_ms(torch, lambda: torch._int_mm(x_q, w_t).float() * xs * ws, iters)
+        dense_ms = device_ms(torch, lambda: torch.nn.functional.linear(x, w), iters)
+        bms, by = _int8_bound(m, k, n)
+        rows.append(dict(m=m, k=k, n=n, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, dense_bf16_ms=dense_ms, bound_ms=bms, bound_by=by,
+                         max_rel=rel, bitwise=exact))
+        print(f"int8_matmul m={m} k={k} n={n}: max rel err {rel:.3e} (tol {INT8_REL_TOL}), "
+              f"bitwise {exact}; device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"_int_mm+epilogue {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bf16 "
+              f"F.linear {dense_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{2.0 * m * k * n / ms / 1e9:.1f} TOP/s; event-timed loop of kernel calls "
+              f"{loop_ms:.4f} ms per call", flush=True)
+    return rows, worst_abs, worst_rel
+
+
+def _quantized_engine(torch, tts):
+    """A W8A8 InferenceEngine on a copy of ``tts``'s model (the engine
+    quantizes its model in place)."""
+    import copy
+    import dataclasses
+
+    from f5_tts_tpu_torch.infer.engine import InferenceEngine
+
+    dense = tts.engine
+    return InferenceEngine(copy.deepcopy(dense.model), tts.model_cfg, vocoder=dense.vocoder,
+                           dtype=dense.dtype,
+                           options=dataclasses.replace(dense.options, quantize=True))
+
+
+def phase_w8a8_serving(torch):
+    """A dense and a W8A8 F5TTS_v1_Base engine on the same request and seed:
+    mel MAE gate, launch counts, RTFs; one W8A8 F5TTS_MMDiT_Base request;
+    E2TTS_Base refuses ``quantize=True``."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import F5TTS
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    out = {}
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE)
+    randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(4))
+    dense = tts.engine
+    quant = _quantized_engine(torch, tts)
+    depth = tts.model_cfg.arch.depth
+    for tag, eng in (("dense", dense), ("w8a8", quant)):
+        tts.engine = eng
+        tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=1)  # warm-up
+        torch.cuda.synchronize()
+        calls = []
+        inner = eng.generate_batch_from_wavs
+        eng.generate_batch_from_wavs = lambda *a, **kw: calls.append(1) or inner(*a, **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        wav, sr, spec = tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        del eng.generate_batch_from_wavs
+        if wav is None or not np.isfinite(wav).all() or not np.isfinite(spec).all():
+            fail(f"W8A8 serving {tag}: no finite wav / mel")
+        # the same request again under the profiler, after the counts are read
+        prof = _profile_update(torch, lambda: (tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT,
+                                                         show_info=quiet, seed=7),
+                                               torch.cuda.synchronize()),
+                               f"one {tag} F5TTS_v1_Base short request (device activity only)",
+                               host=False)
+        prof["busy_share_of_unprofiled_wall"] = prof["device_ms"] / (wall * 1e3)
+        out[tag] = dict(wall_s=wall, audio_s=len(wav) / sr, rtf=wall / (len(wav) / sr),
+                        calls=len(calls), launches=launched, spec=spec, profile=prof)
+        print(f"W8A8 serving F5TTS_v1_Base {tag}: {len(calls)} engine call(s), "
+              f"{len(wav) / sr:.2f} s audio in {wall:.2f} s wall, RTF {wall / (len(wav) / sr):.4f}; "
+              f"launches G {launched['G']} A {launched['A']} B {launched['B']}", flush=True)
+    d, q = out["dense"], out["w8a8"]
+    want_g = 4 * depth * NFE * q["calls"]
+    if d["launches"]["G"] != 0 or q["launches"]["G"] != want_g:
+        fail(f"W8A8 launches of G: dense {d['launches']['G']} (want 0), quantized "
+             f"{q['launches']['G']} (want 4 x {depth} x {NFE} x {q['calls']} = {want_g})")
+    for key in ("A", "B"):
+        if d["launches"][key] != q["launches"][key] or \
+                d["launches"][key] != (depth if key == "A" else 1) * NFE * d["calls"]:
+            fail(f"W8A8 serving: launches of {key} dense {d['launches'][key]}, quantized "
+                 f"{q['launches'][key]}")
+    if d["spec"].shape != q["spec"].shape:
+        fail(f"W8A8 serving: mel shapes {d['spec'].shape} != {q['spec'].shape}")
+    mae = float(np.abs(d["spec"] - q["spec"]).mean())
+    print(f"W8A8 serving F5TTS_v1_Base: generated-mel MAE dense vs W8A8 {mae:.5f} (gate "
+          f"{MEL_MAE_GATE}, and > 0); RTF ratio W8A8 / dense {q['rtf'] / d['rtf']:.3f}", flush=True)
+    if not 0.0 < mae < MEL_MAE_GATE:
+        fail(f"W8A8 serving: mel MAE {mae} outside (0, {MEL_MAE_GATE})")
+    result = dict(mel_mae=mae, launches_per_call=q["launches"]["G"] // q["calls"],
+                  **{f"{t}_{k}": out[t][k] for t in out
+                     for k in ("rtf", "wall_s", "audio_s", "profile")},
+                  dense_launches=d["launches"], w8a8_launches=q["launches"])
+    tts.engine = dense
+    del tts, dense, quant
+    torch.cuda.empty_cache()
+
+    # F5TTS_MMDiT_Base served quantized: only the x-stream q/k/v/out of the
+    # depth - 1 mid blocks are W8A8 (JAX quantize_dit_blocks on MMDiT's tree)
+    tts = F5TTS(model="F5TTS_MMDiT_Base", init_random=True, nfe_step=NFE)
+    randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(36))
+    tts.engine = _quantized_engine(torch, tts)
+    depth = tts.model_cfg.arch.depth
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    wav, sr, _ = tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    want_g = 4 * (depth - 1) * NFE
+    print(f"W8A8 serving F5TTS_MMDiT_Base: {len(wav) / sr:.2f} s audio in {wall:.2f} s wall, RTF "
+          f"{wall / (len(wav) / sr):.4f}; launches G {launched['G']} (want 4 x {depth - 1} x "
+          f"{NFE} = {want_g}) A {launched['A']}", flush=True)
+    if launched["G"] != want_g or launched["A"] != depth * NFE or not np.isfinite(wav).all():
+        fail("W8A8 F5TTS_MMDiT_Base request: wrong launches or a non-finite wav")
+    result["mmdit"] = dict(rtf=wall / (len(wav) / sr), wall_s=wall, launches=launched)
+    del tts
+    torch.cuda.empty_cache()
+
+    cfg = MODEL_CONFIGS["E2TTS_Base"]
+    model = _fresh_cfm(torch, cfg.arch, 37, device="cuda")
+    try:
+        InferenceEngine(model, cfg, dtype=torch.bfloat16, options=EngineOptions(quantize=True))
+    except ValueError as e:
+        print(f"W8A8 E2TTS_Base: InferenceEngine(quantize=True) raises ValueError ({e})", flush=True)
+    else:
+        fail("W8A8 E2TTS_Base: InferenceEngine(quantize=True) did not raise")
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_w8a8_full_width(torch):
+    """F5TTS_v1_Base W8A8 forward_cfg in fp32: card (kernel G) vs CPU (plain
+    version), and the share of activations quantized to another int8 step."""
+    import copy
+
+    from f5_tts_tpu_torch.models import dit as D
+    from f5_tts_tpu_torch.ops import quant as Q
+
+    cfg, model, run = _full_width_dit(torch)
+    n = 256
+    D.fuse_for_inference(model)
+    names = Q.quantize_dit_blocks(model, cfg)
+    seen = []  # the int8 activations of every quantized linear, in call order
+    inner = Q.quantize_rows
+
+    def recording(t):
+        q, s = inner(t)
+        seen.append(q.cpu())
+        return q, s
+
+    Q.quantize_rows = recording
+    try:
+        reset_counts()
+        got = run(copy.deepcopy(model).cuda(), "cuda")
+        launched = counts()
+        q_card, seen[:] = list(seen), []
+        want = run(model, "cpu")
+        q_cpu = list(seen)
+    finally:
+        Q.quantize_rows = inner
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    flips = [(a != c).float().mean().item() for a, c in zip(q_card, q_cpu)]
+    steps = max((a.int() - c.int()).abs().max().item() for a, c in zip(q_card, q_cpu))
+    total = sum(f * a.numel() for f, a in zip(flips, q_card)) / sum(a.numel() for a in q_card)
+    print(f"full-width W8A8 forward_cfg fp32 n={n}: rel err {rel:.3e} (tol {W8A8_FULL_REL_TOL}); "
+          f"{len(names)} quantized weights, launches G {launched['G']} (want {4 * cfg.depth}); "
+          f"int8 activations card vs CPU differ in {total:.3e} of entries (first layer "
+          f"{flips[0]:.3e}, last {flips[-1]:.3e}), by at most {steps} step(s)", flush=True)
+    if launched["G"] != 4 * cfg.depth or {len(q_card), len(q_cpu)} != {4 * cfg.depth}:
+        fail(f"W8A8 full-width forward launches G {launched['G']}, want {4 * cfg.depth}")
+    if not torch.isfinite(got).all() or rel > W8A8_FULL_REL_TOL:
+        fail("W8A8 full-width forward: card and CPU disagree")
+    return dict(rel=rel, flipped_share=total, flipped_first=flips[0], flipped_last=flips[-1],
+                max_steps=steps, launches=launched)
+
+
+def phase_experiments(torch):
+    """Kernels H and I against their plain versions (bf16), timed beside
+    kernel A / SDPA and beside the unfused composition."""
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
+    from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    b, h, dh = 2, 16, 64
+    worst_h = 0.0
+    rows_h = {}
+    for n, lens_l in ((1024, [1024, 824]), (1000, [0, 963]), (65, [65, 1]), (4096, [4096, 4059])):
+        q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens)
+        for bq, bk in XH.CONFIGS:
+            got = XH.flash_pipe_cuda(q, k, v, lens, bq, bk)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            mx, mean = err.max().item(), err.mean().item()
+            worst_h = max(worst_h, mx)
+            if not (mx <= FLASH_TOL[0] and mean <= FLASH_TOL[1]):
+                fail(f"kernel H ({bq}, {bk}) n={n} lens={lens_l}: max {mx} mean {mean}")
+            if 0 in lens_l and got[lens_l.index(0)].abs().max().item() != 0.0:
+                fail("kernel H: a row with no valid key must give 0")
+        if n in (1024, 4096):  # device time per call, as phase 14
+            iters = 50 if n == 1024 else 10
+            t = {f"H_{bq}x{bk}": device_ms(torch, lambda: XH.flash_pipe_cuda(q, k, v, lens, bq,
+                                                                             bk), iters)
+                 for bq, bk in XH.CONFIGS}
+            t["A"] = device_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
+            t["plain"] = device_ms(torch, lambda: FA.flash_attention_plain(q.float(), k.float(),
+                                                                           v.float(), lens), 3)
+            keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+            t["sdpa"] = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep), iters)
+            bms, by = bound_ms(sum(4.0 * h * n * kv * dh for kv in lens_l),
+                               4.0 * b * h * n * dh * 2 + 4 * b, PEAK_BF16)
+            rows_h[n] = dict(**t, bound_ms=bms, bound_by=by)
+            print(f"kernel H n={n} lens={lens_l}, device time per call: " + ", ".join(
+                f"{key} {val:.4f} ms" for key, val in t.items()) + f", bound {bms:.4f} ms ({by})",
+                flush=True)
+        print(f"kernel H n={n} lens={lens_l}: every configuration within {FLASH_TOL} of the "
+              "plain version", flush=True)
+
+    worst_i = 0.0
+    row_i = None
+    for m, kk, nn in ((2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200)):
+        args = XI.inputs(m, kk, nn, "cuda", seed=61)
+        got = XI.fused_ln_matmul_cuda(*args)
+        torch.cuda.synchronize()
+        want = XI.fused_ln_matmul_plain(*args).float()
+        mx, mean = _rel_err(got, want)
+        worst_i = max(worst_i, mx)
+        print(f"kernel I M={m} K={kk} N={nn}: error relative to max |ref| max {mx:.3e} mean "
+              f"{mean:.3e} (tol {LN_MATMUL_TOL})", flush=True)
+        if not (mx <= LN_MATMUL_TOL[0] and mean <= LN_MATMUL_TOL[1]):
+            fail(f"kernel I M={m} K={kk} N={nn} disagrees with its plain version")
+        if m == 2048:
+            x, w, bias, sc, sh = args
+            ms = device_ms(torch, lambda: XI.fused_ln_matmul_cuda(*args), 50)
+            plain_ms = device_ms(torch, lambda: XI.fused_ln_matmul_plain(*args), 20)
+            lib_ms = device_ms(torch, lambda: XI.unfused(*args), 50)
+            nbytes = 2.0 * (m * kk + kk * nn + m * nn) + 4.0 * (nn + 2 * kk)
+            bms, by = bound_ms(2.0 * m * kk * nn, nbytes, PEAK_BF16)
+            row_i = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+            print(f"kernel I M={m} K={kk} N={nn}, device time per call: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, "
+                  f"unfused torch {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  f"{2.0 * m * kk * nn / ms / 1e9:.1f} TFLOP/s", flush=True)
+    try:
+        XI.fused_ln_matmul_cuda(*XI.inputs(8, 2048, 64, "cuda"))
+    except ValueError as e:
+        print(f"kernel I K=2048: raises ValueError ({e})", flush=True)
+    else:
+        fail("kernel I took a K larger than its shared-memory panel")
+    return rows_h, worst_h, row_i, worst_i
+
+
 def main() -> int:
     import torch
 
@@ -1256,6 +1639,16 @@ def main() -> int:
     lap("13 (E2TTS training)")
     print(f"summary: full-width {full}; MMDiT gradient {mm_grad}; E2TTS serving {e2tts}; MMDiT "
           f"serving {mmdit}; E2TTS training {e2tts_train}", flush=True)
+
+    int8_rows, int8_abs, int8_rel = phase_int8(torch)
+    lap("14 (kernel G)")
+    w8a8 = phase_w8a8_serving(torch)  # counts set to 0 before each timed request
+    lap("15 (W8A8 serving)")
+    w8a8_full = phase_w8a8_full_width(torch)
+    lap("16 (W8A8 forward)")
+    h_rows, h_err, i_row, i_err = phase_experiments(torch)
+    lap("17 (kernels H, I)")
+    print(f"summary: W8A8 serving {w8a8}; W8A8 full-width {w8a8_full}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
@@ -1314,6 +1707,34 @@ def main() -> int:
         seg_entry("flash_attention_bwd_dkv_seg", "E", "DE_plain", "DE_lib",
                   "f5_tts_tpu/ops/flash_attention.py:112", mm_grad["launches"]["E_seg"],
                   "training", "relative to max |reference|"),
+    ]
+    g = next(r for r in int8_rows if (r["m"], r["k"], r["n"]) == (1024, 1024, 4096))
+    h = h_rows[1024]
+    kernels += [
+        {"name": "int8_matmul", "route": "cuda", "source": "f5_tts_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"],
+         "max_abs_err": int8_abs, "max_rel_err": int8_rel, "ms": g["ms"],
+         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+         "library_ms": g["library_ms"], "shape_mkn": [1024, 1024, 4096],
+         "library_covers": "torch._int_mm + the scale epilogue",
+         "ms_kind": "device time (CUDA-graph replay), as every time of G, H and I",
+         "loop_ms": g["loop_ms"], "dense_bf16_linear_ms": g["dense_bf16_ms"],
+         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32"},
+        {"name": "flash_attention_pipelined", "route": "cuda",
+         "source": "f5_tts_tpu_torch/csrc/flash_attention_pipelined.cu",
+         "replaces": "scripts/exp_pipelined_flash.py:24", "launches": 0, "experiment": True,
+         "max_abs_err": h_err, "ms": h["H_64x64"], "plain_ms": h["plain"],
+         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["sdpa"],
+         "kernel_a_ms": h["A"], "configs_ms": {k: v for k, v in h.items() if k.startswith("H_")},
+         "shape": [2, 16, 1024, 64], "lens": [1024, 824]},
+        {"name": "fused_ln_matmul", "route": "cuda",
+         "source": "f5_tts_tpu_torch/csrc/fused_ln_matmul.cu",
+         "replaces": "scripts/exp_fused_ln_matmul.py:27", "launches": 0, "experiment": True,
+         "max_abs_err": i_err, "err_kind": "relative to max |reference|", "ms": i_row["ms"],
+         "plain_ms": i_row["plain_ms"], "bound_ms": i_row["bound_ms"],
+         "bound_by": i_row["bound_by"], "library_ms": i_row["library_ms"],
+         "library_covers": "F.layer_norm + modulate + torch.addmm (unfused)",
+         "shape_mkn": [2048, 1024, 3072]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

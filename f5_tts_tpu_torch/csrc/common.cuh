@@ -58,6 +58,32 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 16-byte asynchronous copy global -> shared (sm_80+); ``src_bytes`` < 16
+// zero-fills the rest of the 16 bytes, so 0 gives a zero chunk (the source
+// address must still be a valid one).  Commit / wait group the copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lane l gives the
+// row address of matrix l / 8, row l % 8, and register i receives matrix i
+// transposed, i.e. (M[2t][g], M[2t+1][g]) for g = lane / 4, t = lane % 4.
+// From a row-major [k][n] tile that is mma_16816's B fragment (k rows 2t,
+// 2t+1, column g): ldmatrix.trans reads B straight from a row-major layout.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Key-column mask of the flash-attention kernels: keys valid in
 // [0, a) U [s0, s1).  The single-prefix mode reads lens int32 [b] and has an
 // empty second segment; the two-segment mode (MMDiT's joint [audio, text]

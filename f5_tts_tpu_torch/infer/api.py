@@ -13,6 +13,13 @@ backbone then runs in fp32, on the card in bf16).  Checkpoints load from
 ``.safetensors``); ``init_random=True`` builds seeded random weights.  Hub
 resolution, the Whisper fallback for an empty ``ref_text`` and AOT artifacts
 are not ported yet and raise (see ROADMAP.md).
+
+W8A8 serving is an ``EngineOptions`` field, not a keyword here, as in the
+JAX ``F5TTS``: build an ``InferenceEngine(..., options=EngineOptions(
+quantize=True))``, or replace ``self.engine`` with one.  ``infer()``
+updates only the sampler fields of the engine's options
+(``dataclasses.replace``), so it keeps whatever ``quantize`` the engine was
+built with, as JAX ``api.py:265`` does.
 """
 
 from __future__ import annotations

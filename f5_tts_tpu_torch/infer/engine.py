@@ -14,8 +14,13 @@ The text ids are padded to the bucket width, so MMDiT, whose text stream
 is capped at ``text_max_pos`` tokens, serves buckets up to that length and
 raises above it.  The backbone runs in the engine's dtype (bf16 on the
 card), the vocoder in fp32.
-Options that belong to later slices of the port (W8A8, the time-parallel
-window, the einsum-tap convpos) raise if set.
+``EngineOptions(quantize=True)`` serves W8A8 (``ops/quant.py``, kernel G on
+the card): after the cast to the compute dtype and the qkv fusion, the
+engine quantizes the backbone's block linears in place from the
+dtype-rounded weights, as JAX ``engine.py:234-241`` does; DiT and MMDiT
+only (UNetT raises ``ValueError``: the JAX package cannot quantize it
+either).  The options that belong to later slices of the port (the
+time-parallel window, the einsum-tap convpos) raise if set.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from f5_tts_tpu_torch.models import cfm, vocos
 from f5_tts_tpu_torch.models.backbones import get_backbone
 from f5_tts_tpu_torch.models.configs import ModelConfig
+from f5_tts_tpu_torch.ops import quant
 from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, num_frames, stft_pad_amount
 
 SILENCE_FLOOR = float(np.log(1e-5))
@@ -53,12 +59,12 @@ class EngineOptions:
     use_epss: bool = True
     ode_method: str = "euler"  # "euler" | "midpoint"
     backend: str = "auto"  # attention backend
-    quantize: bool = False  # W8A8: not ported yet
+    quantize: bool = False  # W8A8 int8 block linears (ops/quant.py, kernel G)
     time_parallel_window: int = 0  # Picard window: not ported yet
     convpos_taps: bool = False  # mesh-serving convpos: not ported yet
 
     def __post_init__(self):
-        for name in ("quantize", "time_parallel_window", "convpos_taps"):
+        for name in ("time_parallel_window", "convpos_taps"):
             if getattr(self, name):
                 raise NotImplementedError(f"EngineOptions.{name} is not ported yet; "
                                           "see ROADMAP.md")
@@ -135,7 +141,9 @@ def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarr
 
 class InferenceEngine:
     """Holds the backbone (``CFM.transformer``) and vocoder on one device;
-    exposes batch mel / waveform generation."""
+    exposes batch mel / waveform generation.  The engine fuses (and with
+    ``options.quantize`` quantizes) the model it is given in place, so two
+    engines that differ in ``quantize`` need a model each."""
 
     def __init__(self, model, model_cfg: ModelConfig, vocoder=None, dtype=torch.float32,
                  buckets=DEFAULT_BUCKETS, options: EngineOptions = EngineOptions()):
@@ -143,11 +151,14 @@ class InferenceEngine:
         self.dtype = dtype
         self.buckets = buckets
         self.options = options
+        quant.dequantize(model)  # a model that served quantized before serves dense again
         self.model = model.to(dtype=dtype).eval()
         self.device = next(self.model.parameters()).device
         backbone = get_backbone(model_cfg.arch)
         if hasattr(backbone, "fuse_for_inference"):  # DiT and UNetT, as JAX engine.py:231-236
             backbone.fuse_for_inference(self.model.transformer)
+        if options.quantize:  # from the dtype-rounded weights, as JAX engine.py:238-241
+            quant.quantize_dit_blocks(self.model.transformer, model_cfg.arch)
         self.vocoder = None if vocoder is None else vocoder.to(self.device, torch.float32).eval()
         self.hop = model_cfg.mel.hop_length
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)

@@ -5,8 +5,9 @@ module exposes ``text_embedding(model, cfg, text_ids, seq_len, lens=None,
 drop_text=False)``, ``forward(model, cfg, x, cond, text_emb, time,
 mask=None, drop_audio_cond=False, backend=...)``, ``forward_cfg`` and
 ``forward_with_text``; DiT also ``precompute_adaln``, DiT and UNetT also
-``fuse_for_inference``.  Callers test for those two with ``hasattr``, as
-the JAX sampler and engine do.
+``fuse_for_inference``, DiT and MMDiT also ``quantize_targets`` (W8A8).
+Callers test for the first two with ``hasattr``, as the JAX sampler and
+engine do.
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ def get_backbone(arch_cfg):
 def build_backbone(arch_cfg) -> nn.Module:
     """The backbone ``nn.Module`` of an arch config, reference-initialized."""
     return _entry(arch_cfg)[1](arch_cfg)
+
+
+def quantize_targets(model: nn.Module, arch_cfg) -> list[tuple[str, nn.Module, str]]:
+    """The linears W8A8 serving quantizes, as (name, module, weight
+    attribute).  UNetT has none: the JAX ``quantize_dit_blocks`` reads
+    ``params["blocks"]``, which UNetT's tree (``first`` / ``second``) lacks,
+    so JAX cannot serve it quantized (a ``KeyError``)."""
+    module = get_backbone(arch_cfg)
+    if not hasattr(module, "quantize_targets"):
+        raise ValueError(f"W8A8 quantization is not defined for {type(arch_cfg).__name__}: the "
+                         "JAX package has no counterpart (quantize_dit_blocks reads "
+                         "params['blocks'], which this backbone's tree lacks)")
+    return module.quantize_targets(model)
 
 
 def randomize_zero_init(model: nn.Module, generator: torch.Generator) -> None:

@@ -214,3 +214,21 @@ def fuse_for_inference(model: DiT) -> DiT:
     for blk in model.transformer_blocks:
         blk.attn.fuse_qkv()
     return model
+
+
+def quantize_targets(model: DiT) -> list[tuple[str, nn.Module, str]]:
+    """The W8A8 linears of JAX ``quantize_dit_blocks`` as (name, module,
+    weight attribute): in every block the fused qkv (to_q, to_k, to_v when
+    not fused), ``attn.to_out.0``, ``ff.ff.0.0`` and ``ff.ff.2``."""
+    out = []
+    for i, blk in enumerate(model.transformer_blocks):
+        pre, attn = f"transformer_blocks.{i}.", blk.attn
+        if attn.qkv_weight is not None:
+            out.append((pre + "attn.qkv_weight", attn, "qkv_weight"))
+        else:
+            out += [(pre + f"attn.{nm}.weight", getattr(attn, nm), "weight")
+                    for nm in ("to_q", "to_k", "to_v")]
+        out += [(pre + "attn.to_out.0.weight", attn.to_out[0], "weight"),
+                (pre + "ff.ff.0.0.weight", blk.ff.ff[0][0], "weight"),
+                (pre + "ff.ff.2.weight", blk.ff.ff[2], "weight")]
+    return out

@@ -9,7 +9,10 @@ fp32, then cast; embedding ids clamped; output re-mask after attention).
 
 Layout: sequences are [b, n, d] as in the JAX package; convolutions
 transpose to torch's [b, d, n] internally.  The int8 ``kernel_q`` branch of
-the JAX ``linear`` (W8A8) is not ported yet.
+the JAX ``linear`` (W8A8 serving) is taken when a linear holds the
+non-persistent buffers ``weight_q`` / ``w_scale`` (``qkv_weight_q`` /
+``qkv_w_scale`` for the fused qkv) that ``ops.quant.quantize_dit_blocks``
+sets; it runs ``ops.quant.linear_w8a8`` (kernel G on the card).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from f5_tts_tpu_torch.ops.attention import attention
 from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused
+from f5_tts_tpu_torch.ops.quant import linear_w8a8
 from f5_tts_tpu_torch.ops.rope import apply_rotary
 
 # ---------------------------------------------------------------------------
@@ -29,6 +33,9 @@ from f5_tts_tpu_torch.ops.rope import apply_rotary
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    w_q = getattr(p, "weight_q", None)
+    if w_q is not None:  # W8A8 serving (EngineOptions.quantize)
+        return linear_w8a8(x, w_q, p.w_scale, p.bias)
     return F.linear(x, p.weight, p.bias)
 
 
@@ -252,19 +259,23 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(dim_head)
         elif qk_norm is not None:
             raise ValueError(f"unknown qk_norm {qk_norm!r}")
-        # fused projection, set by fuse_qkv(); not part of the state dict
+        # fused projection, set by fuse_qkv(), and its W8A8 form, set by
+        # ops.quant.quantize_dit_blocks; not part of the state dict
         self.register_buffer("qkv_weight", None, persistent=False)
         self.register_buffer("qkv_bias", None, persistent=False)
+        self.register_buffer("qkv_weight_q", None, persistent=False)
+        self.register_buffer("qkv_w_scale", None, persistent=False)
 
     def fuse_qkv(self) -> None:
         """Serving transform (JAX ``layers.fuse_qkv``): one [3 inner, dim]
         projection instead of three.  Held as non-persistent buffers, so the
         state dict keeps the reference's separate names; call again after
-        loading new weights."""
+        loading new weights (it drops a W8A8 form of the old ones)."""
         w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight], dim=0)
         b = torch.cat([self.to_q.bias, self.to_k.bias, self.to_v.bias], dim=0)
         self.qkv_weight = w.detach().clone()
         self.qkv_bias = b.detach().clone()
+        self.qkv_weight_q = self.qkv_w_scale = None
 
 
 def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: int | None = None,
@@ -273,7 +284,9 @@ def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: i
     rotary on the first ``pe_attn_head`` heads when set; padding keys masked
     and the output re-masked."""
     b, n, _ = x.shape
-    if p.qkv_weight is not None:
+    if p.qkv_weight_q is not None:
+        q, k, v = linear_w8a8(x, p.qkv_weight_q, p.qkv_w_scale, p.qkv_bias).chunk(3, dim=-1)
+    elif p.qkv_weight is not None:
         q, k, v = F.linear(x, p.qkv_weight, p.qkv_bias).chunk(3, dim=-1)
     else:
         q, k, v = linear(p.to_q, x), linear(p.to_k, x), linear(p.to_v, x)

@@ -261,3 +261,18 @@ def forward_cfg(model: MMDiT, cfg: MMDiTConfig, x, step_cond, text_emb_cond, tex
     out = forward(model, cfg, x2, cond2, te2, t2, mask=mask2, c_mask=cm2, backend=backend,
                   attn_mask_enabled=attn_mask_enabled)
     return out[:b], out[b:]
+
+
+def quantize_targets(model: MMDiT) -> list[tuple[str, nn.Module, str]]:
+    """The W8A8 linears of JAX ``quantize_dit_blocks`` on MMDiT's tree, as
+    (name, module, weight attribute): it walks the stacked ``blocks`` only,
+    i.e. every block but the last, and finds there the x-stream ``to_q``,
+    ``to_k``, ``to_v`` and ``to_out`` (its ``ff`` key does not exist:
+    ``ff_x`` and ``ff_c`` stay dense, as do the context projections)."""
+    out = []
+    for i, blk in enumerate(model.transformer_blocks[:-1]):
+        pre, attn = f"transformer_blocks.{i}.attn.", blk.attn
+        out += [(pre + f"{nm}.weight", getattr(attn, nm), "weight")
+                for nm in ("to_q", "to_k", "to_v")]
+        out.append((pre + "to_out.0.weight", attn.to_out[0], "weight"))
+    return out

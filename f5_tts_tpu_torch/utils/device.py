@@ -12,3 +12,13 @@ def resolve_device(device: str | None, who: str = "F5TTS") -> torch.device:
         raise RuntimeError(f"{who} runs on a CUDA device and none is available; "
                            "pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_name_and_power_limit() -> str:
+    """The card as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints it: the label every time the drivers
+    print carries (a card below its 700 W limit runs slower under load)."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()

@@ -14,6 +14,12 @@ are compared relative to the largest reference value (2e-2 max, 4e-3 mean).
 The two-segment instances (kernel F, and C, D, E with ``seg``) are held to
 the same tolerances, at a segment boundary inside a 64-key tile, an odd
 length, and rows with an empty text segment or no valid key at all.
+Kernel G (the W8A8 int8 product) must equal its plain version to 1e-6
+relative (the int32 sum is exact; the output is bitwise the plain one's),
+at ragged m, k, n too, and a W8A8 linear on the card must launch it.
+Kernels H (pipelined flash attention, every tile configuration) and I
+(fused LayerNorm-modulate matmul) are held as kernel A: 2e-2 max, 2e-3
+mean error, I's relative to the largest reference value.
 """
 
 import pytest
@@ -21,6 +27,9 @@ import torch
 
 from f5_tts_tpu_torch.ops import flash_attention as FA
 from f5_tts_tpu_torch.ops import fused_convpos as FC
+from f5_tts_tpu_torch.ops import quant as Q
+from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
+from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
 
 pytestmark = pytest.mark.cuda
 
@@ -211,3 +220,60 @@ def test_two_segment_trainable_grads_match_fp32_autograd(gen):
     for g_, w_ in zip(got, want):
         mx, mean = _rel(g_, w_)
         assert mx < 2e-2 and mean < 4e-3, (mx, mean)
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 1024, 3072), (1, 4096, 1024), (96, 192, 80),
+                                   (37, 1000, 200)])
+def test_int8_kernel_matches_plain(gen, m, k, n):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+    x_q, xs = Q.quantize_rows(x)
+    w_q, ws = Q.quantize_weight(w)
+    before = Q.KERNEL.launches
+    got = Q.int8_matmul(x_q, xs, w_q, ws)
+    assert Q.KERNEL.launches == before + 1
+    want = Q.int8_matmul_plain(x_q, xs, w_q, ws)
+    assert ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item() <= 1e-6
+
+
+def test_w8a8_linear_launches_the_int8_kernel(gen):
+    lin = torch.nn.Linear(256, 384).cuda().to(torch.bfloat16)
+    Q.quantize_linear_params(lin)
+    from f5_tts_tpu_torch.models.layers import linear
+
+    x = torch.randn((3, 50, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    before = Q.KERNEL.launches
+    y = linear(lin, x)
+    assert Q.KERNEL.launches == before + 1 and y.dtype == torch.bfloat16 and y.shape == (3, 50, 384)
+    want = Q.linear_w8a8(x.cpu(), lin.weight_q.cpu(), lin.w_scale.cpu(), lin.bias.cpu())
+    assert (y.cpu().float() - want.float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("n,lens", [(1024, [1024, 824]), (1000, [0, 963]), (65, [65, 1])])
+def test_pipelined_flash_kernel_matches_plain(gen, n, lens):
+    q, k, v = (torch.randn((2, 4, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens_t)
+    for bq, bk in XH.CONFIGS:
+        before = XH.KERNEL.launches
+        got = XH.flash_pipe(q, k, v, lens_t, bq, bk).float()
+        assert XH.KERNEL.launches == before + 1
+        err = (got - want).abs()
+        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3, (bq, bk)
+        if 0 in lens:
+            assert torch.all(got[lens.index(0)] == 0)
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200)])
+def test_fused_ln_matmul_kernel_matches_plain(gen, m, k, n):
+    args = XI.inputs(m, k, n, "cuda", seed=7)
+    before = XI.KERNEL.launches
+    got = XI.fused_ln_matmul(*args).float()
+    assert XI.KERNEL.launches == before + 1
+    want = XI.fused_ln_matmul_plain(*args).float()
+    err = (got - want).abs() / want.abs().max()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+    with pytest.raises(ValueError, match="shared-memory"):
+        XI.fused_ln_matmul(*XI.inputs(8, 2048, 64, "cuda"))
+

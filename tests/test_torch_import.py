@@ -33,7 +33,9 @@ def test_import_every_submodule_loads_no_jax():
     assert {"f5_tts_tpu_torch.infer.api", "f5_tts_tpu_torch.ops.flash_attention",
             "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli",
             "f5_tts_tpu_torch.models.unett", "f5_tts_tpu_torch.models.mmdit",
-            "f5_tts_tpu_torch.models.backbones"} <= set(out)
+            "f5_tts_tpu_torch.models.backbones", "f5_tts_tpu_torch.ops.quant",
+            "f5_tts_tpu_torch.scripts.quant_ab", "f5_tts_tpu_torch.scripts.exp_pipelined_flash",
+            "f5_tts_tpu_torch.scripts.exp_fused_ln_matmul"} <= set(out)
     # optional packages load inside the functions that need them
     assert not {"datasets", "safetensors"} & set(out)
     bad = [m for m in out if _forbidden(m)]
@@ -68,7 +70,10 @@ def test_every_submodule_is_walked():
             "f5_tts_tpu_torch.train.step", "f5_tts_tpu_torch.train.dataset",
             "f5_tts_tpu_torch.train.trainer", "f5_tts_tpu_torch.train.cli",
             "f5_tts_tpu_torch.models.unett", "f5_tts_tpu_torch.models.mmdit",
-            "f5_tts_tpu_torch.models.backbones"} <= names
+            "f5_tts_tpu_torch.models.backbones", "f5_tts_tpu_torch.ops.quant",
+            "f5_tts_tpu_torch.scripts", "f5_tts_tpu_torch.scripts.quant_ab",
+            "f5_tts_tpu_torch.scripts.exp_pipelined_flash",
+            "f5_tts_tpu_torch.scripts.exp_fused_ln_matmul"} <= names
 
 
 def test_f5tts_without_device_requires_cuda():
