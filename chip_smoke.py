@@ -56,12 +56,13 @@ Run from the repository root:  python3 chip_smoke.py
 14. Kernel G (the W8A8 int8 matrix product) against its plain version at
     the F5TTS_v1_Base serving shapes (m = 1024 with the fused qkv, out, ff
     in and ff out (k, n)), at m = 1 and 4096 and two ragged shapes; times
-    it (device time, from CUDA-graph replays) beside its bound, ``torch._int_mm``
-    plus the scale epilogue (a yardstick) and dense bf16 ``F.linear``.
+    it beside its bound, ``torch._int_mm`` plus the scale epilogue (a
+    yardstick) and dense bf16 ``F.linear``.
 15. W8A8 serving: a dense and a W8A8 F5TTS_v1_Base engine serve the same
     short request with the same seed; the generated mels must differ, by
     less than ``MEL_MAE_GATE``; G launches 4 x depth x NFE times per W8A8
-    engine call and never in the dense one, A and B as often in both.  One
+    engine call and never in the dense one, A and B as often in both, the
+    experiments' H and I in neither.  One
     W8A8 F5TTS_MMDiT_Base request (G = 4 x (depth - 1) x NFE); E2TTS_Base
     refuses ``quantize=True``.
 16. One full-width W8A8 F5TTS_v1_Base ``forward_cfg`` in fp32, card vs CPU,
@@ -72,6 +73,8 @@ Run from the repository root:  python3 chip_smoke.py
     composition.
 18. Prints the kernels' JSON line, then the result line.
 
+Every time of a kernel, its plain version and its library yardstick is
+device time per call, from CUDA-graph replays (``utils.device.device_ms``).
 Any failed phase exits non-zero without the result line.  Weights are
 random, made from fixed seeds.
 """
@@ -146,47 +149,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def timed_ms(torch, fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters: int, reps: int = 5) -> float:
-    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
-    graph, replayed ``reps`` times between two events.  For a kernel of tens
-    of microseconds the event-timed loop of ``timed_ms`` measures the host's
-    launch rate instead (one Python wrapper call takes about as long); the
-    graph replays the launches with no host work between them."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up on the capture stream, as torch.cuda.graphs asks
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (reps * iters)
-
-
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -194,6 +156,7 @@ def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 def phase_flash(torch):
     from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, h, dh = 2, 16, 64
@@ -218,11 +181,11 @@ def phase_flash(torch):
                   f"mean_abs_err={mean_err:.3e} (tol {FLASH_TOL})", flush=True)
         lens = torch.tensor([n, n - 37], dtype=torch.int32, device="cuda")
         iters = 50 if n <= 1024 else 10
-        ms = timed_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
-        plain_ms = timed_ms(torch, lambda: FA.flash_attention_plain(q.float(), k.float(),
+        ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
+        plain_ms = device_ms(lambda: FA.flash_attention_plain(q.float(), k.float(),
                                                                     v.float(), lens), 3)
         keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        lib_ms = timed_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        lib_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=keep), iters)
         flops = sum(4.0 * h * n * kv * dh for kv in (n, n - 37))
         nbytes = 4.0 * b * h * n * dh * 2 + 4 * b
@@ -237,6 +200,7 @@ def phase_flash(torch):
 
 def phase_convpos(torch):
     from f5_tts_tpu_torch.ops import fused_convpos as FC
+    from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, d, groups, k = 2, 1024, 16, 31
@@ -259,9 +223,9 @@ def phase_convpos(torch):
             fail(f"convpos n={n}: max {max_err} mean {mean_err} > {CONVPOS_TOL}")
         worst = max(worst, max_err)
         iters = 20 if n <= 1024 else 5
-        ms = timed_ms(torch, lambda: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups), iters)
-        plain_ms = timed_ms(torch, lambda: FC.conv_pos_plain(*f32, lens, groups), 3)
-        lib_ms = timed_ms(torch, lambda: FC.conv_pos_plain(x, w1, b1, w2, b2, lens, groups),
+        ms = device_ms(lambda: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups), iters)
+        plain_ms = device_ms(lambda: FC.conv_pos_plain(*f32, lens, groups), 3)
+        lib_ms = device_ms(lambda: FC.conv_pos_plain(x, w1, b1, w2, b2, lens, groups),
                           iters)
         flops = sum(2 * 2.0 * k * 64 * d * ln for ln in (n, n - 37))
         nbytes = 2.0 * b * n * d * 2 + 2 * (d * 64 * k + d) * 2 + 4 * b
@@ -445,24 +409,26 @@ def _rel_err(got, want):
 
 def _time_train_kernels(torch, FA, q, k, v, do, lens, iters):
     """ms of C, D, E, of their plain versions and of SDPA fwd / bwd."""
+    from f5_tts_tpu_torch.utils.device import device_ms
+
     o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
     D = (do.float() * o.float()).sum(-1).contiguous()
-    t = {"C": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens), iters),
-         "D": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens),
+    t = {"C": device_ms(lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens), iters),
+         "D": device_ms(lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens),
                        iters),
-         "E": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens),
+         "E": device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens),
                        iters)}
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    t["C_plain"] = timed_ms(torch, lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens), 3)
-    t["DE_plain"] = timed_ms(torch, lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
+    t["C_plain"] = device_ms(lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens), 3)
+    t["DE_plain"] = device_ms(lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
                                                                          lens), 3)
     n = q.shape[2]
     keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    t["C_lib"] = timed_ms(torch, lambda: sdpa(q, k, v, attn_mask=keep), iters)
-    fwd_g = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep), iters)
-    both = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep).backward(do), iters)
+    t["C_lib"] = device_ms(lambda: sdpa(q, k, v, attn_mask=keep), iters)
+    fwd_g = device_ms(lambda: sdpa(*xs, attn_mask=keep), iters)
+    both = device_ms(lambda: torch.autograd.grad(sdpa(*xs, attn_mask=keep), xs, do), iters)
     t["DE_lib"] = both - fwd_g  # the SDPA backward alone
     return t
 
@@ -900,39 +866,41 @@ def _time_seg(torch, FA, q, k, v, do, lens2, seg, iters):
     """ms of F, C, D, E (two-segment), of A, C, D, E over a prefix of the same
     valid-key count (``*_same_kv``), of the plain versions and of SDPA
     fwd / bwd."""
+    from f5_tts_tpu_torch.utils.device import device_ms
+
     o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg)
     D = (do.float() * o.float()).sum(-1).contiguous()
     kv = (lens2[:, 0] + lens2[:, 1]).contiguous()
     o_p, L_p = FA.flash_attention_fwd_stats_cuda(q, k, v, kv)
     D_p = (do.float() * o_p.float()).sum(-1).contiguous()
-    t = {"F": timed_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, lens2, seg),
+    t = {"F": device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens2, seg),
                        iters),
-         "A_same_kv": timed_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, kv), iters),
-         "C": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg),
+         "A_same_kv": device_ms(lambda: FA.flash_attention_cuda(q, k, v, kv), iters),
+         "C": device_ms(lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg),
                        iters),
-         "D": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2,
+         "D": device_ms(lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2,
                                                                      seg), iters),
-         "E": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2,
+         "E": device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2,
                                                                       seg), iters),
-         "C_same_kv": timed_ms(torch, lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, kv),
+         "C_same_kv": device_ms(lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, kv),
                                iters),
-         "D_same_kv": timed_ms(torch, lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L_p,
+         "D_same_kv": device_ms(lambda: FA.flash_attention_bwd_dq_cuda(q, k, v, do, L_p,
                                                                              D_p, kv), iters),
-         "E_same_kv": timed_ms(torch, lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L_p,
+         "E_same_kv": device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L_p,
                                                                               D_p, kv), iters)}
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    t["F_plain"] = timed_ms(torch, lambda: FA.flash_attention_two_segment_plain(qf, kf, vf, lens2,
+    t["F_plain"] = device_ms(lambda: FA.flash_attention_two_segment_plain(qf, kf, vf, lens2,
                                                                                 seg), 3)
-    t["C_plain"] = timed_ms(torch, lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens2,
+    t["C_plain"] = device_ms(lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens2,
                                                                               seg), 3)
-    t["DE_plain"] = timed_ms(torch, lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
+    t["DE_plain"] = device_ms(lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
                                                                          lens2, seg), 3)
     keep = FA.key_valid(lens2, q.shape[2], seg)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    t["F_lib"] = timed_ms(torch, lambda: sdpa(q, k, v, attn_mask=keep), iters)
-    fwd_g = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep), iters)
-    both = timed_ms(torch, lambda: sdpa(*xs, attn_mask=keep).backward(do), iters)
+    t["F_lib"] = device_ms(lambda: sdpa(q, k, v, attn_mask=keep), iters)
+    fwd_g = device_ms(lambda: sdpa(*xs, attn_mask=keep), iters)
+    both = device_ms(lambda: torch.autograd.grad(sdpa(*xs, attn_mask=keep), xs, do), iters)
     t["DE_lib"] = both - fwd_g
     return t
 
@@ -1284,6 +1252,7 @@ def phase_int8(torch):
     4096, and two ragged shapes; times beside its bound, ``torch._int_mm`` +
     the scale epilogue (library) and dense bf16 ``F.linear``."""
     from f5_tts_tpu_torch.ops import quant as Q
+    from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(50)
     shapes = [(1024, k, n) for k, n in SERVING_KN] + [(1, 1024, 3072), (4096, 1024, 3072),
@@ -1303,27 +1272,23 @@ def phase_int8(torch):
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff.max().item())
         if not rel <= INT8_REL_TOL:
             fail(f"int8_matmul m={m} k={k} n={n}: max relative error {rel} > {INT8_REL_TOL}")
-        # device time per call (the kernels' summed durations): these calls
-        # take tens of microseconds, about what the host needs to issue one
         iters = 50
-        ms = device_ms(torch, lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
-        loop_ms = timed_ms(torch, lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
-        plain_ms = device_ms(torch, lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
+        ms = device_ms(lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
+        plain_ms = device_ms(lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
         lib_ms = None
         if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes on CUDA
             w_t = w_q.t()
-            lib_ms = device_ms(torch, lambda: torch._int_mm(x_q, w_t).float() * xs * ws, iters)
-        dense_ms = device_ms(torch, lambda: torch.nn.functional.linear(x, w), iters)
+            lib_ms = device_ms(lambda: torch._int_mm(x_q, w_t).float() * xs * ws, iters)
+        dense_ms = device_ms(lambda: torch.nn.functional.linear(x, w), iters)
         bms, by = _int8_bound(m, k, n)
-        rows.append(dict(m=m, k=k, n=n, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+        rows.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, dense_bf16_ms=dense_ms, bound_ms=bms, bound_by=by,
                          max_rel=rel, bitwise=exact))
         print(f"int8_matmul m={m} k={k} n={n}: max rel err {rel:.3e} (tol {INT8_REL_TOL}), "
               f"bitwise {exact}; device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"_int_mm+epilogue {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bf16 "
               f"F.linear {dense_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{2.0 * m * k * n / ms / 1e9:.1f} TOP/s; event-timed loop of kernel calls "
-              f"{loop_ms:.4f} ms per call", flush=True)
+              f"{2.0 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
     return rows, worst_abs, worst_rel
 
 
@@ -1392,6 +1357,10 @@ def phase_w8a8_serving(torch):
     if d["launches"]["G"] != 0 or q["launches"]["G"] != want_g:
         fail(f"W8A8 launches of G: dense {d['launches']['G']} (want 0), quantized "
              f"{q['launches']['G']} (want 4 x {depth} x {NFE} x {q['calls']} = {want_g})")
+    for tag, launched in (("dense", d["launches"]), ("W8A8", q["launches"])):
+        if launched["H"] or launched["I"]:
+            fail(f"W8A8 serving {tag}: the experiment kernels launched (H {launched['H']}, "
+                 f"I {launched['I']}); they are on no serving path")
     for key in ("A", "B"):
         if d["launches"][key] != q["launches"][key] or \
                 d["launches"][key] != (depth if key == "A" else 1) * NFE * d["calls"]:
@@ -1404,7 +1373,8 @@ def phase_w8a8_serving(torch):
           f"{MEL_MAE_GATE}, and > 0); RTF ratio W8A8 / dense {q['rtf'] / d['rtf']:.3f}", flush=True)
     if not 0.0 < mae < MEL_MAE_GATE:
         fail(f"W8A8 serving: mel MAE {mae} outside (0, {MEL_MAE_GATE})")
-    result = dict(mel_mae=mae, launches_per_call=q["launches"]["G"] // q["calls"],
+    result = dict(mel_mae=mae,
+                  launches_per_call={key: q["launches"][key] // q["calls"] for key in "GHI"},
                   **{f"{t}_{k}": out[t][k] for t in out
                      for k in ("rtf", "wall_s", "audio_s", "profile")},
                   dense_launches=d["launches"], w8a8_launches=q["launches"])
@@ -1501,6 +1471,7 @@ def phase_experiments(torch):
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
     from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
+    from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(60)
     b, h, dh = 2, 16, 64
@@ -1523,14 +1494,14 @@ def phase_experiments(torch):
                 fail("kernel H: a row with no valid key must give 0")
         if n in (1024, 4096):  # device time per call, as phase 14
             iters = 50 if n == 1024 else 10
-            t = {f"H_{bq}x{bk}": device_ms(torch, lambda: XH.flash_pipe_cuda(q, k, v, lens, bq,
+            t = {f"H_{bq}x{bk}": device_ms(lambda: XH.flash_pipe_cuda(q, k, v, lens, bq,
                                                                              bk), iters)
                  for bq, bk in XH.CONFIGS}
-            t["A"] = device_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
-            t["plain"] = device_ms(torch, lambda: FA.flash_attention_plain(q.float(), k.float(),
+            t["A"] = device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
+            t["plain"] = device_ms(lambda: FA.flash_attention_plain(q.float(), k.float(),
                                                                            v.float(), lens), 3)
             keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-            t["sdpa"] = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            t["sdpa"] = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=keep), iters)
             bms, by = bound_ms(sum(4.0 * h * n * kv * dh for kv in lens_l),
                                4.0 * b * h * n * dh * 2 + 4 * b, PEAK_BF16)
@@ -1556,9 +1527,9 @@ def phase_experiments(torch):
             fail(f"kernel I M={m} K={kk} N={nn} disagrees with its plain version")
         if m == 2048:
             x, w, bias, sc, sh = args
-            ms = device_ms(torch, lambda: XI.fused_ln_matmul_cuda(*args), 50)
-            plain_ms = device_ms(torch, lambda: XI.fused_ln_matmul_plain(*args), 20)
-            lib_ms = device_ms(torch, lambda: XI.unfused(*args), 50)
+            ms = device_ms(lambda: XI.fused_ln_matmul_cuda(*args), 50)
+            plain_ms = device_ms(lambda: XI.fused_ln_matmul_plain(*args), 20)
+            lib_ms = device_ms(lambda: XI.unfused(*args), 50)
             nbytes = 2.0 * (m * kk + kk * nn + m * nn) + 4.0 * (nn + 2 * kk)
             bms, by = bound_ms(2.0 * m * kk * nn, nbytes, PEAK_BF16)
             row_i = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
@@ -1712,24 +1683,28 @@ def main() -> int:
     h = h_rows[1024]
     kernels += [
         {"name": "int8_matmul", "route": "cuda", "source": "f5_tts_tpu_torch/csrc/int8_matmul.cu",
-         "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"],
+         "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"]["G"],
          "max_abs_err": int8_abs, "max_rel_err": int8_rel, "ms": g["ms"],
          "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
          "library_ms": g["library_ms"], "shape_mkn": [1024, 1024, 4096],
          "library_covers": "torch._int_mm + the scale epilogue",
-         "ms_kind": "device time (CUDA-graph replay), as every time of G, H and I",
-         "loop_ms": g["loop_ms"], "dense_bf16_linear_ms": g["dense_bf16_ms"],
+         "ms_kind": "device time (CUDA-graph replay), as every time in this line",
+         "dense_bf16_linear_ms": g["dense_bf16_ms"],
          "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32"},
         {"name": "flash_attention_pipelined", "route": "cuda",
          "source": "f5_tts_tpu_torch/csrc/flash_attention_pipelined.cu",
-         "replaces": "scripts/exp_pipelined_flash.py:24", "launches": 0, "experiment": True,
+         "replaces": "scripts/exp_pipelined_flash.py:24",
+         "launches": w8a8["launches_per_call"]["H"], "experiment": True,
+         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32",
          "max_abs_err": h_err, "ms": h["H_64x64"], "plain_ms": h["plain"],
          "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["sdpa"],
          "kernel_a_ms": h["A"], "configs_ms": {k: v for k, v in h.items() if k.startswith("H_")},
          "shape": [2, 16, 1024, 64], "lens": [1024, 824]},
         {"name": "fused_ln_matmul", "route": "cuda",
          "source": "f5_tts_tpu_torch/csrc/fused_ln_matmul.cu",
-         "replaces": "scripts/exp_fused_ln_matmul.py:27", "launches": 0, "experiment": True,
+         "replaces": "scripts/exp_fused_ln_matmul.py:27",
+         "launches": w8a8["launches_per_call"]["I"], "experiment": True,
+         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32",
          "max_abs_err": i_err, "err_kind": "relative to max |reference|", "ms": i_row["ms"],
          "plain_ms": i_row["plain_ms"], "bound_ms": i_row["bound_ms"],
          "bound_by": i_row["bound_by"], "library_ms": i_row["library_ms"],

@@ -142,8 +142,10 @@ def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarr
 class InferenceEngine:
     """Holds the backbone (``CFM.transformer``) and vocoder on one device;
     exposes batch mel / waveform generation.  The engine fuses (and with
-    ``options.quantize`` quantizes) the model it is given in place, so two
-    engines that differ in ``quantize`` need a model each."""
+    ``options.quantize`` quantizes) the model it is given in place; it
+    refuses a model another engine has quantized, so each engine needs a
+    model of its own (JAX's parameter trees are immutable, so its engines
+    never share this state)."""
 
     def __init__(self, model, model_cfg: ModelConfig, vocoder=None, dtype=torch.float32,
                  buckets=DEFAULT_BUCKETS, options: EngineOptions = EngineOptions()):
@@ -151,7 +153,9 @@ class InferenceEngine:
         self.dtype = dtype
         self.buckets = buckets
         self.options = options
-        quant.dequantize(model)  # a model that served quantized before serves dense again
+        if quant.holds_w8a8(model):
+            raise ValueError("the model already holds another engine's W8A8 weights: build "
+                             "each engine on its own model")
         self.model = model.to(dtype=dtype).eval()
         self.device = next(self.model.parameters()).device
         backbone = get_backbone(model_cfg.arch)

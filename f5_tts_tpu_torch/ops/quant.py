@@ -63,8 +63,8 @@ def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """An nn.Linear weight [n, k] -> (w_q int8 [n, k], w_scale fp32 [n]),
     quantized per output channel from the weight upcast to fp32."""
-    w_q, w_scale = quantize_cols(weight.detach().float().t())
-    return w_q.t().contiguous(), w_scale[0].contiguous()
+    w_q, w_scale = quantize_rows(weight.detach().float())
+    return w_q, w_scale[:, 0].contiguous()
 
 
 def int8_matmul_plain(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
@@ -150,9 +150,6 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None
 
 # ------------------------------------------------------------ serving wiring
 
-_W8A8_BUFFERS = ("weight_q", "w_scale", "qkv_weight_q", "qkv_w_scale")
-
-
 def quantize_linear_params(module: nn.Module, weight: str = "weight") -> None:
     """JAX ``quantize_linear_params`` on a module: quantizes ``module.<weight>``
     [n, k] into the non-persistent buffers ``<weight>_q`` (int8 [n, k]) and
@@ -163,12 +160,10 @@ def quantize_linear_params(module: nn.Module, weight: str = "weight") -> None:
     module.register_buffer(weight.replace("weight", "w_scale"), w_scale, persistent=False)
 
 
-def dequantize(model: nn.Module) -> None:
-    """Drop every W8A8 buffer, so the model serves dense again."""
-    for mod in model.modules():
-        for name in _W8A8_BUFFERS:
-            if getattr(mod, name, None) is not None:
-                setattr(mod, name, None)
+def holds_w8a8(model: nn.Module) -> bool:
+    """Whether ``quantize_dit_blocks`` has quantized a linear of ``model``."""
+    return any(getattr(mod, name, None) is not None for mod in model.modules()
+               for name in ("weight_q", "qkv_weight_q"))
 
 
 def quantize_dit_blocks(model: nn.Module, arch_cfg) -> list[str]:

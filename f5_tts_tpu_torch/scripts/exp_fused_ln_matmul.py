@@ -19,8 +19,9 @@ only; K up to what the kernel's shared-memory panel holds).
     python -m f5_tts_tpu_torch.scripts.exp_fused_ln_matmul
 
 prints, at the experiment's shape M = 2048, K = 1024, N = 3072: the error
-of kernel I against the plain version and microseconds per call for kernel
-I and for the unfused composition.
+of kernel I against the plain version and microseconds of device time per
+call (``utils.device.device_ms``) for kernel I and for the unfused
+composition.
 """
 
 from __future__ import annotations
@@ -118,8 +119,7 @@ def inputs(m: int, k: int, n: int, device, seed: int = 0):
 
 
 def main() -> None:
-    from f5_tts_tpu_torch.scripts.exp_pipelined_flash import _us_per_call
-    from f5_tts_tpu_torch.utils.device import card_name_and_power_limit
+    from f5_tts_tpu_torch.utils.device import card_name_and_power_limit, device_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("exp_fused_ln_matmul needs a CUDA card")
@@ -128,11 +128,11 @@ def main() -> None:
     want = fused_ln_matmul_plain(*args).float()
     got = fused_ln_matmul_cuda(*args).float()
     err = (got - want).abs()
-    us = _us_per_call(lambda: fused_ln_matmul_cuda(*args), 200)
-    print(f"kernel I bm=64 bn=128: {us:7.1f} us/call  (vs plain: max abs {err.max().item():.2e}, "
-          f"mean abs {err.mean().item():.2e})")
-    us = _us_per_call(lambda: unfused(*args), 200)
-    print(f"torch LN+modulate+matmul: {us:7.1f} us/call")
+    us = device_ms(lambda: fused_ln_matmul_cuda(*args), 50) * 1e3
+    print(f"kernel I bm=64 bn=128: {us:7.1f} us/call of device time (vs plain: max abs "
+          f"{err.max().item():.2e}, mean abs {err.mean().item():.2e})")
+    us = device_ms(lambda: unfused(*args), 50) * 1e3
+    print(f"torch LN+modulate+matmul: {us:7.1f} us/call of device time")
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ launches.
     python -m f5_tts_tpu_torch.scripts.exp_pipelined_flash
 
 prints, at the experiment's shape [2, 16, 1024, 64] bf16 with lens {1024,
-824}: H's error against kernel A, microseconds per call for H at each tile
-configuration, and kernel A's.
+824}: H's error against kernel A, microseconds of device time per call
+(``utils.device.device_ms``) for H at each tile configuration, and kernel
+A's.
 """
 
 from __future__ import annotations
@@ -80,21 +81,9 @@ def flash_pipe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Te
     raise ValueError(f"flash_pipe: no implementation for device {q.device}")
 
 
-def _us_per_call(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters * 1e3
-
-
 def main() -> None:
     from f5_tts_tpu_torch.ops import flash_attention as FA
-    from f5_tts_tpu_torch.utils.device import card_name_and_power_limit
+    from f5_tts_tpu_torch.utils.device import card_name_and_power_limit, device_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("exp_pipelined_flash needs a CUDA card")
@@ -108,11 +97,11 @@ def main() -> None:
     for bq, bk in CONFIGS:
         got = flash_pipe_cuda(q, k, v, lens, bq, bk).float()
         err = (got - want).abs()
-        us = _us_per_call(lambda: flash_pipe_cuda(q, k, v, lens, bq, bk), 200)
-        print(f"pipe bq={bq} bk={bk}: {us:7.1f} us/call  (vs kernel A: max abs "
+        us = device_ms(lambda: flash_pipe_cuda(q, k, v, lens, bq, bk), 50) * 1e3
+        print(f"pipe bq={bq} bk={bk}: {us:7.1f} us/call of device time (vs kernel A: max abs "
               f"{err.max().item():.2e}, mean abs {err.mean().item():.2e})")
-    us = _us_per_call(lambda: FA.flash_attention_cuda(q, k, v, lens), 200)
-    print(f"kernel A bq=64 bk=64: {us:7.1f} us/call")
+    us = device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens), 50) * 1e3
+    print(f"kernel A bq=64 bk=64: {us:7.1f} us/call of device time")
 
 
 if __name__ == "__main__":

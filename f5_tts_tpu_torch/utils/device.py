@@ -22,3 +22,34 @@ def card_name_and_power_limit() -> str:
 
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+
+
+def device_ms(fn, iters: int, reps: int = 5) -> float:
+    """Device time per call of ``fn`` on the card: ``iters`` calls captured
+    in one CUDA graph, replayed ``reps`` times between two events.  A loop
+    of eager calls timed by events measures the host's launch rate instead
+    wherever a call's kernels take less than its Python wrapper (tens of
+    microseconds); the graph replays the launches with no host work between
+    them.  ``fn`` must be capturable: no host synchronisation, no allocation
+    outside PyTorch's allocator."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on the capture stream, as torch.cuda.graphs asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)

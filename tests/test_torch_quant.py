@@ -304,9 +304,9 @@ def test_w8a8_engine_matches_jax(family):
     assert port_vs_jax <= MEL_REL_L2, port_vs_jax
     assert quant_vs_dense >= 10 * _rel(dense_t, dense_j) and quant_vs_dense > port_vs_jax, (
         quant_vs_dense, port_vs_jax)
-    # a dense engine built on the same model afterwards serves dense again
-    TE.InferenceEngine(cfm, TModelConfig(name="small", arch=tarch))
-    assert not any(getattr(m, "weight_q", None) is not None for m in cfm.modules())
+    # the quantized model is the quantized engine's: a second engine refuses it
+    with pytest.raises(ValueError, match="its own model"):
+        TE.InferenceEngine(cfm, TModelConfig(name="small", arch=tarch))
 
 
 def test_engine_options_take_quantize_and_still_refuse_later_fields():
