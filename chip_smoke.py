@@ -22,23 +22,28 @@ Run from the repository root:  python3 chip_smoke.py
 6. Kernels C, D, E (flash attention forward with logsumexp, dq, dk/dv)
    against their plain versions at [2, 16, n, 64] bf16, n in {256, 1000,
    1024, 4096}, ragged lens and a row with no valid key; checks the zero
-   gradients of that row and of the key tiles past lens; times kernel,
-   plain version, bound and the ``scaled_dot_product_attention`` forward
-   (C) and backward (D + E); and again at the training shape
-   [37, 16, 1024, 64].
+   gradients of that row and of the key tiles past lens, and that two
+   launches of D and E give bitwise-equal gradients; times kernel, plain
+   version, bound and the ``scaled_dot_product_attention`` forward (C) and
+   backward (D + E, with the ratio of D + E to it); and again at the
+   training shape [37, 16, 1024, 64], where every tile configuration of D
+   and E built (``flash_attention.BWD_CONFIGS``) is timed beside the one
+   the wrappers launch.
 7. Full-width gradient check: one F5TTS_v1_Base ``cfm.loss`` + backward in
    fp32 at b=2, n=256 with injected draws, on the card through kernels
    B, C, D, E against the CPU through the plain versions.
 8. Training: ``Trainer(F5TTS_v1_Base, device="cuda")`` in mixed precision on
    a seeded synthetic mel dataset at 38,400 frames per update; checks the
    log, the EMA rule, the checkpoints and the launch counts; then ~8
-   updates on one fixed batch, whose loss must fall.
+   updates on one fixed batch, whose loss must fall, and a profile of one
+   of them (D's and E's shares of device time, valid frames per second).
 9. Kernel F (two-segment flash attention, MMDiT's joint-attention mask)
    and kernels C, D, E in the two-segment mode against their plain versions:
    the MMDiT serving shape under CFG [2, 16, 2048, 64] with seg 1024, a
    training-like shape [8, 16, 1280, 64] with ragged segments, an odd
    boundary (n 1077, seg 1000) in bf16 and fp32, and rows with an empty text
-   segment or no valid key; times each beside its bound, its plain version,
+   segment or no valid key, with D's and E's determinism check; times each
+   beside its bound, its plain version,
    kernel A at the same valid-key count, and ``scaled_dot_product_attention``
    forward / backward with the same boolean key mask.
 10. Full-width fp32 forwards, card vs CPU: F5TTS_MMDiT_Base
@@ -407,8 +412,10 @@ def _rel_err(got, want):
     return err.max().item(), err.mean().item()
 
 
-def _time_train_kernels(torch, FA, q, k, v, do, lens, iters):
-    """ms of C, D, E, of their plain versions and of SDPA fwd / bwd."""
+def _time_train_kernels(torch, FA, q, k, v, do, lens, iters, configs=False):
+    """ms of C, D, E, of their plain versions and of SDPA fwd / bwd; with
+    ``configs``, of D and E in every tile configuration built
+    (``D_configs`` / ``E_configs``, keyed "rows x stages")."""
     from f5_tts_tpu_torch.utils.device import device_ms
 
     o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
@@ -418,6 +425,14 @@ def _time_train_kernels(torch, FA, q, k, v, do, lens, iters):
                        iters),
          "E": device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens),
                        iters)}
+    if configs:
+        t["D_configs"], t["E_configs"] = {}, {}
+        for cfg in FA.BWD_CONFIGS:
+            key = f"{cfg[0]}x{cfg[1]}"
+            t["D_configs"][key] = device_ms(lambda: FA.flash_attention_bwd_dq_cuda(
+                q, k, v, do, L, D, lens, config=cfg), iters)
+            t["E_configs"][key] = device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(
+                q, k, v, do, L, D, lens, config=cfg), iters)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     t["C_plain"] = device_ms(lambda: FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens), 3)
     t["DE_plain"] = device_ms(lambda: FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D,
@@ -431,6 +446,27 @@ def _time_train_kernels(torch, FA, q, k, v, do, lens, iters):
     both = device_ms(lambda: torch.autograd.grad(sdpa(*xs, attn_mask=keep), xs, do), iters)
     t["DE_lib"] = both - fwd_g  # the SDPA backward alone
     return t
+
+
+def _check_deterministic(torch, FA, tag, grads, q, k, v, do, L, D, lens, seg=None):
+    """Kernels D and E launched again on the same inputs must give
+    bitwise-equal dq, dk, dv (one owner per output tile, no atomics)."""
+    again = (FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg),
+             *FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg))
+    for name, a, b in zip(("dq", "dk", "dv"), grads, again):
+        if not torch.equal(a, b):
+            fail(f"{tag}: two launches of the backward kernels gave different {name}")
+
+
+def _print_configs(tag, t):
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+
+    chosen = {"D": "{}x{}".format(*FA.DQ_CONFIG), "E": "{}x{}".format(*FA.DKV_CONFIG)}
+    print(f"{tag}: tile configurations (rows x stages), device ms: D "
+          + ", ".join(f"{c} {ms:.4f}" for c, ms in t["D_configs"].items())
+          + f" (chosen {chosen['D']}); E "
+          + ", ".join(f"{c} {ms:.4f}" for c, ms in t["E_configs"].items())
+          + f" (chosen {chosen['E']})", flush=True)
 
 
 def _train_bounds(b, h, n, dh, kvs):
@@ -463,6 +499,8 @@ def phase_flash_train(torch):
             dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens)
             dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens)
             torch.cuda.synchronize()
+            tag = f"flash train b={b} n={n} lens={lens_l if b == 2 else 'ragged'}"
+            _check_deterministic(torch, FA, tag, (dq, dk, dv), q, k, v, do, L, D, lens)
             qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
             o_ref, L_ref = FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens)
             ref = FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D, lens)
@@ -471,7 +509,6 @@ def phase_flash_train(torch):
             l_max = (L - L_ref).abs().max().item()
             errs = [_rel_err(g, r) for g, r in zip((dq, dk, dv), ref)]
             del ref, o_ref
-            tag = f"flash train b={b} n={n} lens={lens_l if b == 2 else 'ragged'}"
             print(f"{tag}: o max {o_max:.3e} mean {o_mean:.3e} (tol {FLASH_TOL}); L max "
                   f"{l_max:.3e} (tol {LSE_TOL}); dq/dk/dv rel max/mean "
                   + " ".join(f"{a:.3e}/{m:.3e}" for a, m in errs) + f" (tol {GRAD_TOL})",
@@ -492,14 +529,18 @@ def phase_flash_train(torch):
             worst["D"] = max(worst["D"], errs[0][0])
             worst["E"] = max(worst["E"], errs[1][0], errs[2][0])
         lens = torch.tensor(cases[0], dtype=torch.int32, device="cuda")
-        t = _time_train_kernels(torch, FA, q, k, v, do, lens, 20 if n * b <= 4096 else 5)
+        t = _time_train_kernels(torch, FA, q, k, v, do, lens, 20 if n * b <= 4096 else 5,
+                                configs=b == TRAIN_B)
         bounds = _train_bounds(b, h, n, dh, cases[0])
-        row = dict(b=b, n=n, **t, bounds=bounds)
+        row = dict(b=b, n=n, **t, bounds=bounds, DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"])
         rows.append(row)
         print(f"flash train b={b} n={n}: C {t['C']:.4f} ms (plain {t['C_plain']:.4f}, sdpa fwd "
               f"{t['C_lib']:.4f}, bound {bounds['C'][0]:.4f} {bounds['C'][1]}); D {t['D']:.4f} ms "
               f"(bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (bound {bounds['E'][0]:.4f}); "
-              f"plain bwd {t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms", flush=True)
+              f"plain bwd {t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms; D + E over "
+              f"sdpa bwd {row['DE_over_lib']:.3f}", flush=True)
+        if b == TRAIN_B:
+            _print_configs(f"flash train b={b} n={n}", t)
         del q, k, v, do
     torch.cuda.empty_cache()
     return rows, worst
@@ -630,6 +671,7 @@ def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool
            "other_ms": total - sum(ms.values())}
     if total:
         out["CDE_share"] = (ms["C"] + ms["D"] + ms["E"]) / total
+        out["D_share"], out["E_share"] = ms["D"] / total, ms["E"] / total
     print(f"profile of {label}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.items() if v is not None), flush=True)
     for t, count, key in sorted(kernels, reverse=True)[:12]:
@@ -777,6 +819,13 @@ def phase_train(torch):
         torch.cuda.synchronize()
 
     result["profile"] = _profile_update(torch, one_update)
+    valid = int(batch["lens"].sum().item())
+    result["fixed_frames_per_s"] = valid / fixed_s
+    prof = result["profile"]
+    print(f"fixed-batch update: D {prof['D_share']:.1%} and E {prof['E_share']:.1%} of "
+          f"{prof['device_ms']:.1f} ms device time; {valid} valid frames at "
+          f"{result['fixed_frames_per_s']:.0f} frames/s ({fixed_s * 1e3:.1f} ms per update)",
+          flush=True)
     del model, optim, params
     torch.cuda.empty_cache()
     return result
@@ -830,6 +879,7 @@ def _check_seg(torch, FA, tag, q, k, v, do, lens2, seg):
     dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2, seg)
     dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2, seg)
     torch.cuda.synchronize()
+    _check_deterministic(torch, FA, tag, (dq, dk, dv), q, k, v, do, L, D, lens2, seg)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     o_ref, L_ref = FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens2, seg)
     ref = FA.flash_attention_bwd_plain(qf, kf, vf, dof, L, D, lens2, seg)
@@ -936,7 +986,8 @@ def phase_flash_seg(torch):
             bounds = _train_bounds(b, 16, n, 64, kvs)
             bounds["F"] = bound_ms(sum(4.0 * 16 * n * kv * 64 for kv in kvs),
                                    4.0 * b * 16 * n * 64 * 2 + 8 * b, PEAK_BF16)
-            rows[tag] = dict(b=b, n=n, seg=seg, **t, bounds=bounds)
+            rows[tag] = dict(b=b, n=n, seg=seg, **t, bounds=bounds,
+                             DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"])
             print(f"flash seg {tag} [{b}, 16, {n}, 64] seg={seg}: F {t['F']:.4f} ms (kernel A "
                   f"at the same valid keys {t['A_same_kv']:.4f}, plain {t['F_plain']:.4f}, sdpa "
                   f"{t['F_lib']:.4f}, bound {bounds['F'][0]:.4f} {bounds['F'][1]}); C "
@@ -944,7 +995,8 @@ def phase_flash_seg(torch):
                   f"{t['C_plain']:.4f}, bound {bounds['C'][0]:.4f}); D {t['D']:.4f} ms (prefix "
                   f"{t['D_same_kv']:.4f}, bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (prefix "
                   f"{t['E_same_kv']:.4f}, bound {bounds['E'][0]:.4f}); plain bwd "
-                  f"{t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms", flush=True)
+                  f"{t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms; D + E over sdpa bwd "
+                  f"{rows[tag]['DE_over_lib']:.3f}", flush=True)
         del q, k, v, do
     torch.cuda.empty_cache()
     return rows, worst
@@ -1633,13 +1685,25 @@ def main() -> int:
 
     def train_entry(name, key, plain, lib, replaces, launches, source):
         r = next(r for r in train_rows if r["n"] == 1024 and r["b"] == 2)
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": train_err[key], "ms": r[key],
-                "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
-                "bound_by": r["bounds"][key][1], "library_ms": r[lib], "shape_n": 1024,
-                "err_kind": "abs" if key == "C" else "relative to max |reference|",
-                "plain_covers": "dq+dk+dv" if key != "C" else "o+L",
-                "library_covers": "sdpa forward" if key == "C" else "sdpa backward (dq+dk+dv)"}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, "max_abs_err": train_err[key], "ms": r[key],
+               "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
+               "bound_by": r["bounds"][key][1], "library_ms": r[lib], "shape_n": 1024,
+               "err_kind": "abs" if key == "C" else "relative to max |reference|",
+               "plain_covers": "dq+dk+dv" if key != "C" else "o+L",
+               "library_covers": "sdpa forward" if key == "C" else "sdpa backward (dq+dk+dv)"}
+        if key != "C":  # D, E: the training shape and the tile configurations
+            big = next(r for r in train_rows if r["b"] == TRAIN_B)
+            out.update(config=list(FA.DQ_CONFIG if key == "D" else FA.DKV_CONFIG),
+                       de_over_library=r["DE_over_lib"],
+                       training_shape=[TRAIN_B, 16, 1024, 64], training_ms=big[key],
+                       training_bound_ms=big["bounds"][key][0],
+                       training_library_ms=big["DE_lib"],
+                       training_de_over_library=big["DE_over_lib"],
+                       training_configs_ms=big[f"{key}_configs"])
+        return out
+
+    from f5_tts_tpu_torch.ops import flash_attention as FA
 
     fa = "f5_tts_tpu_torch/csrc/flash_attention.cu"
     fab = "f5_tts_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -1662,6 +1726,7 @@ def main() -> int:
                 "ms": r[key], "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
                 "bound_by": r["bounds"][key][1], "library_ms": r[lib],
                 "shape": [r["b"], 16, r["n"], 64], "seg": r["seg"], "err_kind": err_kind,
+                **({"de_over_library": r["DE_over_lib"]} if key in "DE" else {}),
                 "launches_from": "F5TTS_MMDiT_Base masked forward" if key == "F"
                 else "F5TTS_MMDiT_Base masked gradient"}
 

@@ -66,10 +66,31 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
+// 4-byte asynchronous copy global -> shared (fp32 rows whose start need not
+// be 16-byte aligned); ``src_bytes`` 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the row address of
+// matrix l / 8, row l % 8, and register i receives row g, columns 2t, 2t+1
+// of matrix i (g = lane / 4, t = lane % 4).  From a row-major [rows][k]
+// tile, matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) in the order (0, 0),
+// (8, 0), (0, 8), (8, 8) are mma_16816's A fragment; from a [n][k] tile,
+// (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15) are
+// its B fragments for two 8-column tiles.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
 // Four 8x8 b16 matrices from shared memory, transposed: lane l gives the
@@ -98,6 +119,11 @@ struct KeyMask {
   // does [c0, c1) hold a valid key?
   __device__ __forceinline__ bool any(int c0, int c1) const {
     return c0 < a || (s0 < s1 && c0 < s1 && c1 > s0);
+  }
+  // is every key of [c0, c1) (0 <= c0 < c1) valid?  When s0 <= a the two
+  // segments join into [0, max(a, s1)).
+  __device__ __forceinline__ bool all(int c0, int c1) const {
+    return c1 <= a || (c1 <= s1 && (c0 >= s0 || s0 <= a));
   }
 };
 

@@ -6,228 +6,411 @@
 //   kernel D (_kernel_dq):  dq_i = scale * sum_j ds_ij k_j
 //   kernel E (_kernel_dkv): dv_j = sum_i p_ij do_i,  dk_j = scale * sum_i ds_ij q_i
 // with p_ij = exp(s_ij - L_i) recomputed from the forward's natural-log
-// logsumexp L (kernel C), ds_ij = p_ij (do_i . v_j - D_i), D_i the caller's
-// rowsum(do_i * o_i) (minus the logsumexp cotangent, for
-// flash_attention_with_stats).  Keys are valid only in [0, lens[b]); every
-// query row is computed, padded ones included.  The SEG instances are the
-// TPU kernels' two-segment mode (static `seg`, MMDiT's joint attention):
-// lens int32 [b, 2] = (len_a, len_t), keys valid in
-// [0, len_a) U [seg, seg + len_t) (common.cuh KeyMask).
+// logsumexp L (kernel C) and 0 on masked keys, ds_ij = p_ij (do_i . v_j -
+// D_i), D_i the caller's rowsum(do_i * o_i) (minus the logsumexp cotangent,
+// for flash_attention_with_stats).  Keys are valid only in [0, lens[b]);
+// every query row is computed, padded ones included.  The SEG instances are
+// the TPU kernels' two-segment mode (static `seg`, MMDiT's joint attention):
+// lens int32 [b, 2] = (len_a, len_t), keys valid in [0, len_a) U [seg,
+// seg + len_t) (common.cuh KeyMask).
+//
+// Bound on the H100: per (b, h), with kv valid keys, D does 6 n kv dh
+// operations (q.k^T, do.v^T, ds.k) and E 8 n kv dh (k.q^T, v.do^T, p^T.do,
+// ds^T.q) against ~5-6 n dh bf16 reads and writes: ~n operations per byte,
+// compute-bound at the bf16 tensor-core rate (989 TFLOP/s) for n above a
+// few hundred.
 //
 // Design.  As in the TPU kernels the two halves are separate launches: D
-// walks key tiles for a fixed query tile, E walks query tiles for a fixed
-// key tile, so each output tile has one owner and no atomics are needed (the
-// gradients are deterministic).  One block of 4 warps per (b*h, 64 rows);
-// each warp owns 16 rows.  Products run on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate).  Operands are staged in shared memory
-// as bf16 row-major, and transposed where a product needs them along its
-// reduction axis (K for ds.k in D; q and do for ds^T.q and p^T.do in E), so
-// every B fragment is one 32-bit load; shared memory stays below 38 KB
-// whatever n is.  Rounding follows the TPU kernels: q prescaled by
-// scale*log2(e) then rounded to bf16 for the scores (p = exp2(s2 - L log2 e)),
-// raw q, k, v, do, p and ds rounded to bf16 for the products.  p is forced
-// to 0 on masked keys.  D visits only the key tiles holding a valid key
-// (common.cuh key_tiles: the prefix, and in the two-segment mode the tiles
-// covering the second segment, skipping the gap); E writes zeros for a key
-// tile that holds no valid key in either segment and returns.
-//
-// Bound on the H100: per (b, h), with kv valid keys, D does 6*n*kv*dh flops
-// and E 8*n*kv*dh against ~(5*n*dh*2 + 2*n*4) bytes, i.e. ~n flops per byte:
-// compute-bound at the bf16 tensor-core rate for n above a few hundred.
-// This first version runs mma.sync from registers with no TMA / wgmma
-// pipelining and restages the transposed operands through shared memory,
-// so it reaches a fraction of that rate; the wgmma + TMA version is later
-// work.
+// walks key tiles for a fixed block of query rows, E walks query tiles for
+// a fixed block of key rows, so each output tile has one owner, nothing is
+// atomic, and two calls on the same inputs give bitwise-equal gradients.
+// A block of WARPS warps owns WARPS x 16 rows (16 a warp); 64-row tiles of
+// the streamed operands (K and V in D; q, do and their 64 entries each of
+// L and D in E) go through a ring of STAGES shared-memory stages.  Products
+// run on mma.sync m16n8k16 (bf16 in, fp32 accumulate), 32 columns of a
+// tile at a time, so the score and do.v^T accumulators take 16 registers
+// each.  What each part fixes of the first version (64 rows x 4 warps,
+// transposed restaging, synchronous loads):
+//  - every operand stays row-major, as it lies in device memory: A and B
+//    fragments come from ldmatrix, and the B operands read along their
+//    reduction axis (K for ds.k in D; q for ds^T.q and do for p^T.do in E)
+//    from ldmatrix.trans.  No transposed copy is written, so the 8-way
+//    bank conflict of its 2-byte stores is gone, with its shared memory;
+//  - tiles are raw 16-byte cp.async copies (zero-filled past n), issued
+//    STAGES - 1 tiles ahead, with one barrier per tile: tile j + 1 is in
+//    flight while tile j is in the tensor cores;
+//  - the kernels take bf16 operands only (the wrapper casts fp32 inputs);
+//    the output type is a template parameter, so fp32 callers get fp32
+//    gradients without a cast of a bf16 result;
+//  - a key tile (D), or a warp's 16 key rows (E), that lies wholly inside a
+//    valid segment skips the per-key test (KeyMask::all); boundary tiles
+//    keep it.  D visits only tiles holding a valid key (key_tiles: the gap
+//    between the segments is skipped), E writes exact zeros for a key block
+//    with no valid key and returns;
+//  - the gradients leave through shared memory in 16-byte coalesced
+//    stores, where the first version stored one element at a time;
+//  - 128-row blocks (8 warps) halve the re-reads of the streamed operands
+//    from L2 against 64-row blocks.  The configurations (rows, stages)
+//    built are those timed on the card; the wrappers choose one
+//    (ops/flash_attention.py DQ_CONFIG, DKV_CONFIG).
+// Rounding: q, k, v, do are bf16; the scores are the raw bf16 products
+// q.k^T in fp32, and scale * log2(e) is applied in fp32 inside the
+// exponent, p = exp2(s * qscale - L log2 e), in both kernels, so D and E
+// use the same p.  The TPU kernels round q * scale * log2(e) to bf16
+// before the product instead (_kernel_dq :90, _kernel_dkv :131); on bf16
+// inputs the product here is exact where theirs rounds twice.  p and ds are
+// rounded to bf16 for the products, as there.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64;         // head dim (all F5-TTS configs)
-constexpr int BR = 64;         // rows (queries in D, keys in E) per block and per staged tile
-constexpr int NTHREADS = 128;  // 4 warps x 16 rows
-constexpr int LDS = DH + 8;    // padded row-major tile row (bf16)
-constexpr int LDT = BR + 8;    // padded transposed tile row (bf16)
+using bf16 = __nv_bfloat16;
+
+constexpr int DH = 64;       // head dim (all F5-TTS configs)
+constexpr int TILE = 64;     // rows of a streamed tile
+constexpr int CW = 32;       // tile columns per product pass
+constexpr int LDS = DH + 8;  // padded bf16 row (144 B): conflict-free ldmatrix rows
 constexpr float LOG2E_F = 1.4426950408889634f;
 
-// Stage rows [r0, r0 + BR) of a [n, DH] matrix as bf16: row-major into rm
-// (scaled by mul before rounding) and, when tr is given, transposed and
-// unscaled into tr.  Rows past n are zero.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0, int n, float mul,
-                                      __nv_bfloat16 (*rm)[LDS], __nv_bfloat16 (*tr)[LDT]) {
-  for (int idx = threadIdx.x; idx < BR * DH / 8; idx += NTHREADS) {
-    const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < n) load8(src + static_cast<size_t>(r0 + r) * DH + c, f);
-#pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      *reinterpret_cast<uint32_t*>(&rm[r][c + e]) = pack_bf16(f[e] * mul, f[e + 1] * mul);
-    }
-    if (tr != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tr[c + e][r] = __float2bfloat16(f[e]);
-    }
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [r0, r0 + rows) of a bf16 [n, DH] matrix into s [rows][LDS] by
+// 16-byte cp.async, zeros past n
+template <int NT>
+__device__ __forceinline__ void load_rows(bf16* s, const bf16* __restrict__ g, int n, int r0,
+                                          int rows) {
+  for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += NT) {
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(s + r * LDS + c, in ? g + static_cast<size_t>(r0 + r) * DH + c : g, in ? 16 : 0);
   }
 }
 
-// A fragments of rows [w0, w0 + 16) of a staged tile, 4 chunks of 16 columns
-__device__ __forceinline__ void load_a(const __nv_bfloat16 (*t)[LDS], int w0, int g, int t4,
-                                       uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    a[kc][0] = ld_u32(&t[w0 + g][c]);
-    a[kc][1] = ld_u32(&t[w0 + g + 8][c]);
-    a[kc][2] = ld_u32(&t[w0 + g][c + 8]);
-    a[kc][3] = ld_u32(&t[w0 + g + 8][c + 8]);
+// TILE entries [r0, r0 + TILE) of two fp32 rows (L, D) by 4-byte cp.async
+template <int NT>
+__device__ __forceinline__ void load_vec2(float* sl, float* sd, const float* __restrict__ l,
+                                          const float* __restrict__ d, int n, int r0) {
+  for (int i = threadIdx.x; i < 2 * TILE; i += NT) {
+    const int r = i & (TILE - 1);
+    const bool in = r0 + r < n;
+    const float* src = i < TILE ? l : d;
+    cp_async4((i < TILE ? sl : sd) + r, in ? src + r0 + r : src, in ? 4 : 0);
   }
 }
 
-// acc(16 x 8) += A(16 x 64) . B, B(k, col) = S[col0 + g][k] for the 8 columns
-__device__ __forceinline__ void mma_row(float* acc, const uint32_t (&a)[4][4],
-                                        const __nv_bfloat16* srow, int t4) {
+// A fragments of rows [w0, w0 + 16) x DH of a staged [rows][LDS] tile
+__device__ __forceinline__ void load_a(const bf16* t, int w0, int lane, uint32_t (&a)[4][4]) {
+  const int row = w0 + (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    mma_16816(acc, a[kc], ld_u32(srow + c), ld_u32(srow + c + 8));
-  }
+  for (int kc = 0; kc < 4; ++kc) ldmatrix_x4(a[kc], t + row * LDS + kc * 16 + col);
 }
 
-// Pack C fragment j (columns 8j..8j+7) of a 16 x 64 fp32 tile into the A
+// Pack C fragment j (columns 8j..8j+7) of a 16 x CW fp32 tile into the A
 // fragments of the same tile used as the left operand of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int j, const float* c) {
+__device__ __forceinline__ void pack_a(uint32_t (&a)[CW / 16][4], int j, const float* c) {
   const int kc = j >> 1, hi = (j & 1) * 2;
   a[kc][hi] = pack_bf16(c[0], c[1]);
   a[kc][hi + 1] = pack_bf16(c[2], c[3]);
 }
 
-template <typename T, bool SEG>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int* __restrict__ lens,
-                    T* __restrict__ dq, int heads, int n, int seg, float qscale, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sA[BR][LDS];  // q tile, then each K tile
-  __shared__ __align__(16) __nv_bfloat16 sB[BR][LDS];  // do tile, then each V tile
-  __shared__ __align__(16) __nv_bfloat16 sKt[DH][LDT];
+// Two score-like products of one 16 x CW block: x(16 x DH) . T1[c0..c0+CW)^T
+// into s and y(16 x DH) . T2[c0..]^T into dp, B read row-major by ldmatrix
+__device__ __forceinline__ void scores2(const bf16* t1, const bf16* t2, int c0,
+                                        const uint32_t (&xa)[4][4], const uint32_t (&ya)[4][4],
+                                        float (&s)[CW / 8][4], float (&dp)[CW / 8][4], int lane) {
+#pragma unroll
+  for (int j = 0; j < CW / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  }
+  const int row = c0 + (lane & 7) + (lane >> 4) * 8, col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int np = 0; np < CW / 16; ++np) {
+      const int off = (row + np * 16) * LDS + kk * 16 + col;
+      uint32_t b[4];
+      ldmatrix_x4(b, t1 + off);
+      mma_16816(s[2 * np], xa[kk], b[0], b[1]);
+      mma_16816(s[2 * np + 1], xa[kk], b[2], b[3]);
+      ldmatrix_x4(b, t2 + off);
+      mma_16816(dp[2 * np], ya[kk], b[0], b[1]);
+      mma_16816(dp[2 * np + 1], ya[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc(16 x DH) += a(16 x CW) . T[c0..c0+CW) (rows of T are the reduction
+// axis), B read from the row-major tile by ldmatrix.trans
+__device__ __forceinline__ void accum_trans(float (&acc)[8][4], const uint32_t (&a)[CW / 16][4],
+                                            const bf16* t, int c0, int lane) {
+  const int row = c0 + ((lane >> 3) & 1) * 8 + (lane & 7), col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, t + (row + kk * 16) * LDS + dp * 16 + col);
+      mma_16816(acc[2 * dp], a[kk], b[0], b[1]);
+      mma_16816(acc[2 * dp + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Kernel D's work on one staged key tile [k0, k0 + TILE) for a warp's 16
+// query rows.  MASK tests each key column; a tile wholly valid skips it.
+template <bool MASK>
+__device__ __forceinline__ void dq_tile(const bf16* tk, const bf16* tv, int k0, const KeyMask& km,
+                                        const uint32_t (&qa)[4][4], const uint32_t (&doa)[4][4],
+                                        float nl2_lo, float nl2_hi, float d_lo, float d_hi,
+                                        float qscale, float (&acc)[8][4], int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int c0 = 0; c0 < TILE; c0 += CW) {
+    float s[CW / 8][4], dp[CW / 8][4];
+    scores2(tk, tv, c0, qa, doa, s, dp, lane);  // q.k^T, do.v^T
+    uint32_t dsa[CW / 16][4];
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(s[j][e], qscale, e < 2 ? nl2_lo : nl2_hi));
+        if (MASK && !km.valid(k0 + c0 + j * 8 + t4 * 2 + (e & 1))) p = 0.f;
+        ds[e] = p * (dp[j][e] - (e < 2 ? d_lo : d_hi));
+      }
+      pack_a(dsa, j, ds);
+    }
+    accum_trans(acc, dsa, tk, c0, lane);  // ds.k
+  }
+}
+
+// Kernel E's work on one staged query tile for a warp's 16 key rows
+// (transposed scores: rows are keys, columns queries).  MASK zeroes p on
+// this thread's invalid key rows; a warp whose rows are all valid skips it.
+template <bool MASK>
+__device__ __forceinline__ void dkv_tile(const bf16* tq, const bf16* tdo, const float* sl,
+                                         const float* sd, const uint32_t (&ka)[4][4],
+                                         const uint32_t (&va)[4][4], bool valid_lo,
+                                         bool valid_hi, float qscale, float (&dka)[8][4],
+                                         float (&dva)[8][4], int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int c0 = 0; c0 < TILE; c0 += CW) {
+    float s[CW / 8][4], dp[CW / 8][4];
+    scores2(tq, tdo, c0, ka, va, s, dp, lane);  // k.q^T, v.do^T
+    uint32_t pa[CW / 16][4], dsa[CW / 16][4];
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j) {
+      const float2 L = *reinterpret_cast<const float2*>(sl + c0 + j * 8 + t4 * 2);
+      const float2 D = *reinterpret_cast<const float2*>(sd + c0 + j * 8 + t4 * 2);
+      const float nl2[2] = {-L.x * LOG2E_F, -L.y * LOG2E_F}, dd[2] = {D.x, D.y};
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = fast_exp2(fmaf(s[j][e], qscale, nl2[e & 1]));
+        if (MASK && !(e < 2 ? valid_lo : valid_hi)) p[e] = 0.f;
+        ds[e] = p[e] * (dp[j][e] - dd[e & 1]);
+      }
+      pack_a(pa, j, p);
+      pack_a(dsa, j, ds);
+    }
+    accum_trans(dva, pa, tdo, c0, lane);  // p^T.do
+    accum_trans(dka, dsa, tq, c0, lane);  // ds^T.q
+  }
+}
+
+// The block's [ROWS, DH] fp32 accumulators (a warp's 16 rows each), times
+// mul, as TO through shared memory into rows [0, rows) of dst with 16-byte
+// stores.  The caller makes sure no warp still reads ``smem``.
+template <typename TO, int NT>
+__device__ __forceinline__ void store_rows(TO* __restrict__ dst, int rows, unsigned char* smem,
+                                           const float (&acc)[8][4], float mul, int lane) {
+  constexpr int LDO = DH + 16 / static_cast<int>(sizeof(TO));  // padded row, 16-byte multiple
+  constexpr int CPR = DH * static_cast<int>(sizeof(TO)) / 16;  // 16-byte chunks per row
+  TO* so = reinterpret_cast<TO*>(smem);
+  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2), c = (lane & 3) * 2;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      TO* p = so + (r + h * 8) * LDO + d * 8 + c;
+      p[0] = from_float<TO>(acc[d][2 * h] * mul);
+      p[1] = from_float<TO>(acc[d][2 * h + 1] * mul);
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < rows * CPR; idx += NT) {
+    const int rr = idx / CPR, cc = idx % CPR;
+    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(dst + rr * DH) + cc * 16) =
+        *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(so + rr * LDO) +
+                                        cc * 16);
+  }
+}
+
+template <int WARPS, int STAGES>
+struct DqSmem {
+  static constexpr int ROWS = WARPS * 16;
+  static constexpr int kRows = ROWS * LDS;  // the q or do block (elements)
+  static constexpr int kTile = TILE * LDS;  // one K or V tile
+  static constexpr int bytes = (2 * kRows + STAGES * 2 * kTile) * 2;
+};
+
+template <int WARPS, int STAGES, typename TO, bool SEG>
+__global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ lens, TO* __restrict__ dq, int heads, int n, int seg,
+                    float qscale, float scale) {
+  using S = DqSmem<WARPS, STAGES>;
+  constexpr int NT = WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + S::kRows;
+  bf16* ring = sDO + S::kRows;  // STAGES x (K tile, V tile)
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BR;
+  const int q0 = blockIdx.x * S::ROWS;
   const KeyMask km = key_mask<SEG>(lens, bh / heads, n, seg);
-  const KeyTiles tiles = key_tiles(km, BR);
+  const KeyTiles tiles = key_tiles(km, TILE);
+  const int n_tiles = tiles.count();  // every tile visited holds a valid key
   const size_t base = static_cast<size_t>(bh) * n * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wr = warp * 16;
-
-  stage(q + base, q0, n, qscale, sA, nullptr);
-  stage(dout + base, q0, n, 1.f, sB, nullptr);
-  __syncthreads();
-  uint32_t qa[4][4], doa[4][4];
-  load_a(sA, wr, g, t4, qa);
-  load_a(sB, wr, g, t4, doa);
-
-  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;
-  const float* lrow = lse + static_cast<size_t>(bh) * n;
-  const float* drow = delta + static_cast<size_t>(bh) * n;
-  const float l2_lo = r_lo < n ? lrow[r_lo] * LOG2E_F : 0.f;
-  const float l2_hi = r_hi < n ? lrow[r_hi] * LOG2E_F : 0.f;
-  const float d_lo = r_lo < n ? drow[r_lo] : 0.f;
-  const float d_hi = r_hi < n ? drow[r_hi] : 0.f;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
 
   float acc[8][4];
 #pragma unroll
   for (int d = 0; d < 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  const int n_tiles = tiles.count();  // every tile visited has >= 1 valid key
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = tiles.tile(it) * BR;
-    __syncthreads();  // the previous tile (or the q / do fragments) is consumed
-    stage(k + base, k0, n, 1.f, sA, sKt);
-    stage(v + base, k0, n, 1.f, sB, nullptr);
-    __syncthreads();
-
-    uint32_t dsa[4][4];
+  if (n_tiles > 0) {
+    load_rows<NT>(sQ, q + base, n, q0, S::ROWS);
+    load_rows<NT>(sDO, dout + base, n, q0, S::ROWS);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_row(s, qa, &sA[j * 8 + g][0], t4);   // log2-domain scores q.k^T
-      mma_row(dp, doa, &sB[j * 8 + g][0], t4);  // do.v^T
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        const float p = km.valid(col) ? exp2f(s[e] - (e < 2 ? l2_lo : l2_hi)) : 0.f;
-        ds[e] = p * (dp[e] - (e < 2 ? d_lo : d_hi));
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < n_tiles) {
+        const int kt = tiles.tile(st) * TILE;
+        load_rows<NT>(ring + st * 2 * S::kTile, k + base, n, kt, TILE);
+        load_rows<NT>(ring + st * 2 * S::kTile + S::kTile, v + base, n, kt, TILE);
       }
-      pack_a(dsa, j, ds);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int d = 0; d < 8; ++d) mma_row(acc[d], dsa, &sKt[d * 8 + g][0], t4);  // ds.k
-  }
+    const int r_lo = q0 + wr + (lane >> 2), r_hi = r_lo + 8;
+    const float* lrow = lse + static_cast<size_t>(bh) * n;
+    const float* drow = delta + static_cast<size_t>(bh) * n;
+    const float nl2_lo = r_lo < n ? -lrow[r_lo] * LOG2E_F : 0.f;
+    const float nl2_hi = r_hi < n ? -lrow[r_hi] * LOG2E_F : 0.f;
+    const float d_lo = r_lo < n ? drow[r_lo] : 0.f;
+    const float d_hi = r_hi < n ? drow[r_hi] : 0.f;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    uint32_t qa[4][4], doa[4][4];
+    load_a(sQ, wr, lane, qa);
+    load_a(sDO, wr, lane, doa);
 
-#pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    const int c = d * 8 + t4 * 2;
-    if (r_lo < n) {
-      T* dst = dq + base + static_cast<size_t>(r_lo) * DH + c;
-      dst[0] = from_float<T>(acc[d][0] * scale);
-      dst[1] = from_float<T>(acc[d][1] * scale);
-    }
-    if (r_hi < n) {
-      T* dst = dq + base + static_cast<size_t>(r_hi) * DH + c;
-      dst[0] = from_float<T>(acc[d][2] * scale);
-      dst[1] = from_float<T>(acc[d][3] * scale);
+    for (int it = 0; it < n_tiles; ++it) {
+      // tile it has landed; every warp is done with tile it - 1, whose
+      // stage takes tile it + STAGES - 1
+      const int nxt = it + STAGES - 1;
+      if (nxt < n_tiles) {
+        bf16* st = ring + (nxt % STAGES) * 2 * S::kTile;
+        const int kt = tiles.tile(nxt) * TILE;
+        load_rows<NT>(st, k + base, n, kt, TILE);
+        load_rows<NT>(st + S::kTile, v + base, n, kt, TILE);
+      }
+      cp_async_commit();
+      const bf16* tk = ring + (it % STAGES) * 2 * S::kTile;
+      const int k0 = tiles.tile(it) * TILE;
+      if (km.all(k0, k0 + TILE)) {
+        dq_tile<false>(tk, tk + S::kTile, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale,
+                       acc, lane);
+      } else {
+        dq_tile<true>(tk, tk + S::kTile, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale,
+                      acc, lane);
+      }
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
     }
   }
+  // sQ / sDO were read only before the loop, whose last barrier every warp passed
+  store_rows<TO, NT>(dq + base + static_cast<size_t>(q0) * DH, min(S::ROWS, n - q0), smem, acc,
+                     scale, lane);
 }
 
-template <typename T, bool SEG>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const int* __restrict__ lens,
-                     T* __restrict__ dk, T* __restrict__ dv, int heads, int n, int seg,
-                     float qscale, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQs[BR][LDS];  // K tile, then each prescaled q tile
-  __shared__ __align__(16) __nv_bfloat16 sDO[BR][LDS];  // V tile, then each do tile
-  __shared__ __align__(16) __nv_bfloat16 sQt[DH][LDT];  // raw q, transposed
-  __shared__ __align__(16) __nv_bfloat16 sDOt[DH][LDT];
-  __shared__ float sL2[BR], sD[BR];
+template <int WARPS, int STAGES>
+struct DkvSmem {
+  static constexpr int ROWS = WARPS * 16;
+  static constexpr int kRows = ROWS * LDS;  // the K or V block (elements)
+  static constexpr int kTile = TILE * LDS;  // one q or do tile
+  // one stage: q tile, do tile (bf16), then L and D (fp32)
+  static constexpr int kStageBytes = 2 * kTile * 2 + 2 * TILE * 4;
+  static constexpr int bytes = 2 * kRows * 2 + STAGES * kStageBytes;
+};
+
+template <int WARPS, int STAGES, typename TO, bool SEG>
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 4 ? 3 : 1)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ lens, TO* __restrict__ dk, TO* __restrict__ dv,
+                     int heads, int n, int seg, float qscale, float scale) {
+  using S = DkvSmem<WARPS, STAGES>;
+  constexpr int NT = WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + S::kRows;
+  unsigned char* ring = smem + 2 * S::kRows * 2;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BR;
+  const int k0 = blockIdx.x * S::ROWS;
+  const int rows = min(S::ROWS, n - k0);
   const KeyMask km = key_mask<SEG>(lens, bh / heads, n, seg);
   const size_t base = static_cast<size_t>(bh) * n * DH;
+  TO* dk_blk = dk + base + static_cast<size_t>(k0) * DH;
+  TO* dv_blk = dv + base + static_cast<size_t>(k0) * DH;
 
-  if (!km.any(k0, k0 + BR)) {  // no valid key in this tile: its gradients are exactly 0
-    for (int idx = threadIdx.x; idx < BR * DH; idx += NTHREADS) {
-      const int r = idx / DH;
-      if (k0 + r < n) {
-        const size_t off = base + static_cast<size_t>(k0) * DH + idx;
-        dk[off] = from_float<T>(0.f);
-        dv[off] = from_float<T>(0.f);
-      }
+  if (!km.any(k0, k0 + S::ROWS)) {  // no valid key in this block: its gradients are exactly 0
+    const int chunks = rows * DH * static_cast<int>(sizeof(TO)) / 16;
+    for (int i = threadIdx.x; i < chunks; i += NT) {
+      reinterpret_cast<uint4*>(dk_blk)[i] = make_uint4(0u, 0u, 0u, 0u);
+      reinterpret_cast<uint4*>(dv_blk)[i] = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wk = warp * 16;
-
-  stage(k + base, k0, n, 1.f, sQs, nullptr);
-  stage(v + base, k0, n, 1.f, sDO, nullptr);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a(sQs, wk, g, t4, ka);
-  load_a(sDO, wk, g, t4, va);
-
-  const int r_lo = k0 + wk + g, r_hi = r_lo + 8;
-  const bool valid_lo = km.valid(r_lo), valid_hi = km.valid(r_hi);
   const float* lrow = lse + static_cast<size_t>(bh) * n;
   const float* drow = delta + static_cast<size_t>(bh) * n;
+  auto stage_q = [&](int st) { return reinterpret_cast<bf16*>(ring + st * S::kStageBytes); };
+  auto stage_l = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * S::kStageBytes + 2 * S::kTile * 2);
+  };
+  auto load_stage = [&](int st, int r0) {
+    load_rows<NT>(stage_q(st), q + base, n, r0, TILE);
+    load_rows<NT>(stage_q(st) + S::kTile, dout + base, n, r0, TILE);
+    load_vec2<NT>(stage_l(st), stage_l(st) + TILE, lrow, drow, n, r0);
+  };
+
+  const int n_qt = (n + TILE - 1) / TILE;
+  load_rows<NT>(sK, k + base, n, k0, S::ROWS);
+  load_rows<NT>(sV, v + base, n, k0, S::ROWS);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_qt) load_stage(st, st * TILE);
+    cp_async_commit();
+  }
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int r_lo = k0 + wr + (lane >> 2);
+  const bool valid_lo = km.valid(r_lo), valid_hi = km.valid(r_lo + 8);
+  const bool warp_all = km.all(k0 + wr, k0 + wr + 16);
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+  load_a(sK, wr, lane, ka);
+  load_a(sV, wr, lane, va);
 
   float dka[8][4], dva[8][4];
 #pragma unroll
@@ -236,143 +419,158 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     dva[d][0] = dva[d][1] = dva[d][2] = dva[d][3] = 0.f;
   }
 
-  const int n_qt = (n + BR - 1) / BR;
+  // query rows past n are zero in q and do, with L = D = 0: p = 1 there
+  // but ds = 0 and do = 0, so they add nothing
   for (int it = 0; it < n_qt; ++it) {
-    const int q0 = it * BR;
-    __syncthreads();  // the previous tile (or the k / v fragments) is consumed
-    stage(q + base, q0, n, qscale, sQs, sQt);
-    stage(dout + base, q0, n, 1.f, sDO, sDOt);
-    for (int i = threadIdx.x; i < BR; i += NTHREADS) {
-      const bool in = q0 + i < n;
-      sL2[i] = in ? lrow[q0 + i] * LOG2E_F : 0.f;
-      sD[i] = in ? drow[q0 + i] : 0.f;
+    const int nxt = it + STAGES - 1;
+    if (nxt < n_qt) load_stage(nxt % STAGES, nxt * TILE);
+    cp_async_commit();
+    const int st = it % STAGES;
+    const bf16* tq = stage_q(st);
+    const float* sl = stage_l(st);
+    if (warp_all) {
+      dkv_tile<false>(tq, tq + S::kTile, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka,
+                      dva, lane);
+    } else {
+      dkv_tile<true>(tq, tq + S::kTile, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka,
+                     dva, lane);
     }
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-
-    // transposed tiles: rows are this warp's 16 keys, columns the 64 queries
-    uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_row(s, ka, &sQs[j * 8 + g][0], t4);   // log2-domain scores k.q^T
-      mma_row(dp, va, &sDO[j * 8 + g][0], t4);  // v.do^T
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + t4 * 2 + (e & 1);
-        const bool ok = (e < 2 ? valid_lo : valid_hi) && q0 + qc < n;
-        p[e] = ok ? exp2f(s[e] - sL2[qc]) : 0.f;
-        ds[e] = p[e] * (dp[e] - sD[qc]);
-      }
-      pack_a(pa, j, p);
-      pack_a(dsa, j, ds);
-    }
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      mma_row(dva[d], pa, &sDOt[d * 8 + g][0], t4);  // p^T.do
-      mma_row(dka[d], dsa, &sQt[d * 8 + g][0], t4);  // ds^T.q
-    }
   }
+  // sK / sV were read only before the loop, whose last barrier every warp passed
+  store_rows<TO, NT>(dk_blk, rows, smem, dka, scale, lane);
+  __syncthreads();
+  store_rows<TO, NT>(dv_blk, rows, smem, dva, 1.f, lane);
+}
 
-#pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    const int c = d * 8 + t4 * 2;
-    if (r_lo < n) {
-      const size_t off = base + static_cast<size_t>(r_lo) * DH + c;
-      dk[off] = from_float<T>(dka[d][0] * scale);
-      dk[off + 1] = from_float<T>(dka[d][1] * scale);
-      dv[off] = from_float<T>(dva[d][0]);
-      dv[off + 1] = from_float<T>(dva[d][1]);
-    }
-    if (r_hi < n) {
-      const size_t off = base + static_cast<size_t>(r_hi) * DH + c;
-      dk[off] = from_float<T>(dka[d][2] * scale);
-      dk[off + 1] = from_float<T>(dka[d][3] * scale);
-      dv[off] = from_float<T>(dva[d][2]);
-      dv[off + 1] = from_float<T>(dva[d][3]);
-    }
-  }
+template <typename Kern>
+int prepare(Kern kern, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int* lens;
+  int b, h, n, seg;
+  float qscale, scale;
+  cudaStream_t st;
+};
+
+template <int WARPS, int STAGES, typename TO, bool SEG>
+int launch_dq_cfg(const BwdArgs& a, void* dq) {
+  using S = DqSmem<WARPS, STAGES>;
+  auto kern = flash_bwd_dq_kernel<WARPS, STAGES, TO, SEG>;
+  if (int err = prepare(kern, S::bytes)) return err;
+  const dim3 grid((a.n + S::ROWS - 1) / S::ROWS, a.b * a.h);
+  kern<<<grid, WARPS * 32, S::bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
+                                              static_cast<TO*>(dq), a.h, a.n, a.seg, a.qscale,
+                                              a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WARPS, int STAGES, typename TO, bool SEG>
+int launch_dkv_cfg(const BwdArgs& a, void* dk, void* dv) {
+  using S = DkvSmem<WARPS, STAGES>;
+  auto kern = flash_bwd_dkv_kernel<WARPS, STAGES, TO, SEG>;
+  if (int err = prepare(kern, S::bytes)) return err;
+  const dim3 grid((a.n + S::ROWS - 1) / S::ROWS, a.b * a.h);
+  kern<<<grid, WARPS * 32, S::bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
+                                              static_cast<TO*>(dk), static_cast<TO*>(dv), a.h,
+                                              a.n, a.seg, a.qscale, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The configurations built, (rows per block, ring stages):
+// (64, 2), (128, 2), (128, 3) for both kernels
+template <typename TO, bool SEG>
+int dispatch_dq(const BwdArgs& a, void* dq, int rows, int stages) {
+  if (rows == 64 && stages == 2) return launch_dq_cfg<4, 2, TO, SEG>(a, dq);
+  if (rows == 128 && stages == 2) return launch_dq_cfg<8, 2, TO, SEG>(a, dq);
+  if (rows == 128 && stages == 3) return launch_dq_cfg<8, 3, TO, SEG>(a, dq);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TO, bool SEG>
+int dispatch_dkv(const BwdArgs& a, void* dk, void* dv, int rows, int stages) {
+  if (rows == 64 && stages == 2) return launch_dkv_cfg<4, 2, TO, SEG>(a, dk, dv);
+  if (rows == 128 && stages == 2) return launch_dkv_cfg<8, 2, TO, SEG>(a, dk, dv);
+  if (rows == 128 && stages == 3) return launch_dkv_cfg<8, 3, TO, SEG>(a, dk, dv);
+  return cudaErrorInvalidValue;
+}
+
+template <bool SEG>
+int check_and_pack(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, const void* lens, int b, int h, int n,
+                   int dh, int seg, float qscale, float scale, void* stream, BwdArgs* a) {
+  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
+  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
+  *a = BwdArgs{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const int*>(lens), b, h, n, SEG ? seg : 0, qscale, scale,
+               static_cast<cudaStream_t>(stream)};
+  return 0;
 }
 
 template <bool SEG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* lens, void* dq, int b, int h, int n, int dh,
-              int dtype, int seg, float qscale, float scale, void* stream) {
-  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
-  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
-  const dim3 grid((n + BR - 1) / BR, b * h);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* L = static_cast<const float*>(lse);
-  const float* D = static_cast<const float*>(delta);
-  const int* ln = static_cast<const int*>(lens);
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dq_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, seg, qscale, scale);
-  } else if (dtype == kFloat32) {
-    using T = float;
-    flash_bwd_dq_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dq), h, n, seg, qscale, scale);
-  } else {
-    return cudaErrorInvalidValue;
+              int out_dtype, int seg, int rows, int stages, float qscale, float scale,
+              void* stream) {
+  BwdArgs a;
+  if (int err = check_and_pack<SEG>(q, k, v, dout, lse, delta, lens, b, h, n, dh, seg, qscale,
+                                    scale, stream, &a)) {
+    return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  if (out_dtype == kBFloat16) return dispatch_dq<bf16, SEG>(a, dq, rows, stages);
+  if (out_dtype == kFloat32) return dispatch_dq<float, SEG>(a, dq, rows, stages);
+  return cudaErrorInvalidValue;
 }
 
 template <bool SEG>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* lens, void* dk, void* dv, int b, int h, int n,
-               int dh, int dtype, int seg, float qscale, float scale, void* stream) {
-  if (dh != DH || n <= 0 || b <= 0 || h <= 0 || b * h > 65535) return cudaErrorInvalidValue;
-  if (SEG && (seg < 0 || seg > n)) return cudaErrorInvalidValue;
-  const dim3 grid((n + BR - 1) / BR, b * h);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* L = static_cast<const float*>(lse);
-  const float* D = static_cast<const float*>(delta);
-  const int* ln = static_cast<const int*>(lens);
-  if (dtype == kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dkv_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
-        seg, qscale, scale);
-  } else if (dtype == kFloat32) {
-    using T = float;
-    flash_bwd_dkv_kernel<T, SEG><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), L, D, ln, static_cast<T*>(dk), static_cast<T*>(dv), h, n,
-        seg, qscale, scale);
-  } else {
-    return cudaErrorInvalidValue;
+               int dh, int out_dtype, int seg, int rows, int stages, float qscale, float scale,
+               void* stream) {
+  BwdArgs a;
+  if (int err = check_and_pack<SEG>(q, k, v, dout, lse, delta, lens, b, h, n, dh, seg, qscale,
+                                    scale, stream, &a)) {
+    return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  if (out_dtype == kBFloat16) return dispatch_dkv<bf16, SEG>(a, dk, dv, rows, stages);
+  if (out_dtype == kFloat32) return dispatch_dkv<float, SEG>(a, dk, dv, rows, stages);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 F5_EXPORT_ERROR_STRING
 
-// Kernel D.  q, k, v, dout, dq: [b, h, n, dh] contiguous, of one dtype
-// (kFloat32 or kBFloat16); lse, delta: fp32 [b, h, n]; lens: int32 [b].
-// qscale = scale * log2(e).  Returns cudaGetLastError().
+// Kernel D.  q, k, v, dout: bf16 [b, h, n, dh] contiguous; dq: [b, h, n, dh]
+// of out_dtype (kFloat32 or kBFloat16); lse, delta: fp32 [b, h, n]; lens:
+// int32 [b].  (rows, stages): a built configuration, (64, 2), (128, 2) or
+// (128, 3).  qscale = scale * log2(e).  Returns cudaGetLastError() (or the
+// error of the shared-memory attribute).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       const void* lens, void* dq, int b, int h, int n, int dh,
-                                      int dtype, float qscale, float scale, void* stream) {
-  return launch_dq<false>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, dtype, 0, qscale,
-                          scale, stream);
+                                      int out_dtype, int rows, int stages, float qscale,
+                                      float scale, void* stream) {
+  return launch_dq<false>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, out_dtype, 0, rows,
+                          stages, qscale, scale, stream);
 }
 
-// Kernel E.  As kernel D, with dk, dv: [b, h, n, dh] in the inputs' dtype.
+// Kernel E.  As kernel D, with dk, dv: [b, h, n, dh] of out_dtype.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* lens, void* dk, void* dv, int b, int h, int n,
-                                       int dh, int dtype, float qscale, float scale,
-                                       void* stream) {
-  return launch_dkv<false>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, dtype, 0,
-                           qscale, scale, stream);
+                                       int dh, int out_dtype, int rows, int stages, float qscale,
+                                       float scale, void* stream) {
+  return launch_dkv<false>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, out_dtype, 0,
+                           rows, stages, qscale, scale, stream);
 }
 
 // Kernel D in the two-segment mode: lens int32 [b, 2] (len_a, len_t),
@@ -380,18 +578,19 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 extern "C" int flash_attention_bwd_dq_seg(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           const void* lens, void* dq, int b, int h, int n,
-                                          int dh, int dtype, int seg, float qscale, float scale,
-                                          void* stream) {
-  return launch_dq<true>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, dtype, seg, qscale,
-                         scale, stream);
+                                          int dh, int out_dtype, int seg, int rows, int stages,
+                                          float qscale, float scale, void* stream) {
+  return launch_dq<true>(q, k, v, dout, lse, delta, lens, dq, b, h, n, dh, out_dtype, seg, rows,
+                         stages, qscale, scale, stream);
 }
 
 // Kernel E in the two-segment mode: lens and seg as kernel D's.
 extern "C" int flash_attention_bwd_dkv_seg(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            const void* lens, void* dk, void* dv, int b, int h,
-                                           int n, int dh, int dtype, int seg, float qscale,
-                                           float scale, void* stream) {
-  return launch_dkv<true>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, dtype, seg,
-                          qscale, scale, stream);
+                                           int n, int dh, int out_dtype, int seg, int rows,
+                                           int stages, float qscale, float scale,
+                                           void* stream) {
+  return launch_dkv<true>(q, k, v, dout, lse, delta, lens, dk, dv, b, h, n, dh, out_dtype, seg,
+                          rows, stages, qscale, scale, stream);
 }

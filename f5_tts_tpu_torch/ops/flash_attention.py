@@ -21,7 +21,10 @@ JAX counterparts, all in ``f5_tts_tpu/ops/flash_attention.py``:
 
 The kernels are ``csrc/flash_attention.cu`` (A, C, F) and
 ``csrc/flash_attention_bwd.cu`` (D, E); their headers say what bounds them
-on the H100 and how their blocking departs from the TPU kernels'.
+on the H100 and how their blocking departs from the TPU kernels'.  D and E
+come in the tile configurations (rows per block, ring stages) of
+``BWD_CONFIGS``; the wrappers launch ``DQ_CONFIG`` and ``DKV_CONFIG``,
+the fastest on the card at the training shape (``PERF.md``).
 
 Semantics: non-causal attention over q, k, v [b, h, n, 64].  Key columns
 are valid only in [0, lens[b]) (lens int32 [b]), or, in the two-segment
@@ -31,12 +34,15 @@ joint [audio, text] sequence with the text stream at ``seg``.  Kernels C,
 D and E take both modes (instances ``KERNEL_STATS_SEG``, ``KERNEL_DQ_SEG``,
 ``KERNEL_DKV_SEG``); kernel F is kernel A's two-segment instance.  A query
 row with no valid key gives 0.  The
-kernel takes bf16 (the serving dtype) or fp32 tensors and, like the TPU
-kernel, rounds q (prescaled by scale*log2 e), k, v and the probabilities to
-bf16 for its tensor-core products, accumulating in fp32; the backward
-kernels also round do and ds.  The logsumexp ``L`` is natural-log, fp32
-[b, h, n], and ``-1e30`` for a row with no valid key, whose output and
-gradients are 0.  ``lens`` gets no gradient.
+forward kernels take bf16 (the serving dtype) or fp32 tensors and, like the
+TPU kernel, round q (prescaled by scale*log2 e), k, v and the probabilities
+to bf16 for their tensor-core products, accumulating in fp32.  The backward
+kernels take bf16 operands only: their wrappers cast fp32 q, k, v, do to
+bf16, and write the gradients in the inputs' dtype.  They compute the
+scores from the raw bf16 q and k and apply scale*log2 e in fp32 inside the
+exponent, and round p and ds to bf16 for their products.  The logsumexp
+``L`` is natural-log, fp32 [b, h, n], and ``-1e30`` for a row with no valid
+key, whose output and gradients are 0.  ``lens`` gets no gradient.
 
 Dispatch is by device: a CPU tensor runs the plain version; a CUDA tensor
 launches the kernel, and anything the kernel does not take raises.  There
@@ -66,13 +72,14 @@ KERNEL_STATS = CudaKernel(  # kernel C
     "flash_attention_fwd_stats", "flash_attention.cu",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 )
+# D and E: (b, h, n, dh, out dtype[, seg], rows per block, ring stages, qscale, scale)
 KERNEL_DQ = CudaKernel(  # kernel D
     "flash_attention_bwd_dq", "flash_attention_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 KERNEL_DKV = CudaKernel(  # kernel E
     "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 # the two-segment instances: one more int, seg, before the scales
 KERNEL_SEG = CudaKernel(  # kernel F
@@ -85,15 +92,20 @@ KERNEL_STATS_SEG = CudaKernel(  # kernel C, two-segment mode
 )
 KERNEL_DQ_SEG = CudaKernel(  # kernel D, two-segment mode
     "flash_attention_bwd_dq_seg", "flash_attention_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 KERNEL_DKV_SEG = CudaKernel(  # kernel E, two-segment mode
     "flash_attention_bwd_dkv_seg", "flash_attention_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 KERNELS = (KERNEL, KERNEL_STATS, KERNEL_DQ, KERNEL_DKV,
            KERNEL_SEG, KERNEL_STATS_SEG, KERNEL_DQ_SEG, KERNEL_DKV_SEG)
 NO_KEY_LSE = -1e30  # the logsumexp of a row with no valid key
+# kernels D and E: the (rows per block, ring stages) configurations built,
+# and the ones the wrappers launch (the fastest at the training shape)
+BWD_CONFIGS = ((64, 2), (128, 2), (128, 3))
+DQ_CONFIG = (128, 2)
+DKV_CONFIG = (128, 2)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -239,36 +251,47 @@ def _check_bwd(q, k, v, do, L, D, lens, seg=None):
 
 
 def _bwd_args(q, k, v, do, L, D, lens):
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), L.data_ptr(), D.data_ptr(),
-            lens.data_ptr())
+    """The launch's leading pointers; the kernels read bf16 operands, so
+    fp32 q, k, v, do are cast here (the returned tensors keep them alive
+    until the launch is queued on the stream)."""
+    ops = [x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16) for x in (q, k, v, do)]
+    return ops, [x.data_ptr() for x in ops] + [L.data_ptr(), D.data_ptr(), lens.data_ptr()]
 
 
-def _bwd_tail(q, seg):
+def _bwd_tail(q, seg, config):
     b, h, n, dh = q.shape
     scale = float(dh) ** -0.5
-    return (b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), scale * LOG2E, scale,
+    if config not in BWD_CONFIGS:
+        raise ValueError(f"backward kernel configuration {config} is not one of {BWD_CONFIGS}")
+    return (b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), *config, scale * LOG2E, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg: int | None = None) -> torch.Tensor:
-    """Launch kernel D (its two-segment instance with ``seg``): dq."""
+def flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg: int | None = None,
+                                config: tuple[int, int] = DQ_CONFIG) -> torch.Tensor:
+    """Launch kernel D (its two-segment instance with ``seg``): dq, in q's
+    dtype.  ``config`` (rows per block, ring stages) is one of
+    ``BWD_CONFIGS``."""
     _check_bwd(q, k, v, do, L, D, lens, seg)
     dq = torch.empty_like(q)
     if q.numel():
         kernel = KERNEL_DQ if seg is None else KERNEL_DQ_SEG
-        kernel.launch(*_bwd_args(q, k, v, do, L, D, lens), dq.data_ptr(), *_bwd_tail(q, seg))
+        _ops, ptrs = _bwd_args(q, k, v, do, L, D, lens)
+        kernel.launch(*ptrs, dq.data_ptr(), *_bwd_tail(q, seg, config))
     return dq
 
 
-def flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg: int | None = None
+def flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg: int | None = None,
+                                 config: tuple[int, int] = DKV_CONFIG
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel E (its two-segment instance with ``seg``): (dk, dv)."""
+    """Launch kernel E (its two-segment instance with ``seg``): (dk, dv), in
+    the inputs' dtype.  ``config`` as kernel D's."""
     _check_bwd(q, k, v, do, L, D, lens, seg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():
         kernel = KERNEL_DKV if seg is None else KERNEL_DKV_SEG
-        kernel.launch(*_bwd_args(q, k, v, do, L, D, lens), dk.data_ptr(), dv.data_ptr(),
-                      *_bwd_tail(q, seg))
+        _ops, ptrs = _bwd_args(q, k, v, do, L, D, lens)
+        kernel.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *_bwd_tail(q, seg, config))
     return dk, dv
 
 

@@ -13,7 +13,11 @@ The backward kernels round do, p and ds to bf16 as well; their gradients
 are compared relative to the largest reference value (2e-2 max, 4e-3 mean).
 The two-segment instances (kernel F, and C, D, E with ``seg``) are held to
 the same tolerances, at a segment boundary inside a 64-key tile, an odd
-length, and rows with an empty text segment or no valid key at all.
+length, and rows with an empty text segment or no valid key at all.  D and
+E stream 64-row tiles in blocks of up to 128 rows: their cases include
+n = 1, 127, 129 and 1000, valid prefixes and segments that end on a tile
+edge beside ones that end inside a tile, and a determinism check (two
+launches, bitwise-equal dq, dk, dv, in every configuration built).
 Kernel G (the W8A8 int8 product) must equal its plain version to 1e-6
 relative (the int32 sum is exact; the output is bitwise the plain one's),
 at ragged m, k, n too, and a W8A8 linear on the card must launch it.
@@ -107,7 +111,9 @@ def _train_inputs(gen, n, lens, b=2, h=4, dtype=torch.bfloat16):
     return q, k, v, do, torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
-@pytest.mark.parametrize("n,lens", [(256, [256, 219]), (200, [0, 163]), (65, [65, 1])])
+@pytest.mark.parametrize("n,lens", [(256, [256, 219]), (200, [0, 163]), (65, [65, 1]),
+                                    (1, [1, 0]), (127, [127, 64]), (129, [129, 128]),
+                                    (1000, [1000, 937]), (384, [128, 200])])
 def test_flash_train_kernels_match_plain(gen, n, lens):
     """Kernels C, D and E against their plain versions on the same inputs."""
     q, k, v, do, lens_t = _train_inputs(gen, n, lens)
@@ -118,6 +124,11 @@ def test_flash_train_kernels_match_plain(gen, n, lens):
     assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
     assert (L - L_ref).abs().max().item() < 1e-2  # log2-domain scores of bf16-rounded q
     D = (do.float() * o.float()).sum(-1).contiguous()
+    if n == 1:
+        # softmax over one key is constant: dq = dk = 0 up to rounding, so
+        # shift D by a logsumexp cotangent (flash_attention_with_stats's
+        # backward) to give the q and k gradients something to hold
+        D = (D - torch.randn(D.shape, generator=gen, device="cuda")).contiguous()
     dq, dk, dv = FA.flash_attention_bwd(q, k, v, do, L, D, lens_t)
     ref = FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens_t)
     for got, want in zip((dq, dk, dv), ref):
@@ -151,6 +162,30 @@ def test_flash_trainable_grads_match_fp32_autograd(gen):
         assert mx < 2e-2 and mean < 4e-3, (mx, mean)
 
 
+@pytest.mark.parametrize("seg", [None, 256])
+def test_backward_kernels_are_deterministic(gen, seg):
+    """One owner per output tile and no atomics: two launches of D and E on
+    the same inputs give bitwise-equal gradients, in every configuration."""
+    n = 389
+    q, k, v, do, _ = _train_inputs(gen, n, [0, 0])
+    if seg is None:
+        lens = torch.tensor([n, 301], dtype=torch.int32, device="cuda")
+    else:
+        lens = torch.tensor([[256, 133], [200, 17]], dtype=torch.int32, device="cuda")
+    o, L = FA.flash_attention_fwd_stats(q, k, v, lens, seg=seg)
+    D = (do.float() * o.float()).sum(-1).contiguous()
+    for cfg in FA.BWD_CONFIGS:
+        runs = [(FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg, config=cfg),
+                 *FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg, config=cfg))
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), cfg
+        ref = FA.flash_attention_bwd_plain(q, k, v, do, L, D, lens, seg)
+        for got, want in zip(runs[0], ref):
+            mx, mean = _rel(got, want)
+            assert mx < 2e-2 and mean < 4e-3, (cfg, mx, mean)
+
+
 def test_flash_bwd_kernels_take_fp32(gen):
     q, k, v, do, lens_t = _train_inputs(gen, 130, [130, 64], dtype=torch.float32)
     o, L = FA.flash_attention_fwd_stats(q, k, v, lens_t)
@@ -166,10 +201,12 @@ SEG_CASES = [  # (n, seg, lens_a, lens_t)
     (256, 200, [200, 131], [56, 9]),      # boundary inside a key tile
     (1077, 1000, [1000, 790], [77, 0]),   # odd length; row 1 without text
     (300, 256, [0, 256], [0, 44]),        # row 0: both segments empty
+    (512, 256, [256, 128], [256, 64]),    # seg and both segments' ends on tile edges
+    (700, 600, [600, 333], [100, 77]),    # seg inside a tile, ends inside tiles
 ]
 
 
-@pytest.mark.parametrize("n,seg,la,lt", SEG_CASES, ids=["tile", "odd", "empty"])
+@pytest.mark.parametrize("n,seg,la,lt", SEG_CASES, ids=["tile", "odd", "empty", "edge", "inside"])
 def test_two_segment_kernels_match_plain(gen, n, seg, la, lt):
     """Kernel F and kernels C, D, E in the two-segment mode against their
     plain versions; keys outside both segments get exactly zero dk, dv."""

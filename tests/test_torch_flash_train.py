@@ -15,6 +15,13 @@ logsumexp: atol 2e-2; gradients, relative to the largest reference value:
 max 2e-2, mean 4e-3.  The plain backward against fp32 autograd: atol 1e-5.
 Inputs keep every ``lens >= 1`` where JAX is the reference: a row with no
 valid key is where the TPU kernels depart from the documented zero rule.
+
+The card's kernels D and E compute the scores from the raw bf16 q and k and
+apply scale * log2 e in fp32 inside the exponent, where the Pallas kernels
+round q * scale * log2 e to bf16 first.  A torch emulation of the card's
+arithmetic is held against the Pallas backward within the card checks'
+gradient tolerance (chip_smoke.py GRAD_TOL, the same 2e-2 max and 4e-3 mean
+relative error as below).
 """
 
 import jax
@@ -152,3 +159,46 @@ def test_train_backends_run_the_trainable_attention(backend):
     mq = mask[:, None, :, None]
     np.testing.assert_allclose((got * mq).detach().numpy(), (want * mq).numpy(), atol=1e-5)
     assert got.grad_fn is not None
+
+
+def _emulated_card_bwd(q, k, v, do, L, D, lens, seg=None):
+    """Kernels D and E's arithmetic on the card: q, k, v, do rounded to bf16;
+    fp32 scores of the raw bf16 q.k^T, scaled by scale * log2 e in fp32
+    inside exp2; p = 0 on masked keys; p and ds rounded to bf16 for the
+    products, which accumulate in fp32."""
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    qb, kb, vb, dob = (bf(_t(a)) for a in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = qb @ kb.transpose(-1, -2)
+    p = torch.exp2(s * (scale * TFA.LOG2E) - _t(L)[..., None] * TFA.LOG2E)
+    valid = TFA.key_valid(_t(lens), q.shape[2], seg)[:, None, None, :]
+    p = torch.where(valid, p, torch.zeros_like(p))
+    ds = p * (dob @ vb.transpose(-1, -2) - _t(D)[..., None])
+    dq = (bf(ds) @ kb) * scale
+    dk = (bf(ds).transpose(-1, -2) @ qb) * scale
+    dv = bf(p).transpose(-1, -2) @ dob
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("n,lens,seg", [
+    (256, [256, 170], None),
+    (384, [131, 384], None),
+    (320, [[256, 40], [190, 17]], 256),
+], ids=["prefix", "prefix-ragged", "two-segment"])
+def test_card_rounding_point_matches_jax_backward(interpret, n, lens, seg):
+    """The moved rounding point of q (raw bf16 q.k^T, scale * log2 e in fp32)
+    stays within the card's gradient tolerance of the Pallas backward, on
+    the Pallas forward's L and D."""
+    q, k, v, do, lens_np = _inputs(n, lens, seed=8)
+    b, h, _, dh = q.shape
+    blk = JFA._pick_block(n, 256)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o_j, L_j = JFA._flash_fwd_stats(jq, jk, jv, jnp.asarray(lens_np), blk, blk, seg)
+    D_j = jnp.sum(jdo * o_j.astype(jnp.float32), axis=-1).reshape(b * h, 1, n)
+    want = JFA._flash_bwd(jq, jk, jv, jdo, L_j, D_j, jnp.asarray(lens_np), blk, blk, seg)
+    L, D = (np.asarray(x).reshape(b, h, n) for x in (L_j, D_j))
+    got = _emulated_card_bwd(q, k, v, do, L, D, lens_np, seg)
+    for g, w in zip(got, want):
+        _assert_rel(g.numpy(), w, GRAD_TOL)
