@@ -83,9 +83,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // matrix l / 8, row l % 8, and register i receives row g, columns 2t, 2t+1
 // of matrix i (g = lane / 4, t = lane % 4).  From a row-major [rows][k]
 // tile, matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) in the order (0, 0),
-// (8, 0), (0, 8), (8, 8) are mma_16816's A fragment; from a [n][k] tile,
-// (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15) are
-// its B fragments for two 8-column tiles.
+// (8, 0), (0, 8), (8, 8) are the A fragment of mma_16816 and of wgmma with
+// A in registers.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_row) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

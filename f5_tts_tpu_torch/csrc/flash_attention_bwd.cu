@@ -24,35 +24,42 @@
 // walks key tiles for a fixed block of query rows, E walks query tiles for
 // a fixed block of key rows, so each output tile has one owner, nothing is
 // atomic, and two calls on the same inputs give bitwise-equal gradients.
-// A block of WARPS warps owns WARPS x 16 rows (16 a warp); 64-row tiles of
-// the streamed operands (K and V in D; q, do and their 64 entries each of
-// L and D in E) go through a ring of STAGES shared-memory stages.  Products
-// run on mma.sync m16n8k16 (bf16 in, fp32 accumulate), 32 columns of a
-// tile at a time, so the score and do.v^T accumulators take 16 registers
-// each.  What each part fixes of the first version (64 rows x 4 warps,
-// transposed restaging, synchronous loads):
-//  - every operand stays row-major, as it lies in device memory: A and B
-//    fragments come from ldmatrix, and the B operands read along their
-//    reduction axis (K for ds.k in D; q for ds^T.q and do for p^T.do in E)
-//    from ldmatrix.trans.  No transposed copy is written, so the 8-way
-//    bank conflict of its 2-byte stores is gone, with its shared memory;
+// A block is one or two warpgroups (4 warps); a warpgroup owns 64 rows.
+// 64-row tiles of the streamed operands (K and V in D; q, do and their 64
+// entries each of L and D in E) go through a ring of STAGES shared-memory
+// stages.  Every product runs on wgmma.mma_async (m64nNk16, bf16 in, fp32
+// accumulate): the left operand from registers (q and do in D, k and v in
+// E, loaded once by ldmatrix; p and ds packed from the score accumulators),
+// the right operand straight from the staged tile through a shared-memory
+// descriptor.  The score products are two commit groups, so p is computed
+// while do.v^T is still in the tensor cores (and, in E, ds while p^T.do
+// is).  E takes its query tile 32 columns at a time (m64n32 score products)
+// to stay within 168 registers, three blocks to an SM.  What each part
+// fixes of the first version (64 rows x 4 warps on mma.sync, transposed
+// restaging, synchronous loads):
+//  - every tile stays row-major, as it lies in device memory, in the
+//    128-byte swizzled layout wgmma reads (16-byte chunk c of row r at
+//    chunk c ^ (r % 8)).  The same tile is the K-major operand of the score
+//    products (k.q^T reads q's rows along dh) and the transposed (MN-major)
+//    operand of the products that reduce over its rows (ds.k in D; p^T.do
+//    and ds^T.q in E).  No transposed copy is written, so the 8-way bank
+//    conflict of its 2-byte stores is gone, with its shared memory;
 //  - tiles are raw 16-byte cp.async copies (zero-filled past n), issued
 //    STAGES - 1 tiles ahead, with one barrier per tile: tile j + 1 is in
 //    flight while tile j is in the tensor cores;
 //  - the kernels take bf16 operands only (the wrapper casts fp32 inputs);
 //    the output type is a template parameter, so fp32 callers get fp32
 //    gradients without a cast of a bf16 result;
-//  - a key tile (D), or a warp's 16 key rows (E), that lies wholly inside a
-//    valid segment skips the per-key test (KeyMask::all); boundary tiles
-//    keep it.  D visits only tiles holding a valid key (key_tiles: the gap
-//    between the segments is skipped), E writes exact zeros for a key block
-//    with no valid key and returns;
+//  - a key tile (D), or a warpgroup's 64 key rows (E), that lies wholly
+//    inside a valid segment skips the per-key test (KeyMask::all); boundary
+//    tiles keep it.  D visits only tiles holding a valid key (key_tiles: the
+//    gap between the segments is skipped), E writes exact zeros for a key
+//    block with no valid key and returns;
 //  - the gradients leave through shared memory in 16-byte coalesced
 //    stores, where the first version stored one element at a time;
-//  - 128-row blocks (8 warps) halve the re-reads of the streamed operands
-//    from L2 against 64-row blocks.  The configurations (rows, stages)
-//    built are those timed on the card; the wrappers choose one
-//    (ops/flash_attention.py DQ_CONFIG, DKV_CONFIG).
+//  - the configurations (rows per block, stages) built are those timed on
+//    the card; the wrappers choose one (ops/flash_attention.py DQ_CONFIG,
+//    DKV_CONFIG).
 // Rounding: q, k, v, do are bf16; the scores are the raw bf16 products
 // q.k^T in fp32, and scale * log2(e) is applied in fp32 inside the
 // exponent, p = exp2(s * qscale - L log2 e), in both kernels, so D and E
@@ -67,10 +74,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 64;       // head dim (all F5-TTS configs)
-constexpr int TILE = 64;     // rows of a streamed tile
-constexpr int CW = 32;       // tile columns per product pass
-constexpr int LDS = DH + 8;  // padded bf16 row (144 B): conflict-free ldmatrix rows
+constexpr int DH = 64;                 // head dim (all F5-TTS configs)
+constexpr int TILE = 64;               // rows of a streamed tile
+constexpr int ROWB = DH * 2;           // bytes of a tile row: one 128-byte swizzle row
+constexpr int TILE_BYTES = TILE * ROWB;
+constexpr int ECW = 32;                // E: query columns per score product
 constexpr float LOG2E_F = 1.4426950408889634f;
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -79,15 +87,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// rows [r0, r0 + rows) of a bf16 [n, DH] matrix into s [rows][LDS] by
+// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+__device__ __forceinline__ int swz(int r, int c) { return r * ROWB + ((c ^ (r & 7)) << 4); }
+
+// rows [r0, r0 + rows) of a bf16 [n, DH] matrix into the swizzled tile s by
 // 16-byte cp.async, zeros past n
 template <int NT>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* __restrict__ g, int n, int r0,
-                                          int rows) {
+__device__ __forceinline__ void load_rows(unsigned char* s, const bf16* __restrict__ g, int n,
+                                          int r0, int rows) {
   for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += NT) {
-    const int r = idx >> 3, c = (idx & 7) * 8;
+    const int r = idx >> 3, c = idx & 7;
     const bool in = r0 + r < n;
-    cp_async16(s + r * LDS + c, in ? g + static_cast<size_t>(r0 + r) * DH + c : g, in ? 16 : 0);
+    cp_async16(s + swz(r, c), in ? g + static_cast<size_t>(r0 + r) * DH + c * 8 : g,
+               in ? 16 : 0);
   }
 }
 
@@ -103,145 +115,228 @@ __device__ __forceinline__ void load_vec2(float* sl, float* sd, const float* __r
   }
 }
 
-// A fragments of rows [w0, w0 + 16) x DH of a staged [rows][LDS] tile
-__device__ __forceinline__ void load_a(const bf16* t, int w0, int lane, uint32_t (&a)[4][4]) {
-  const int row = w0 + (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
+// A fragments (mma / wgmma register layout) of rows [w0, w0 + 16) x DH of
+// a swizzled tile, one 16-column step per kc
+__device__ __forceinline__ void load_a(const unsigned char* t, int w0, int lane,
+                                       uint32_t (&a)[4][4]) {
+  const int row = w0 + (lane & 7) + ((lane >> 3) & 1) * 8, hi = lane >> 4;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) ldmatrix_x4(a[kc], t + row * LDS + kc * 16 + col);
+  for (int kc = 0; kc < 4; ++kc) ldmatrix_x4(a[kc], t + swz(row, kc * 2 + hi));
 }
 
-// Pack C fragment j (columns 8j..8j+7) of a 16 x CW fp32 tile into the A
-// fragments of the same tile used as the left operand of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[CW / 16][4], int j, const float* c) {
+// Pack accumulator block j (columns 8j..8j+7, the four values at c) into
+// the A fragments of the same tile used as the left operand of the next
+// product (the accumulator and A layouts put the same (row, column) in the
+// same thread)
+template <int KC>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KC][4], int j, const float* c) {
   const int kc = j >> 1, hi = (j & 1) * 2;
   a[kc][hi] = pack_bf16(c[0], c[1]);
   a[kc][hi + 1] = pack_bf16(c[2], c[3]);
 }
 
-// Two score-like products of one 16 x CW block: x(16 x DH) . T1[c0..c0+CW)^T
-// into s and y(16 x DH) . T2[c0..]^T into dp, B read row-major by ldmatrix
-__device__ __forceinline__ void scores2(const bf16* t1, const bf16* t2, int c0,
-                                        const uint32_t (&xa)[4][4], const uint32_t (&ya)[4][4],
-                                        float (&s)[CW / 8][4], float (&dp)[CW / 8][4], int lane) {
-#pragma unroll
-  for (int j = 0; j < CW / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-  }
-  const int row = c0 + (lane & 7) + (lane >> 4) * 8, col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < CW / 16; ++np) {
-      const int off = (row + np * 16) * LDS + kk * 16 + col;
-      uint32_t b[4];
-      ldmatrix_x4(b, t1 + off);
-      mma_16816(s[2 * np], xa[kk], b[0], b[1]);
-      mma_16816(s[2 * np + 1], xa[kk], b[2], b[3]);
-      ldmatrix_x4(b, t2 + off);
-      mma_16816(dp[2 * np], ya[kk], b[0], b[1]);
-      mma_16816(dp[2 * np + 1], ya[kk], b[2], b[3]);
-    }
-  }
+// wgmma descriptor of a 128-byte-swizzled operand at p (1024-byte aligned
+// swizzle atoms of 8 rows): stride between 8-row groups 1024 bytes.  As
+// K-major B (tile rows are the n axis) a 16-column k step adds 32 bytes;
+// as MN-major B (tile rows are the k axis, trans-b) a 16-row k step adds
+// 2048.  Offsets are added in 16-byte units to the low field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-// acc(16 x DH) += a(16 x CW) . T[c0..c0+CW) (rows of T are the reduction
-// axis), B read from the row-major tile by ldmatrix.trans
-__device__ __forceinline__ void accum_trans(float (&acc)[8][4], const uint32_t (&a)[CW / 16][4],
-                                            const bf16* t, int c0, int lane) {
-  const int row = c0 + ((lane >> 3) & 1) * 8 + (lane & 7), col = (lane >> 4) * 8;
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// keep the compiler from touching registers an in-flight wgmma reads or writes
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < CW / 16; ++kk) {
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int KC>
+__device__ __forceinline__ void hold(uint32_t (&a)[KC][4]) {
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, t + (row + kk * 16) * LDS + dp * 16 + col);
-      mma_16816(acc[2 * dp], a[kk], b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], a[kk], b[2], b[3]);
-    }
+  for (int i = 0; i < KC; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
   }
 }
+// generic-proxy writes (cp.async) made visible to wgmma's async-proxy reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-// Kernel D's work on one staged key tile [k0, k0 + TILE) for a warp's 16
-// query rows.  MASK tests each key column; a tile wholly valid skips it.
+// d(64 x 64) (+)= a(64 x 16, registers) . B(16 x 64, descriptor);
+// TRANS_B: B is MN-major (its tile rows are the k axis)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d(64 x 32) (+)= a(64 x 16, registers) . B(16 x 32, K-major descriptor)
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// Kernel D's work on one staged key tile [k0, k0 + TILE) for a warpgroup's
+// 64 query rows (this thread: rows g and g + 8 of its warp's 16).  MASK
+// tests each key column; a tile wholly valid skips it.
 template <bool MASK>
-__device__ __forceinline__ void dq_tile(const bf16* tk, const bf16* tv, int k0, const KeyMask& km,
+__device__ __forceinline__ void dq_tile(uint64_t kdesc, uint64_t vdesc, int k0, const KeyMask& km,
                                         const uint32_t (&qa)[4][4], const uint32_t (&doa)[4][4],
                                         float nl2_lo, float nl2_hi, float d_lo, float d_hi,
-                                        float qscale, float (&acc)[8][4], int lane) {
+                                        float qscale, float (&acc)[32], int lane) {
   const int t4 = lane & 3;
+  float s[32], dp[32];
+  wg_fence();
 #pragma unroll
-  for (int c0 = 0; c0 < TILE; c0 += CW) {
-    float s[CW / 8][4], dp[CW / 8][4];
-    scores2(tk, tv, c0, qa, doa, s, dp, lane);  // q.k^T, do.v^T
-    uint32_t dsa[CW / 16][4];
+  for (int kk = 0; kk < 4; ++kk) wgmma_n64<0>(s, qa[kk], kdesc + 2 * kk, kk);    // q.k^T
+  wg_commit();
 #pragma unroll
-    for (int j = 0; j < CW / 8; ++j) {
-      float ds[4];
+  for (int kk = 0; kk < 4; ++kk) wgmma_n64<0>(dp, doa[kk], vdesc + 2 * kk, kk);  // do.v^T
+  wg_commit();
+  wg_wait<1>();  // the scores are in: p (in place) while do.v^T runs
+  hold(s);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = fast_exp2(fmaf(s[j][e], qscale, e < 2 ? nl2_lo : nl2_hi));
-        if (MASK && !km.valid(k0 + c0 + j * 8 + t4 * 2 + (e & 1))) p = 0.f;
-        ds[e] = p * (dp[j][e] - (e < 2 ? d_lo : d_hi));
-      }
-      pack_a(dsa, j, ds);
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& p = s[4 * j + e];
+      p = fast_exp2(fmaf(p, qscale, e < 2 ? nl2_lo : nl2_hi));
+      if (MASK && !km.valid(k0 + j * 8 + t4 * 2 + (e & 1))) p = 0.f;
     }
-    accum_trans(acc, dsa, tk, c0, lane);  // ds.k
   }
+  wg_wait<0>();
+  hold(dp);
+  uint32_t dsa[4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[e] = s[4 * j + e] * (dp[4 * j + e] - (e < 2 ? d_lo : d_hi));
+    pack_a<4>(dsa, j, ds);
+  }
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n64<1>(acc, dsa[kk], kdesc + 128 * kk, 1);  // ds.k
+  wg_commit();
+  wg_wait<0>();
+  hold(acc);
+  hold(dsa);
 }
 
-// Kernel E's work on one staged query tile for a warp's 16 key rows
-// (transposed scores: rows are keys, columns queries).  MASK zeroes p on
-// this thread's invalid key rows; a warp whose rows are all valid skips it.
+// Kernel E's work on one staged query tile for a warpgroup's 64 key rows
+// (transposed scores: rows are keys, columns queries), ECW queries at a
+// time.  MASK zeroes p on this thread's invalid key rows; a warpgroup
+// whose rows are all valid skips it.
 template <bool MASK>
-__device__ __forceinline__ void dkv_tile(const bf16* tq, const bf16* tdo, const float* sl,
+__device__ __forceinline__ void dkv_tile(uint64_t qdesc, uint64_t dodesc, const float* sl,
                                          const float* sd, const uint32_t (&ka)[4][4],
                                          const uint32_t (&va)[4][4], bool valid_lo,
-                                         bool valid_hi, float qscale, float (&dka)[8][4],
-                                         float (&dva)[8][4], int lane) {
+                                         bool valid_hi, float qscale, float (&dka)[32],
+                                         float (&dva)[32], int lane) {
   const int t4 = lane & 3;
 #pragma unroll
-  for (int c0 = 0; c0 < TILE; c0 += CW) {
-    float s[CW / 8][4], dp[CW / 8][4];
-    scores2(tq, tdo, c0, ka, va, s, dp, lane);  // k.q^T, v.do^T
-    uint32_t pa[CW / 16][4], dsa[CW / 16][4];
+  for (int c0 = 0; c0 < TILE; c0 += ECW) {
+    float s[ECW / 2], dp[ECW / 2];
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < CW / 8; ++j) {
+    for (int kk = 0; kk < 4; ++kk) wgmma_n32(s, ka[kk], qdesc + c0 * 8 + 2 * kk, kk);    // k.q^T
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n32(dp, va[kk], dodesc + c0 * 8 + 2 * kk, kk);  // v.do^T
+    wg_commit();
+    wg_wait<1>();  // the scores are in: p (in place) while v.do^T runs
+    hold(s);
+    uint32_t pa[ECW / 16][4], dsa[ECW / 16][4];
+#pragma unroll
+    for (int j = 0; j < ECW / 8; ++j) {
       const float2 L = *reinterpret_cast<const float2*>(sl + c0 + j * 8 + t4 * 2);
-      const float2 D = *reinterpret_cast<const float2*>(sd + c0 + j * 8 + t4 * 2);
-      const float nl2[2] = {-L.x * LOG2E_F, -L.y * LOG2E_F}, dd[2] = {D.x, D.y};
-      float p[4], ds[4];
+      const float nl2[2] = {-L.x * LOG2E_F, -L.y * LOG2E_F};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = fast_exp2(fmaf(s[j][e], qscale, nl2[e & 1]));
-        if (MASK && !(e < 2 ? valid_lo : valid_hi)) p[e] = 0.f;
-        ds[e] = p[e] * (dp[j][e] - dd[e & 1]);
+        float& p = s[4 * j + e];
+        p = fast_exp2(fmaf(p, qscale, nl2[e & 1]));
+        if (MASK && !(e < 2 ? valid_lo : valid_hi)) p = 0.f;
       }
-      pack_a(pa, j, p);
-      pack_a(dsa, j, ds);
+      pack_a<ECW / 16>(pa, j, &s[4 * j]);
     }
-    accum_trans(dva, pa, tdo, c0, lane);  // p^T.do
-    accum_trans(dka, dsa, tq, c0, lane);  // ds^T.q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < ECW / 16; ++kk) {
+      wgmma_n64<1>(dva, pa[kk], dodesc + (c0 + 16 * kk) * 8, 1);  // p^T.do
+    }
+    wg_commit();
+    wg_wait<1>();  // v.do^T is in: ds while p^T.do runs
+    hold(dp);
+#pragma unroll
+    for (int j = 0; j < ECW / 8; ++j) {
+      const float2 D = *reinterpret_cast<const float2*>(sd + c0 + j * 8 + t4 * 2);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? D.y : D.x));
+      pack_a<ECW / 16>(dsa, j, ds);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < ECW / 16; ++kk) {
+      wgmma_n64<1>(dka, dsa[kk], qdesc + (c0 + 16 * kk) * 8, 1);  // ds^T.q
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(dva);
+    hold(dka);
+    hold(pa);
+    hold(dsa);
   }
 }
 
-// The block's [ROWS, DH] fp32 accumulators (a warp's 16 rows each), times
-// mul, as TO through shared memory into rows [0, rows) of dst with 16-byte
-// stores.  The caller makes sure no warp still reads ``smem``.
+// The block's [ROWS, DH] fp32 accumulators (a warp's 16 rows each, in the
+// wgmma layout), times mul, as TO through shared memory into rows
+// [0, rows) of dst with 16-byte stores.  The caller makes sure no thread
+// still reads ``smem`` and no copy into it is in flight.
 template <typename TO, int NT>
 __device__ __forceinline__ void store_rows(TO* __restrict__ dst, int rows, unsigned char* smem,
-                                           const float (&acc)[8][4], float mul, int lane) {
+                                           const float (&acc)[32], float mul, int lane) {
   constexpr int LDO = DH + 16 / static_cast<int>(sizeof(TO));  // padded row, 16-byte multiple
   constexpr int CPR = DH * static_cast<int>(sizeof(TO)) / 16;  // 16-byte chunks per row
   TO* so = reinterpret_cast<TO*>(smem);
   const int r = (threadIdx.x >> 5) * 16 + (lane >> 2), c = (lane & 3) * 2;
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      TO* p = so + (r + h * 8) * LDO + d * 8 + c;
-      p[0] = from_float<TO>(acc[d][2 * h] * mul);
-      p[1] = from_float<TO>(acc[d][2 * h + 1] * mul);
+      TO* p = so + (r + h * 8) * LDO + j * 8 + c;
+      p[0] = from_float<TO>(acc[4 * j + 2 * h] * mul);
+      p[1] = from_float<TO>(acc[4 * j + 2 * h + 1] * mul);
     }
   }
   __syncthreads();
@@ -253,16 +348,24 @@ __device__ __forceinline__ void store_rows(TO* __restrict__ dst, int rows, unsig
   }
 }
 
+// dynamic shared memory, its start rounded up to the 1024 bytes a swizzle
+// atom needs (the launch asks for 1024 bytes more)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
 template <int WARPS, int STAGES>
 struct DqSmem {
   static constexpr int ROWS = WARPS * 16;
-  static constexpr int kRows = ROWS * LDS;  // the q or do block (elements)
-  static constexpr int kTile = TILE * LDS;  // one K or V tile
-  static constexpr int bytes = (2 * kRows + STAGES * 2 * kTile) * 2;
+  static constexpr int kRows = ROWS * ROWB;  // the q or do block (bytes)
+  static constexpr int kStage = 2 * TILE_BYTES;  // K tile, V tile
+  static constexpr int bytes = 2 * kRows + STAGES * kStage;
+  static_assert(bytes >= ROWS * (DH + 4) * 4, "the epilogue stages fp32 rows in place");
 };
 
 template <int WARPS, int STAGES, typename TO, bool SEG>
-__global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 4 ? 3 : 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -270,10 +373,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float qscale, float scale) {
   using S = DqSmem<WARPS, STAGES>;
   constexpr int NT = WARPS * 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + S::kRows;
-  bf16* ring = sDO + S::kRows;  // STAGES x (K tile, V tile)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = sQ + S::kRows;
+  unsigned char* ring = sDO + S::kRows;  // STAGES x (K tile, V tile)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * S::ROWS;
@@ -283,9 +387,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = static_cast<size_t>(bh) * n * DH;
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
 
-  float acc[8][4];
+  float acc[32];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
   if (n_tiles > 0) {
     load_rows<NT>(sQ, q + base, n, q0, S::ROWS);
@@ -294,8 +398,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int st = 0; st < STAGES - 1; ++st) {
       if (st < n_tiles) {
         const int kt = tiles.tile(st) * TILE;
-        load_rows<NT>(ring + st * 2 * S::kTile, k + base, n, kt, TILE);
-        load_rows<NT>(ring + st * 2 * S::kTile + S::kTile, v + base, n, kt, TILE);
+        load_rows<NT>(ring + st * S::kStage, k + base, n, kt, TILE);
+        load_rows<NT>(ring + st * S::kStage + TILE_BYTES, v + base, n, kt, TILE);
       }
       cp_async_commit();
     }
@@ -307,36 +411,40 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float d_lo = r_lo < n ? drow[r_lo] : 0.f;
     const float d_hi = r_hi < n ? drow[r_hi] : 0.f;
     cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
     __syncthreads();
     uint32_t qa[4][4], doa[4][4];
     load_a(sQ, wr, lane, qa);
     load_a(sDO, wr, lane, doa);
 
     for (int it = 0; it < n_tiles; ++it) {
-      // tile it has landed; every warp is done with tile it - 1, whose
+      // tile it has landed; every warpgroup is done with tile it - 1, whose
       // stage takes tile it + STAGES - 1
       const int nxt = it + STAGES - 1;
       if (nxt < n_tiles) {
-        bf16* st = ring + (nxt % STAGES) * 2 * S::kTile;
+        unsigned char* st = ring + (nxt % STAGES) * S::kStage;
         const int kt = tiles.tile(nxt) * TILE;
         load_rows<NT>(st, k + base, n, kt, TILE);
-        load_rows<NT>(st + S::kTile, v + base, n, kt, TILE);
+        load_rows<NT>(st + TILE_BYTES, v + base, n, kt, TILE);
       }
       cp_async_commit();
-      const bf16* tk = ring + (it % STAGES) * 2 * S::kTile;
+      const unsigned char* tk = ring + (it % STAGES) * S::kStage;
+      const uint64_t kdesc = sw128_desc(tk), vdesc = sw128_desc(tk + TILE_BYTES);
       const int k0 = tiles.tile(it) * TILE;
       if (km.all(k0, k0 + TILE)) {
-        dq_tile<false>(tk, tk + S::kTile, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale,
-                       acc, lane);
+        dq_tile<false>(kdesc, vdesc, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale, acc,
+                       lane);
       } else {
-        dq_tile<true>(tk, tk + S::kTile, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale,
-                      acc, lane);
+        dq_tile<true>(kdesc, vdesc, k0, km, qa, doa, nl2_lo, nl2_hi, d_lo, d_hi, qscale, acc,
+                      lane);
       }
       cp_async_wait<STAGES - 2>();
+      fence_proxy_async();
       __syncthreads();
     }
+    cp_async_wait<0>();  // only empty groups can remain
   }
-  // sQ / sDO were read only before the loop, whose last barrier every warp passed
+  // the tiles were last read before the loop's last barrier
   store_rows<TO, NT>(dq + base + static_cast<size_t>(q0) * DH, min(S::ROWS, n - q0), smem, acc,
                      scale, lane);
 }
@@ -344,11 +452,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int WARPS, int STAGES>
 struct DkvSmem {
   static constexpr int ROWS = WARPS * 16;
-  static constexpr int kRows = ROWS * LDS;  // the K or V block (elements)
-  static constexpr int kTile = TILE * LDS;  // one q or do tile
-  // one stage: q tile, do tile (bf16), then L and D (fp32)
-  static constexpr int kStageBytes = 2 * kTile * 2 + 2 * TILE * 4;
-  static constexpr int bytes = 2 * kRows * 2 + STAGES * kStageBytes;
+  static constexpr int kRows = ROWS * ROWB;      // the K or V block (bytes)
+  static constexpr int kStage = 2 * TILE_BYTES;  // q tile, do tile
+  static constexpr int kVec = 2 * TILE * 4;      // L and D of a stage
+  static constexpr int bytes = 2 * kRows + STAGES * (kStage + kVec);
+  static_assert(bytes >= ROWS * (DH + 4) * 4, "the epilogue stages fp32 rows in place");
 };
 
 template <int WARPS, int STAGES, typename TO, bool SEG>
@@ -360,10 +468,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      int heads, int n, int seg, float qscale, float scale) {
   using S = DkvSmem<WARPS, STAGES>;
   constexpr int NT = WARPS * 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + S::kRows;
-  unsigned char* ring = smem + 2 * S::kRows * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + S::kRows;
+  unsigned char* ring = sV + S::kRows;  // STAGES x (q tile, do tile)
+  float* vec = reinterpret_cast<float*>(ring + STAGES * S::kStage);  // STAGES x (L, D)
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * S::ROWS;
@@ -384,14 +494,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float* lrow = lse + static_cast<size_t>(bh) * n;
   const float* drow = delta + static_cast<size_t>(bh) * n;
-  auto stage_q = [&](int st) { return reinterpret_cast<bf16*>(ring + st * S::kStageBytes); };
-  auto stage_l = [&](int st) {
-    return reinterpret_cast<float*>(ring + st * S::kStageBytes + 2 * S::kTile * 2);
-  };
   auto load_stage = [&](int st, int r0) {
-    load_rows<NT>(stage_q(st), q + base, n, r0, TILE);
-    load_rows<NT>(stage_q(st) + S::kTile, dout + base, n, r0, TILE);
-    load_vec2<NT>(stage_l(st), stage_l(st) + TILE, lrow, drow, n, r0);
+    unsigned char* t = ring + st * S::kStage;
+    load_rows<NT>(t, q + base, n, r0, TILE);
+    load_rows<NT>(t + TILE_BYTES, dout + base, n, r0, TILE);
+    load_vec2<NT>(vec + st * 2 * TILE, vec + st * 2 * TILE + TILE, lrow, drow, n, r0);
   };
 
   const int n_qt = (n + TILE - 1) / TILE;
@@ -405,19 +512,18 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
   const int r_lo = k0 + wr + (lane >> 2);
   const bool valid_lo = km.valid(r_lo), valid_hi = km.valid(r_lo + 8);
-  const bool warp_all = km.all(k0 + wr, k0 + wr + 16);
+  const int wg0 = k0 + (threadIdx.x >> 7) * 64;  // this warpgroup's first key row
+  const bool wg_all = km.all(wg0, wg0 + 64);
   cp_async_wait<STAGES - 2>();
+  fence_proxy_async();
   __syncthreads();
   uint32_t ka[4][4], va[4][4];
   load_a(sK, wr, lane, ka);
   load_a(sV, wr, lane, va);
 
-  float dka[8][4], dva[8][4];
+  float dka[32], dva[32];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    dka[d][0] = dka[d][1] = dka[d][2] = dka[d][3] = 0.f;
-    dva[d][0] = dva[d][1] = dva[d][2] = dva[d][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
 
   // query rows past n are zero in q and do, with L = D = 0: p = 1 there
   // but ds = 0 and do = 0, so they add nothing
@@ -426,19 +532,22 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (nxt < n_qt) load_stage(nxt % STAGES, nxt * TILE);
     cp_async_commit();
     const int st = it % STAGES;
-    const bf16* tq = stage_q(st);
-    const float* sl = stage_l(st);
-    if (warp_all) {
-      dkv_tile<false>(tq, tq + S::kTile, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka,
-                      dva, lane);
+    const unsigned char* tq = ring + st * S::kStage;
+    const uint64_t qdesc = sw128_desc(tq), dodesc = sw128_desc(tq + TILE_BYTES);
+    const float* sl = vec + st * 2 * TILE;
+    if (wg_all) {
+      dkv_tile<false>(qdesc, dodesc, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka, dva,
+                      lane);
     } else {
-      dkv_tile<true>(tq, tq + S::kTile, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka,
-                     dva, lane);
+      dkv_tile<true>(qdesc, dodesc, sl, sl + TILE, ka, va, valid_lo, valid_hi, qscale, dka, dva,
+                     lane);
     }
     cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
     __syncthreads();
   }
-  // sK / sV were read only before the loop, whose last barrier every warp passed
+  cp_async_wait<0>();  // only empty groups can remain
+  // the tiles were last read before the loop's last barrier
   store_rows<TO, NT>(dk_blk, rows, smem, dka, scale, lane);
   __syncthreads();
   store_rows<TO, NT>(dv_blk, rows, smem, dva, 1.f, lane);
@@ -461,35 +570,35 @@ struct BwdArgs {
 
 template <int WARPS, int STAGES, typename TO, bool SEG>
 int launch_dq_cfg(const BwdArgs& a, void* dq) {
-  using S = DqSmem<WARPS, STAGES>;
+  constexpr int bytes = DqSmem<WARPS, STAGES>::bytes + 1024;
   auto kern = flash_bwd_dq_kernel<WARPS, STAGES, TO, SEG>;
-  if (int err = prepare(kern, S::bytes)) return err;
-  const dim3 grid((a.n + S::ROWS - 1) / S::ROWS, a.b * a.h);
-  kern<<<grid, WARPS * 32, S::bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
-                                              static_cast<TO*>(dq), a.h, a.n, a.seg, a.qscale,
-                                              a.scale);
+  if (int err = prepare(kern, bytes)) return err;
+  const dim3 grid((a.n + WARPS * 16 - 1) / (WARPS * 16), a.b * a.h);
+  kern<<<grid, WARPS * 32, bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
+                                           static_cast<TO*>(dq), a.h, a.n, a.seg, a.qscale,
+                                           a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int WARPS, int STAGES, typename TO, bool SEG>
 int launch_dkv_cfg(const BwdArgs& a, void* dk, void* dv) {
-  using S = DkvSmem<WARPS, STAGES>;
+  constexpr int bytes = DkvSmem<WARPS, STAGES>::bytes + 1024;
   auto kern = flash_bwd_dkv_kernel<WARPS, STAGES, TO, SEG>;
-  if (int err = prepare(kern, S::bytes)) return err;
-  const dim3 grid((a.n + S::ROWS - 1) / S::ROWS, a.b * a.h);
-  kern<<<grid, WARPS * 32, S::bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
-                                              static_cast<TO*>(dk), static_cast<TO*>(dv), a.h,
-                                              a.n, a.seg, a.qscale, a.scale);
+  if (int err = prepare(kern, bytes)) return err;
+  const dim3 grid((a.n + WARPS * 16 - 1) / (WARPS * 16), a.b * a.h);
+  kern<<<grid, WARPS * 32, bytes, a.st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.lens,
+                                           static_cast<TO*>(dk), static_cast<TO*>(dv), a.h, a.n,
+                                           a.seg, a.qscale, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The configurations built, (rows per block, ring stages):
-// (64, 2), (128, 2), (128, 3) for both kernels
+// (64, 2), (128, 2), (64, 3) for both kernels
 template <typename TO, bool SEG>
 int dispatch_dq(const BwdArgs& a, void* dq, int rows, int stages) {
   if (rows == 64 && stages == 2) return launch_dq_cfg<4, 2, TO, SEG>(a, dq);
   if (rows == 128 && stages == 2) return launch_dq_cfg<8, 2, TO, SEG>(a, dq);
-  if (rows == 128 && stages == 3) return launch_dq_cfg<8, 3, TO, SEG>(a, dq);
+  if (rows == 64 && stages == 3) return launch_dq_cfg<4, 3, TO, SEG>(a, dq);
   return cudaErrorInvalidValue;
 }
 
@@ -497,7 +606,7 @@ template <typename TO, bool SEG>
 int dispatch_dkv(const BwdArgs& a, void* dk, void* dv, int rows, int stages) {
   if (rows == 64 && stages == 2) return launch_dkv_cfg<4, 2, TO, SEG>(a, dk, dv);
   if (rows == 128 && stages == 2) return launch_dkv_cfg<8, 2, TO, SEG>(a, dk, dv);
-  if (rows == 128 && stages == 3) return launch_dkv_cfg<8, 3, TO, SEG>(a, dk, dv);
+  if (rows == 64 && stages == 3) return launch_dkv_cfg<4, 3, TO, SEG>(a, dk, dv);
   return cudaErrorInvalidValue;
 }
 
@@ -552,7 +661,7 @@ F5_EXPORT_ERROR_STRING
 // Kernel D.  q, k, v, dout: bf16 [b, h, n, dh] contiguous; dq: [b, h, n, dh]
 // of out_dtype (kFloat32 or kBFloat16); lse, delta: fp32 [b, h, n]; lens:
 // int32 [b].  (rows, stages): a built configuration, (64, 2), (128, 2) or
-// (128, 3).  qscale = scale * log2(e).  Returns cudaGetLastError() (or the
+// (64, 3).  qscale = scale * log2(e).  Returns cudaGetLastError() (or the
 // error of the shared-memory attribute).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,

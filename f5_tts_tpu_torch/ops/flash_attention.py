@@ -103,9 +103,9 @@ KERNELS = (KERNEL, KERNEL_STATS, KERNEL_DQ, KERNEL_DKV,
 NO_KEY_LSE = -1e30  # the logsumexp of a row with no valid key
 # kernels D and E: the (rows per block, ring stages) configurations built,
 # and the ones the wrappers launch (the fastest at the training shape)
-BWD_CONFIGS = ((64, 2), (128, 2), (128, 3))
-DQ_CONFIG = (128, 2)
-DKV_CONFIG = (128, 2)
+BWD_CONFIGS = ((64, 2), (128, 2), (64, 3))
+DQ_CONFIG = (64, 3)
+DKV_CONFIG = (64, 3)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
