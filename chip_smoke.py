@@ -4,21 +4,28 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds every CUDA kernel from
-   ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a, one process per source).
+   ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a, one process per source), and
+   each kernel instance's registers and spills.
 2. Kernel A (masked flash attention) against its plain version at the
    F5TTS_v1_Base shapes [2, 16, n, 64] bf16, n in {256, 1000, 1024, 4096},
-   ragged lens and a row with no valid key; times the kernel, the plain
+   ragged lens and a row with no valid key, and in every configuration
+   built (``flash_attention.FWD_CONFIGS``) at n = 1, 63, 65, 127, 129 and
+   256 with lengths of 0 and lengths that end on a tile edge or inside one;
+   every launch twice, bitwise equal; times every configuration, the plain
    version and one ``scaled_dot_product_attention`` call (a yardstick the
    port never calls) beside the H100 bound.
 3. Kernel B (fused ConvPositionEmbedding) likewise at [2, n, 1024] bf16,
-   16 groups; the yardstick is the cuDNN grouped-conv composition.
+   16 groups (every configuration of ``fused_convpos.CONFIGS`` at the edge
+   lengths, its fp32 instance against fp32 with TF32 off); the yardstick is
+   the cuDNN grouped-conv composition in bf16.
 4. One full-width F5TTS_v1_Base ``forward_cfg`` at n=256 in fp32, on the card
    through the kernels against the CPU through the plain versions.
 5. End to end: ``F5TTS(model="F5TTS_v1_Base", init_random=True)`` in bf16,
    after one warm-up request, serves a short request, a long one that is
-   chunked into a batch of rows, and a streamed one; checks the wavs and
-   that every attention and ConvPositionEmbedding call of the run went
-   through the kernels.
+   chunked into a batch of rows, and a streamed one; checks the wavs, that
+   every attention and ConvPositionEmbedding call of the run went through
+   the kernels, and that no request copied the ConvPositionEmbedding
+   weights into kernel B's layout (the engine does it once).
 6. Kernels C, D, E (flash attention forward with logsumexp, dq, dk/dv)
    against their plain versions at [2, 16, n, 64] bf16, n in {256, 1000,
    1024, 4096}, ragged lens and a row with no valid key; checks the zero
@@ -26,9 +33,10 @@ Run from the repository root:  python3 chip_smoke.py
    launches of D and E give bitwise-equal gradients; times kernel, plain
    version, bound and the ``scaled_dot_product_attention`` forward (C) and
    backward (D + E, with the ratio of D + E to it); and again at the
-   training shape [37, 16, 1024, 64], where every tile configuration of D
-   and E built (``flash_attention.BWD_CONFIGS``) is timed beside the one
-   the wrappers launch.
+   training shape [37, 16, 1024, 64], where every tile configuration of C,
+   D and E built (``FWD_CONFIGS``, ``BWD_CONFIGS``) is timed beside the one
+   the wrappers launch.  Kernel C also in every configuration at the edge
+   lengths of phase 2, and every launch of C twice, bitwise equal.
 7. Full-width gradient check: one F5TTS_v1_Base ``cfm.loss`` + backward in
    fp32 at b=2, n=256 with injected draws, on the card through kernels
    B, C, D, E against the CPU through the plain versions.
@@ -36,16 +44,18 @@ Run from the repository root:  python3 chip_smoke.py
    a seeded synthetic mel dataset at 38,400 frames per update; checks the
    log, the EMA rule, the checkpoints and the launch counts; then ~8
    updates on one fixed batch, whose loss must fall, and a profile of one
-   of them (D's and E's shares of device time, valid frames per second).
+   of them (the shares of device time of B, C, D and E, valid frames per
+   second).
 9. Kernel F (two-segment flash attention, MMDiT's joint-attention mask)
    and kernels C, D, E in the two-segment mode against their plain versions:
    the MMDiT serving shape under CFG [2, 16, 2048, 64] with seg 1024, a
    training-like shape [8, 16, 1280, 64] with ragged segments, an odd
-   boundary (n 1077, seg 1000) in bf16 and fp32, and rows with an empty text
-   segment or no valid key, with D's and E's determinism check; times each
-   beside its bound, its plain version,
-   kernel A at the same valid-key count, and ``scaled_dot_product_attention``
-   forward / backward with the same boolean key mask.
+   boundary (n 1077, seg 1000) in bf16 and fp32, seg and both segments'
+   ends on tile edges, and rows with an empty text segment or no valid key,
+   every kernel launched twice, bitwise equal; times each (F and C in every
+   configuration) beside its bound, its plain version, kernel A at the same
+   valid-key count, and ``scaled_dot_product_attention`` forward / backward
+   with the same boolean key mask.
 10. Full-width fp32 forwards, card vs CPU: F5TTS_MMDiT_Base
     ``forward_with_text(attn_mask_enabled=True)`` (22 launches of F, none
     of A) and E2TTS_Base ``forward_cfg`` (24 of A, 1 of B).
@@ -54,7 +64,8 @@ Run from the repository root:  python3 chip_smoke.py
 12. End to end: ``F5TTS(model="E2TTS_Base")`` serves a short and a long
     request, ``F5TTS(model="F5TTS_MMDiT_Base")`` a short one (bucket <= 1024);
     the launch counts prove every attention and ConvPositionEmbedding call
-    ran a kernel.
+    ran a kernel; a profile of the short request (the shares of device time
+    of the forward flash kernel and of B).
 13. Training: ``Trainer(E2TTS_Base, device="cuda")`` in mixed precision, 3
     updates on seeded synthetic mels at ``E2TTS_TRAIN_FRAMES`` per update;
     peak memory and valid frames per second.
@@ -118,6 +129,10 @@ LONG_TEXT = " ".join([
 # output for convpos); the plain versions compute in fp32 on the same values
 FLASH_TOL = (2e-2, 2e-3)  # (max abs, mean abs), as tests/test_flash_attention.py
 CONVPOS_TOL = (2e-2, 2e-3)
+# kernel B's fp32 instance (three bf16 products per tap, the dropped lo.lo
+# term ~2^-16 of a product) against the fp32 plain version with TF32 off:
+# max error over the largest reference value
+CONVPOS_FP32_REL_TOL = 1e-4
 # training kernels vs plain: o as FLASH_TOL; L (natural log) max abs, from
 # log2-domain scores of bf16-rounded q and k; the gradients, which also
 # round do, p and ds to bf16, relative to the largest reference value
@@ -159,20 +174,71 @@ def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _configs_ms(fn, configs, iters):
+    """Device ms of ``fn(config)`` for every configuration, keyed "rows x stages"."""
+    from f5_tts_tpu_torch.utils.device import device_ms
+
+    return {f"{c[0]}x{c[1]}": device_ms(lambda: fn(c), iters) for c in configs}
+
+
+def _print_configs_ms(tag, name, t, chosen):
+    print(f"{tag}: {name} every configuration (rows x stages), device ms: "
+          + ", ".join(f"{c} {ms:.4f}" for c, ms in t.items())
+          + f" (chosen {chosen[0]}x{chosen[1]})", flush=True)
+
+
+def _check_twice(torch, tag, fn):
+    """fn() launched twice on the same inputs must give bitwise-equal results
+    (one owner per output tile, no atomics); returns the first."""
+    a, b = fn(), fn()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            fail(f"{tag}: two launches gave different results")
+    return a
+
+
 def phase_flash(torch):
+    """Kernel A against its plain version (every configuration built at the
+    edge lengths), bitwise determinism, and device times."""
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, h, dh = 2, 16, 64
     rows, worst = [], 0.0
+    # edge lengths: n around the 64-row tiles, lengths of 0, lengths that end
+    # on a tile edge beside ones that end inside a tile
+    edge = [(1, [1, 0]), (63, [63, 17]), (65, [65, 64]), (127, [127, 0]), (129, [129, 128]),
+            (256, [256, 128]), (256, [192, 0])]
+    for n, lens_l in edge:
+        q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens)
+        errs = []
+        for cfg in FA.FWD_CONFIGS:
+            got = _check_twice(torch, f"flash n={n} lens={lens_l} {cfg}",
+                               lambda: FA.flash_attention_cuda(q, k, v, lens, config=cfg))
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            if not (max_err <= FLASH_TOL[0] and mean_err <= FLASH_TOL[1]):
+                fail(f"flash n={n} lens={lens_l} {cfg}: max {max_err} mean {mean_err}")
+            for i, ln in enumerate(lens_l):
+                if ln == 0 and got[i].abs().max().item() != 0.0:
+                    fail("flash: a row with no valid key must give 0")
+            worst = max(worst, max_err)
+            errs.append(max_err)
+        print(f"flash_attention n={n} lens={lens_l}: every configuration within {FLASH_TOL}, "
+              f"two launches bitwise equal; max_abs_err {max(errs):.3e}", flush=True)
     for n in (256, 1000, 1024, 4096):
         q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         cases = [[n, n - 37]] + ([[0, n - 37]] if n == 1000 else [])
         for lens_l in cases:
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-            got = FA.flash_attention_cuda(q, k, v, lens)
+            got = _check_twice(torch, f"flash n={n} lens={lens_l}",
+                               lambda: FA.flash_attention_cuda(q, k, v, lens))
             torch.cuda.synchronize()
             want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens)
             err = (got.float() - want).abs()
@@ -186,7 +252,9 @@ def phase_flash(torch):
                   f"mean_abs_err={mean_err:.3e} (tol {FLASH_TOL})", flush=True)
         lens = torch.tensor([n, n - 37], dtype=torch.int32, device="cuda")
         iters = 50 if n <= 1024 else 10
-        ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
+        configs = _configs_ms(lambda c: FA.flash_attention_cuda(q, k, v, lens, config=c),
+                              FA.FWD_CONFIGS, iters)
+        ms = configs["{}x{}".format(*FA.FWD_CONFIG)]
         plain_ms = device_ms(lambda: FA.flash_attention_plain(q.float(), k.float(),
                                                                     v.float(), lens), 3)
         keep = (torch.arange(n, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
@@ -196,29 +264,72 @@ def phase_flash(torch):
         nbytes = 4.0 * b * h * n * dh * 2 + 4 * b
         bms, by = bound_ms(flops, nbytes, PEAK_BF16)
         rows.append(dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=by, flops=flops))
+                         bound_by=by, flops=flops, configs_ms=configs, over_library=ms / lib_ms))
         print(f"flash_attention n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), kernel over sdpa "
+              f"{ms / lib_ms:.3f}, {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        _print_configs_ms(f"flash_attention n={n}", "A", configs, FA.FWD_CONFIG)
     return rows, worst
 
 
+def _convpos_weights(torch, gen, d=1024, k=31):
+    bound = (64 * k) ** -0.5  # torch's default conv init scale
+    w1, w2 = ((torch.rand((d, 64, k), generator=gen, device="cuda") * 2 - 1) * bound
+              for _ in range(2))
+    b1, b2 = ((torch.rand((d,), generator=gen, device="cuda") * 2 - 1) * bound for _ in range(2))
+    return w1, b1, w2, b2
+
+
 def phase_convpos(torch):
+    """Kernel B against its plain version (every configuration built at the
+    edge lengths; the fp32 instance), bitwise determinism, device times."""
     from f5_tts_tpu_torch.ops import fused_convpos as FC
     from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, d, groups, k = 2, 1024, 16, 31
-    bound = (64 * k) ** -0.5  # torch's default conv init scale
-    w1, w2 = ((torch.rand((d, 64, k), generator=gen, device="cuda") * 2 - 1) * bound
-              for _ in range(2))
-    b1, b2 = ((torch.rand((d,), generator=gen, device="cuda") * 2 - 1) * bound for _ in range(2))
-    w1, w2, b1, b2 = (t.to(torch.bfloat16) for t in (w1, w2, b1, b2))
+    w1, b1, w2, b2 = (t.to(torch.bfloat16) for t in _convpos_weights(torch, gen, d, k))
+    # the kernel's weight layout, made once as a serving engine makes it
+    taps = tuple(FC.kernel_taps(w, groups, torch.bfloat16) for w in (w1, w2))
     rows, worst = [], 0.0
+    edge = [(1, [1, 0]), (63, [63, 17]), (65, [65, 64]), (127, [127, 0]), (129, [129, 128]),
+            (256, [256, 128]), (300, [0, 0])]
+    for n, lens_l in edge:
+        x = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        want = FC.conv_pos_plain(*(t.float() for t in (x, w1, b1, w2, b2)), lens, groups)
+        errs = []
+        for cfg in FC.CONFIGS:
+            got = _check_twice(torch, f"convpos n={n} lens={lens_l} {cfg}",
+                               lambda: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps,
+                                                        cfg))
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            if not (max_err <= CONVPOS_TOL[0] and mean_err <= CONVPOS_TOL[1]):
+                fail(f"convpos n={n} lens={lens_l} {cfg}: max {max_err} mean {mean_err}")
+            if any(torch.count_nonzero(got[i, ln:]) for i, ln in enumerate(lens_l)):
+                fail(f"convpos n={n} lens={lens_l} {cfg}: rows past len must be 0")
+            worst = max(worst, max_err)
+            errs.append(max_err)
+        print(f"fused_convpos n={n} lens={lens_l}: every configuration within {CONVPOS_TOL}, "
+              f"two launches bitwise equal; max_abs_err {max(errs):.3e}", flush=True)
+    # the fp32 instance (three bf16 products per tap) against fp32, TF32 off
+    w32 = _convpos_weights(torch, gen, d, k)
+    x32 = torch.randn((b, 333, d), generator=gen, device="cuda")
+    lens = torch.tensor([333, 250], dtype=torch.int32, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 references from here on are fp32
+    want = FC.conv_pos_plain(x32, *w32, lens, groups)
+    rel32 = max(((FC.conv_pos_cuda(x32, *w32, lens, groups, config=cfg) - want).abs().max()
+                 / want.abs().max()).item() for cfg in FC.CONFIGS)
+    print(f"fused_convpos fp32 n=333: max error relative to max |reference| {rel32:.3e} "
+          f"(tol {CONVPOS_FP32_REL_TOL}), every configuration", flush=True)
+    if rel32 > CONVPOS_FP32_REL_TOL:
+        fail("convpos fp32 instance disagrees with the fp32 plain version")
     for n in (256, 1000, 1024, 4096):
         x = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
         lens = torch.tensor([n, n - 37], dtype=torch.int32, device="cuda")
-        got = FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups)
+        got = FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps)
         torch.cuda.synchronize()
         f32 = [t.float() for t in (x, w1, b1, w2, b2)]
         want = FC.conv_pos_plain(*f32, lens, groups)
@@ -228,19 +339,25 @@ def phase_convpos(torch):
             fail(f"convpos n={n}: max {max_err} mean {mean_err} > {CONVPOS_TOL}")
         worst = max(worst, max_err)
         iters = 20 if n <= 1024 else 5
-        ms = device_ms(lambda: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups), iters)
+        configs = _configs_ms(lambda c: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps, c),
+                              FC.CONFIGS, iters)
+        ms = configs["{}x{}".format(*FC.CONFIG)]
+        copy_ms = device_ms(lambda: FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups), iters)
         plain_ms = device_ms(lambda: FC.conv_pos_plain(*f32, lens, groups), 3)
         lib_ms = device_ms(lambda: FC.conv_pos_plain(x, w1, b1, w2, b2, lens, groups),
-                          iters)
+                           iters)
         flops = sum(2 * 2.0 * k * 64 * d * ln for ln in (n, n - 37))
         nbytes = 2.0 * b * n * d * 2 + 2 * (d * 64 * k + d) * 2 + 4 * b
         bms, by = bound_ms(flops, nbytes, PEAK_BF16)
         rows.append(dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=by, flops=flops))
+                         bound_by=by, flops=flops, configs_ms=configs, with_copy_ms=copy_ms,
+                         over_library=ms / lib_ms))
         print(f"fused_convpos n={n}: max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} "
-              f"(tol {CONVPOS_TOL}); kernel {ms:.4f} ms, plain(fp32) {plain_ms:.4f} ms, "
-              f"cudnn bf16 {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"(tol {CONVPOS_TOL}); kernel {ms:.4f} ms (with the per-call weight copy "
+              f"{copy_ms:.4f}), plain(fp32) {plain_ms:.4f} ms, cudnn bf16 {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), kernel over cudnn {ms / lib_ms:.3f}, "
               f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        _print_configs_ms(f"fused_convpos n={n}", "B", configs, FC.CONFIG)
     return rows, worst
 
 
@@ -358,6 +475,7 @@ def phase_e2e(torch):
     calls.clear()
 
     FA.KERNEL.launches = FC.KERNEL.launches = 0
+    copies = FC.TAP_COPIES  # the engine made the kernel's weight layout when it was built
     results = []
     for name, text in (("short", short), ("long", long)):
         before = len(calls)
@@ -399,6 +517,10 @@ def phase_e2e(torch):
           f"fused_convpos {c} (want {NFE} x {len(calls)})", flush=True)
     if a != depth * forward_calls or c != forward_calls:
         fail("an attention or ConvPositionEmbedding call bypassed its kernel")
+    print(f"e2e: {FC.TAP_COPIES - copies} weight copies into kernel B's layout over "
+          f"{c} ConvPositionEmbedding calls (want 0: made once per engine)", flush=True)
+    if FC.TAP_COPIES != copies:
+        fail("a served request copied the ConvPositionEmbedding weights")
     for name, wall, audio_s, rows, n_calls in results:
         print(f"e2e {name}: {n_calls} engine call(s), {rows} row(s), {audio_s:.2f} s audio "
               f"in {wall:.2f} s wall, RTF {wall / audio_s:.4f}", flush=True)
@@ -414,8 +536,8 @@ def _rel_err(got, want):
 
 def _time_train_kernels(torch, FA, q, k, v, do, lens, iters, configs=False):
     """ms of C, D, E, of their plain versions and of SDPA fwd / bwd; with
-    ``configs``, of D and E in every tile configuration built
-    (``D_configs`` / ``E_configs``, keyed "rows x stages")."""
+    ``configs``, of C, D and E in every tile configuration built
+    (``C_configs`` / ``D_configs`` / ``E_configs``, keyed "rows x stages")."""
     from f5_tts_tpu_torch.utils.device import device_ms
 
     o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
@@ -426,6 +548,8 @@ def _time_train_kernels(torch, FA, q, k, v, do, lens, iters, configs=False):
          "E": device_ms(lambda: FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens),
                        iters)}
     if configs:
+        t["C_configs"] = _configs_ms(lambda c: FA.flash_attention_fwd_stats_cuda(
+            q, k, v, lens, config=c), FA.FWD_CONFIGS, iters)
         t["D_configs"], t["E_configs"] = {}, {}
         for cfg in FA.BWD_CONFIGS:
             key = f"{cfg[0]}x{cfg[1]}"
@@ -462,6 +586,7 @@ def _print_configs(tag, t):
     from f5_tts_tpu_torch.ops import flash_attention as FA
 
     chosen = {"D": "{}x{}".format(*FA.DQ_CONFIG), "E": "{}x{}".format(*FA.DKV_CONFIG)}
+    _print_configs_ms(tag, "C", t["C_configs"], FA.FWD_CONFIG)
     print(f"{tag}: tile configurations (rows x stages), device ms: D "
           + ", ".join(f"{c} {ms:.4f}" for c, ms in t["D_configs"].items())
           + f" (chosen {chosen['D']}); E "
@@ -485,6 +610,25 @@ def phase_flash_train(torch):
     gen = torch.Generator(device="cuda").manual_seed(5)
     h, dh = 16, 64
     rows, worst = [], {"C": 0.0, "D": 0.0, "E": 0.0}
+    # kernel C at the edge lengths, every configuration, two launches each
+    for n, lens_l in ((1, [1, 0]), (63, [63, 17]), (65, [65, 64]), (127, [127, 0]),
+                      (129, [129, 128]), (256, [256, 128])):
+        q, k, v = (torch.randn((2, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        o_ref, L_ref = FA.flash_attention_fwd_stats_plain(q.float(), k.float(), v.float(), lens)
+        for cfg in FA.FWD_CONFIGS:
+            o, L = _check_twice(torch, f"kernel C n={n} lens={lens_l} {cfg}",
+                                lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens,
+                                                                          config=cfg))
+            err = (o.float() - o_ref).abs()
+            l_max = (L - L_ref).abs().max().item()
+            if not (err.max().item() <= FLASH_TOL[0] and err.mean().item() <= FLASH_TOL[1]
+                    and l_max <= LSE_TOL):
+                fail(f"kernel C n={n} lens={lens_l} {cfg} disagrees with its plain version")
+            worst["C"] = max(worst["C"], err.max().item())
+        print(f"flash train kernel C n={n} lens={lens_l}: every configuration within "
+              f"{FLASH_TOL} (L within {LSE_TOL}), two launches bitwise equal", flush=True)
     for b, n in ((2, 256), (2, 1000), (2, 1024), (2, 4096), (TRAIN_B, 1024)):
         q, k, v, do = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
                        for _ in range(4))
@@ -494,12 +638,13 @@ def phase_flash_train(torch):
             cases = [[n - (37 * i) % 256 for i in range(b)]]
         for lens_l in cases:
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-            o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens)
+            tag = f"flash train b={b} n={n} lens={lens_l if b == 2 else 'ragged'}"
+            o, L = _check_twice(torch, tag + " kernel C",
+                                lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens))
             D = (do.float() * o.float()).sum(-1).contiguous()
             dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens)
             dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens)
             torch.cuda.synchronize()
-            tag = f"flash train b={b} n={n} lens={lens_l if b == 2 else 'ragged'}"
             _check_deterministic(torch, FA, tag, (dq, dk, dv), q, k, v, do, L, D, lens)
             qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
             o_ref, L_ref = FA.flash_attention_fwd_stats_plain(qf, kf, vf, lens)
@@ -532,10 +677,12 @@ def phase_flash_train(torch):
         t = _time_train_kernels(torch, FA, q, k, v, do, lens, 20 if n * b <= 4096 else 5,
                                 configs=b == TRAIN_B)
         bounds = _train_bounds(b, h, n, dh, cases[0])
-        row = dict(b=b, n=n, **t, bounds=bounds, DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"])
+        row = dict(b=b, n=n, **t, bounds=bounds, DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"],
+                   C_over_lib=t["C"] / t["C_lib"])
         rows.append(row)
         print(f"flash train b={b} n={n}: C {t['C']:.4f} ms (plain {t['C_plain']:.4f}, sdpa fwd "
-              f"{t['C_lib']:.4f}, bound {bounds['C'][0]:.4f} {bounds['C'][1]}); D {t['D']:.4f} ms "
+              f"{t['C_lib']:.4f}, bound {bounds['C'][0]:.4f} {bounds['C'][1]}, C over sdpa fwd "
+              f"{row['C_over_lib']:.3f}); D {t['D']:.4f} ms "
               f"(bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (bound {bounds['E'][0]:.4f}); "
               f"plain bwd {t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms; D + E over "
               f"sdpa bwd {row['DE_over_lib']:.3f}", flush=True)
@@ -672,6 +819,8 @@ def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool
     if total:
         out["CDE_share"] = (ms["C"] + ms["D"] + ms["E"]) / total
         out["D_share"], out["E_share"] = ms["D"] / total, ms["E"] / total
+        # "C" sums every forward instance: A and F when serving, C when training
+        out["fwd_share"], out["B_share"] = ms["C"] / total, ms["B"] / total
     print(f"profile of {label}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.items() if v is not None), flush=True)
     for t, count, key in sorted(kernels, reverse=True)[:12]:
@@ -822,7 +971,9 @@ def phase_train(torch):
     valid = int(batch["lens"].sum().item())
     result["fixed_frames_per_s"] = valid / fixed_s
     prof = result["profile"]
-    print(f"fixed-batch update: D {prof['D_share']:.1%} and E {prof['E_share']:.1%} of "
+    print(f"fixed-batch update: C {prof['fwd_share']:.1%} ({prof['C_ms']:.1f} ms), B "
+          f"{prof['B_share']:.1%} ({prof['B_ms']:.1f} ms), D {prof['D_share']:.1%} and E "
+          f"{prof['E_share']:.1%} of "
           f"{prof['device_ms']:.1f} ms device time; {valid} valid frames at "
           f"{result['fixed_frames_per_s']:.0f} frames/s ({fixed_s * 1e3:.1f} ms per update)",
           flush=True)
@@ -872,9 +1023,12 @@ def _seg_case(torch, gen, b, n, seg, la, lt, dtype):
 
 
 def _check_seg(torch, FA, tag, q, k, v, do, lens2, seg):
-    """F and C, D, E (two-segment mode) against their plain versions: errors."""
-    o_f = FA.flash_attention_cuda(q, k, v, lens2, seg)
-    o, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg)
+    """F and C, D, E (two-segment mode) against their plain versions, each
+    launched twice (bitwise equal): errors."""
+    o_f = _check_twice(torch, tag + " kernel F",
+                       lambda: FA.flash_attention_cuda(q, k, v, lens2, seg))
+    o, L = _check_twice(torch, tag + " kernel C",
+                        lambda: FA.flash_attention_fwd_stats_cuda(q, k, v, lens2, seg))
     D = (do.float() * o.float()).sum(-1).contiguous()
     dq = FA.flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens2, seg)
     dk, dv = FA.flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens2, seg)
@@ -952,6 +1106,10 @@ def _time_seg(torch, FA, q, k, v, do, lens2, seg, iters):
     fwd_g = device_ms(lambda: sdpa(*xs, attn_mask=keep), iters)
     both = device_ms(lambda: torch.autograd.grad(sdpa(*xs, attn_mask=keep), xs, do), iters)
     t["DE_lib"] = both - fwd_g
+    t["F_configs"] = _configs_ms(lambda c: FA.flash_attention_cuda(q, k, v, lens2, seg, config=c),
+                                 FA.FWD_CONFIGS, iters)
+    t["C_configs"] = _configs_ms(lambda c: FA.flash_attention_fwd_stats_cuda(
+        q, k, v, lens2, seg, config=c), FA.FWD_CONFIGS, iters)
     return t
 
 
@@ -969,6 +1127,7 @@ def phase_flash_seg(torch):
          [1024 - 33 * i for i in range(train_b)], [256 - 19 * i for i in range(train_b)],
          bf16, True),
         ("odd", 2, 1077, 1000, [1000, 811], [77, 30], bf16, False),
+        ("tile edges", 2, 1152, 1024, [1024, 960], [128, 64], bf16, False),
         ("odd fp32", 2, 1077, 1000, [1000, 811], [77, 30], torch.float32, False),
         ("empty", 2, 1077, 1000, [1000, 0], [0, 0], bf16, False),
     ]
@@ -987,16 +1146,22 @@ def phase_flash_seg(torch):
             bounds["F"] = bound_ms(sum(4.0 * 16 * n * kv * 64 for kv in kvs),
                                    4.0 * b * 16 * n * 64 * 2 + 8 * b, PEAK_BF16)
             rows[tag] = dict(b=b, n=n, seg=seg, **t, bounds=bounds,
-                             DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"])
+                             DE_over_lib=(t["D"] + t["E"]) / t["DE_lib"],
+                             F_over_lib=t["F"] / t["F_lib"], C_over_lib=t["C"] / t["F_lib"])
             print(f"flash seg {tag} [{b}, 16, {n}, 64] seg={seg}: F {t['F']:.4f} ms (kernel A "
                   f"at the same valid keys {t['A_same_kv']:.4f}, plain {t['F_plain']:.4f}, sdpa "
-                  f"{t['F_lib']:.4f}, bound {bounds['F'][0]:.4f} {bounds['F'][1]}); C "
+                  f"{t['F_lib']:.4f}, bound {bounds['F'][0]:.4f} {bounds['F'][1]}, F over sdpa "
+                  f"{t['F'] / t['F_lib']:.3f}); C "
                   f"{t['C']:.4f} ms (prefix at the same valid keys {t['C_same_kv']:.4f}, plain "
-                  f"{t['C_plain']:.4f}, bound {bounds['C'][0]:.4f}); D {t['D']:.4f} ms (prefix "
+                  f"{t['C_plain']:.4f}, bound {bounds['C'][0]:.4f}, C over sdpa fwd "
+                  f"{t['C'] / t['F_lib']:.3f}); D {t['D']:.4f} ms (prefix "
                   f"{t['D_same_kv']:.4f}, bound {bounds['D'][0]:.4f}); E {t['E']:.4f} ms (prefix "
                   f"{t['E_same_kv']:.4f}, bound {bounds['E'][0]:.4f}); plain bwd "
                   f"{t['DE_plain']:.4f} ms, sdpa bwd {t['DE_lib']:.4f} ms; D + E over sdpa bwd "
                   f"{rows[tag]['DE_over_lib']:.3f}", flush=True)
+            _print_configs_ms(f"flash seg {tag}", "F", t["F_configs"], FA.FWD_CONFIG)
+            _print_configs_ms(f"flash seg {tag}", "C (two-segment)", t["C_configs"],
+                              FA.FWD_CONFIG)
         del q, k, v, do
     torch.cuda.empty_cache()
     return rows, worst
@@ -1209,7 +1374,9 @@ def phase_e2e_backbone(torch, model_name: str, texts):
     prof["busy_share_of_unprofiled_wall"] = prof["device_ms"] / (results[0]["wall_s"] * 1e3)
     print(f"e2e {model_name} {texts[0][0]}: device busy {prof['device_ms']:.1f} ms of "
           f"{results[0]['wall_s'] * 1e3:.1f} ms unprofiled wall, share "
-          f"{prof['busy_share_of_unprofiled_wall']:.3f}", flush=True)
+          f"{prof['busy_share_of_unprofiled_wall']:.3f}; the forward flash kernel (A, F) "
+          f"{prof['fwd_share']:.1%} ({prof['C_ms']:.1f} ms) and B {prof['B_share']:.1%} "
+          f"({prof['B_ms']:.1f} ms) of the device time", flush=True)
     print(f"e2e {model_name} launches: flash_attention {launched['A']} (want {depth} x {NFE} x "
           f"{n_calls}), fused_convpos {launched['B']} (want {NFE} x {n_calls}), F "
           f"{launched['F']}", flush=True)
@@ -1399,6 +1566,10 @@ def phase_w8a8_serving(torch):
                                f"one {tag} F5TTS_v1_Base short request (device activity only)",
                                host=False)
         prof["busy_share_of_unprofiled_wall"] = prof["device_ms"] / (wall * 1e3)
+        print(f"W8A8 serving F5TTS_v1_Base {tag}: device busy {prof['device_ms']:.1f} ms of "
+              f"{wall * 1e3:.1f} ms unprofiled wall; kernel A {prof['fwd_share']:.1%} "
+              f"({prof['C_ms']:.1f} ms) and B {prof['B_share']:.1%} ({prof['B_ms']:.1f} ms) of "
+              "the device time", flush=True)
         out[tag] = dict(wall_s=wall, audio_s=len(wav) / sr, rtf=wall / (len(wav) / sr),
                         calls=len(calls), launches=launched, spec=spec, profile=prof)
         print(f"W8A8 serving F5TTS_v1_Base {tag}: {len(calls)} engine call(s), "
@@ -1598,6 +1769,38 @@ def phase_experiments(torch):
     return rows_h, worst_h, row_i, worst_i
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instance from nvcc's -Xptxas=-v log: its
+    demangled name (template arguments included), registers and spills."""
+    import re
+
+    names, out, name, spill = [], [], None, ""
+    for line in log.splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        if "spill" in line and name:
+            spill = line.strip()
+        if "Used" in line and "registers" in line and name:
+            names.append(name)
+            out.append(f"{name} | {line.split(':', 1)[1].strip()} | {spill}")
+            name = None
+    for tool in ("c++filt", "/usr/local/cuda/bin/cu++filt"):  # demangle where one is there
+        try:
+            dem = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                                 check=True).stdout.splitlines()
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        # the kernel's name and template arguments, without "void " and its parameter list
+        table = {n: d.split("(anonymous namespace)::")[-1].split("(")[0].removeprefix("void ")
+                 for n, d in zip(names, dem)}
+        return [" | ".join([table.get(x.split(" | ")[0], x.split(" | ")[0])] + x.split(" | ")[1:])
+                if " | " in x else x for x in out]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1619,9 +1822,8 @@ def main() -> int:
 
     LIBRARY.build()
     print(f"built {LIBRARY.sources()} in {LIBRARY.build_seconds or 0.0:.1f} s", flush=True)
-    for line in LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip(), flush=True)
+    for line in ptxas_summary(LIBRARY.build_log):
+        print("  " + line, flush=True)
 
     t_start = time.perf_counter()
     clock = {"t": t_start}
@@ -1676,12 +1878,13 @@ def main() -> int:
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
 
-    def entry(name, source, replaces, launches, err, rows):
+    def entry(name, source, replaces, launches, err, rows, config):
         r = next(r for r in rows if r["n"] == 1024)  # the 1024-frame bucket
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "shape_n": 1024}
+                "library_ms": r["library_ms"], "shape_n": 1024, "config": list(config),
+                "over_library": r["over_library"], "configs_ms": r["configs_ms"]}
 
     def train_entry(name, key, plain, lib, replaces, launches, source):
         r = next(r for r in train_rows if r["n"] == 1024 and r["b"] == 2)
@@ -1692,8 +1895,14 @@ def main() -> int:
                "err_kind": "abs" if key == "C" else "relative to max |reference|",
                "plain_covers": "dq+dk+dv" if key != "C" else "o+L",
                "library_covers": "sdpa forward" if key == "C" else "sdpa backward (dq+dk+dv)"}
-        if key != "C":  # D, E: the training shape and the tile configurations
-            big = next(r for r in train_rows if r["b"] == TRAIN_B)
+        big = next(r for r in train_rows if r["b"] == TRAIN_B)
+        if key == "C":  # the training shape and the tile configurations
+            out.update(config=list(FA.FWD_CONFIG), over_library=r["C_over_lib"],
+                       training_shape=[TRAIN_B, 16, 1024, 64], training_ms=big["C"],
+                       training_bound_ms=big["bounds"]["C"][0], training_library_ms=big["C_lib"],
+                       training_over_library=big["C_over_lib"],
+                       training_configs_ms=big["C_configs"])
+        else:  # D, E: likewise
             out.update(config=list(FA.DQ_CONFIG if key == "D" else FA.DKV_CONFIG),
                        de_over_library=r["DE_over_lib"],
                        training_shape=[TRAIN_B, 16, 1024, 64], training_ms=big[key],
@@ -1705,13 +1914,15 @@ def main() -> int:
 
     from f5_tts_tpu_torch.ops import flash_attention as FA
 
+    from f5_tts_tpu_torch.ops import fused_convpos as FC
+
     fa = "f5_tts_tpu_torch/csrc/flash_attention.cu"
     fab = "f5_tts_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
         entry("flash_attention_fwd", fa, "f5_tts_tpu/ops/flash_attention.py:150", launches_a,
-              flash_err, flash_rows),
+              flash_err, flash_rows, FA.FWD_CONFIG),
         entry("fused_convpos_fwd", "f5_tts_tpu_torch/csrc/fused_convpos.cu",
-              "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows),
+              "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows, FC.CONFIG),
         train_entry("flash_attention_fwd_stats", "C", "C_plain", "C_lib",
                     "f5_tts_tpu/ops/flash_attention.py:45", train["launches"]["C"], fa),
         train_entry("flash_attention_bwd_dq", "D", "DE_plain", "DE_lib",
@@ -1726,7 +1937,9 @@ def main() -> int:
                 "ms": r[key], "plain_ms": r[plain], "bound_ms": r["bounds"][key][0],
                 "bound_by": r["bounds"][key][1], "library_ms": r[lib],
                 "shape": [r["b"], 16, r["n"], 64], "seg": r["seg"], "err_kind": err_kind,
-                **({"de_over_library": r["DE_over_lib"]} if key in "DE" else {}),
+                **({"de_over_library": r["DE_over_lib"]} if key in "DE" else
+                   {"config": list(FA.FWD_CONFIG), "over_library": r[f"{key}_over_lib"],
+                    "configs_ms": r[f"{key}_configs"]}),
                 "launches_from": "F5TTS_MMDiT_Base masked forward" if key == "F"
                 else "F5TTS_MMDiT_Base masked gradient"}
 

@@ -68,7 +68,7 @@
 // inputs the product here is exact where theirs rounds twice.  p and ds are
 // rounded to bf16 for the products, as there.
 
-#include "common.cuh"
+#include "common.cuh"  // the wgmma, swizzle and ring helpers
 
 namespace {
 
@@ -81,28 +81,6 @@ constexpr int TILE_BYTES = TILE * ROWB;
 constexpr int ECW = 32;                // E: query columns per score product
 constexpr float LOG2E_F = 1.4426950408889634f;
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
-__device__ __forceinline__ int swz(int r, int c) { return r * ROWB + ((c ^ (r & 7)) << 4); }
-
-// rows [r0, r0 + rows) of a bf16 [n, DH] matrix into the swizzled tile s by
-// 16-byte cp.async, zeros past n
-template <int NT>
-__device__ __forceinline__ void load_rows(unsigned char* s, const bf16* __restrict__ g, int n,
-                                          int r0, int rows) {
-  for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += NT) {
-    const int r = idx >> 3, c = idx & 7;
-    const bool in = r0 + r < n;
-    cp_async16(s + swz(r, c), in ? g + static_cast<size_t>(r0 + r) * DH + c * 8 : g,
-               in ? 16 : 0);
-  }
-}
-
 // TILE entries [r0, r0 + TILE) of two fp32 rows (L, D) by 4-byte cp.async
 template <int NT>
 __device__ __forceinline__ void load_vec2(float* sl, float* sd, const float* __restrict__ l,
@@ -113,97 +91,6 @@ __device__ __forceinline__ void load_vec2(float* sl, float* sd, const float* __r
     const float* src = i < TILE ? l : d;
     cp_async4((i < TILE ? sl : sd) + r, in ? src + r0 + r : src, in ? 4 : 0);
   }
-}
-
-// A fragments (mma / wgmma register layout) of rows [w0, w0 + 16) x DH of
-// a swizzled tile, one 16-column step per kc
-__device__ __forceinline__ void load_a(const unsigned char* t, int w0, int lane,
-                                       uint32_t (&a)[4][4]) {
-  const int row = w0 + (lane & 7) + ((lane >> 3) & 1) * 8, hi = lane >> 4;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) ldmatrix_x4(a[kc], t + swz(row, kc * 2 + hi));
-}
-
-// Pack accumulator block j (columns 8j..8j+7, the four values at c) into
-// the A fragments of the same tile used as the left operand of the next
-// product (the accumulator and A layouts put the same (row, column) in the
-// same thread)
-template <int KC>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[KC][4], int j, const float* c) {
-  const int kc = j >> 1, hi = (j & 1) * 2;
-  a[kc][hi] = pack_bf16(c[0], c[1]);
-  a[kc][hi + 1] = pack_bf16(c[2], c[3]);
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand at p (1024-byte aligned
-// swizzle atoms of 8 rows): stride between 8-row groups 1024 bytes.  As
-// K-major B (tile rows are the n axis) a 16-column k step adds 32 bytes;
-// as MN-major B (tile rows are the k axis, trans-b) a 16-row k step adds
-// 2048.  Offsets are added in 16-byte units to the low field.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-// keep the compiler from touching registers an in-flight wgmma reads or writes
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int KC>
-__device__ __forceinline__ void hold(uint32_t (&a)[KC][4]) {
-#pragma unroll
-  for (int i = 0; i < KC; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-  }
-}
-// generic-proxy writes (cp.async) made visible to wgmma's async-proxy reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d(64 x 64) (+)= a(64 x 16, registers) . B(16 x 64, descriptor);
-// TRANS_B: B is MN-major (its tile rows are the k axis)
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
-      "%36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
-}
-
-// d(64 x 32) (+)= a(64 x 16, registers) . B(16 x 32, K-major descriptor)
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 // Kernel D's work on one staged key tile [k0, k0 + TILE) for a warpgroup's
@@ -317,42 +204,6 @@ __device__ __forceinline__ void dkv_tile(uint64_t qdesc, uint64_t dodesc, const 
     hold(pa);
     hold(dsa);
   }
-}
-
-// The block's [ROWS, DH] fp32 accumulators (a warp's 16 rows each, in the
-// wgmma layout), times mul, as TO through shared memory into rows
-// [0, rows) of dst with 16-byte stores.  The caller makes sure no thread
-// still reads ``smem`` and no copy into it is in flight.
-template <typename TO, int NT>
-__device__ __forceinline__ void store_rows(TO* __restrict__ dst, int rows, unsigned char* smem,
-                                           const float (&acc)[32], float mul, int lane) {
-  constexpr int LDO = DH + 16 / static_cast<int>(sizeof(TO));  // padded row, 16-byte multiple
-  constexpr int CPR = DH * static_cast<int>(sizeof(TO)) / 16;  // 16-byte chunks per row
-  TO* so = reinterpret_cast<TO*>(smem);
-  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2), c = (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      TO* p = so + (r + h * 8) * LDO + j * 8 + c;
-      p[0] = from_float<TO>(acc[4 * j + 2 * h] * mul);
-      p[1] = from_float<TO>(acc[4 * j + 2 * h + 1] * mul);
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * CPR; idx += NT) {
-    const int rr = idx / CPR, cc = idx % CPR;
-    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(dst + rr * DH) + cc * 16) =
-        *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(so + rr * LDO) +
-                                        cc * 16);
-  }
-}
-
-// dynamic shared memory, its start rounded up to the 1024 bytes a swizzle
-// atom needs (the launch asks for 1024 bytes more)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  return raw + ((1024 - (a & 1023)) & 1023);
 }
 
 template <int WARPS, int STAGES>

@@ -34,6 +34,7 @@ import torch
 from f5_tts_tpu_torch.models import cfm, vocos
 from f5_tts_tpu_torch.models.backbones import get_backbone
 from f5_tts_tpu_torch.models.configs import ModelConfig
+from f5_tts_tpu_torch.models.layers import ConvPositionEmbedding
 from f5_tts_tpu_torch.ops import quant
 from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, num_frames, stft_pad_amount
 
@@ -163,6 +164,9 @@ class InferenceEngine:
             backbone.fuse_for_inference(self.model.transformer)
         if options.quantize:  # from the dtype-rounded weights, as JAX engine.py:238-241
             quant.quantize_dit_blocks(self.model.transformer, model_cfg.arch)
+        for m in self.model.modules():  # the convpos kernel's weight layout, made once
+            if isinstance(m, ConvPositionEmbedding):
+                m.freeze_taps()
         self.vocoder = None if vocoder is None else vocoder.to(self.device, torch.float32).eval()
         self.hop = model_cfg.mel.hop_length
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)

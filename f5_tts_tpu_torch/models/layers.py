@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.ops.attention import attention
-from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused
+from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused, kernel_taps
 from f5_tts_tpu_torch.ops.quant import linear_w8a8
 from f5_tts_tpu_torch.ops.rope import apply_rotary
 
@@ -143,6 +143,15 @@ class ConvPositionEmbedding(nn.Module):
             _conv(dim, dim, kernel_size, groups), nn.Mish(),
             _conv(dim, dim, kernel_size, groups), nn.Mish(),
         )
+        self.taps = None  # the kernel's weight copies, once frozen for serving
+
+    def freeze_taps(self) -> None:
+        """Make the kernel's tap-major weight copies once, from the weights as
+        they are now (in their dtype and on their device); every later call
+        passes them to the kernel instead of copying per call.  For weights
+        that no longer change: a serving engine calls it after its cast."""
+        c1, c2 = self.conv1d[0], self.conv1d[2]
+        self.taps = tuple(kernel_taps(c.weight, self.groups, c.weight.dtype) for c in (c1, c2))
 
     def forward(self, x, mask=None):
         return conv_pos_embed(self, x, mask)
@@ -156,7 +165,8 @@ def conv_pos_embed(p: ConvPositionEmbedding, x, mask=None):
     else:
         lens = mask.sum(dim=-1, dtype=torch.int32)
     c1, c2 = p.conv1d[0], p.conv1d[2]
-    return conv_pos_fused(x, c1.weight, c1.bias, c2.weight, c2.bias, lens, groups=p.groups)
+    return conv_pos_fused(x, c1.weight, c1.bias, c2.weight, c2.bias, lens, groups=p.groups,
+                          taps=p.taps)
 
 
 def sinus_pos_embed(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:

@@ -21,10 +21,11 @@ JAX counterparts, all in ``f5_tts_tpu/ops/flash_attention.py``:
 
 The kernels are ``csrc/flash_attention.cu`` (A, C, F) and
 ``csrc/flash_attention_bwd.cu`` (D, E); their headers say what bounds them
-on the H100 and how their blocking departs from the TPU kernels'.  D and E
-come in the tile configurations (rows per block, ring stages) of
-``BWD_CONFIGS``; the wrappers launch ``DQ_CONFIG`` and ``DKV_CONFIG``,
-the fastest on the card at the training shape (``PERF.md``).
+on the H100 and how their blocking departs from the TPU kernels'.  They
+come in tile configurations (rows per block, ring stages): A, C and F in
+those of ``FWD_CONFIGS``, D and E in those of ``BWD_CONFIGS``; the wrappers
+launch ``FWD_CONFIG``, ``DQ_CONFIG`` and ``DKV_CONFIG``, the fastest on the
+card at the training shape (``PERF.md``).
 
 Semantics: non-causal attention over q, k, v [b, h, n, 64].  Key columns
 are valid only in [0, lens[b]) (lens int32 [b]), or, in the two-segment
@@ -33,16 +34,17 @@ mode that a static ``seg`` selects (the TPU kernels' ``seg`` argument), in
 joint [audio, text] sequence with the text stream at ``seg``.  Kernels C,
 D and E take both modes (instances ``KERNEL_STATS_SEG``, ``KERNEL_DQ_SEG``,
 ``KERNEL_DKV_SEG``); kernel F is kernel A's two-segment instance.  A query
-row with no valid key gives 0.  The
-forward kernels take bf16 (the serving dtype) or fp32 tensors and, like the
-TPU kernel, round q (prescaled by scale*log2 e), k, v and the probabilities
-to bf16 for their tensor-core products, accumulating in fp32.  The backward
-kernels take bf16 operands only: their wrappers cast fp32 q, k, v, do to
-bf16, and write the gradients in the inputs' dtype.  They compute the
-scores from the raw bf16 q and k and apply scale*log2 e in fp32 inside the
-exponent, and round p and ds to bf16 for their products.  The logsumexp
-``L`` is natural-log, fp32 [b, h, n], and ``-1e30`` for a row with no valid
-key, whose output and gradients are 0.  ``lens`` gets no gradient.
+row with no valid key gives 0.  Every kernel takes bf16 operands only: the
+wrappers cast fp32 q, k, v (and do) to bf16, and the kernels write their
+outputs in the inputs' dtype.  All of them compute the scores from the raw
+bf16 q and k and apply scale*log2 e in fp32 inside the exponent, so the
+backward's p, recomputed from L, is the forward's own; they round p (and
+ds) to bf16 for their products, accumulating in fp32.  The TPU kernels
+round q * scale*log2 e to bf16 before the scores instead
+(tests/test_torch_flash_train.py holds both roundings within the forward's
+and the backward's tolerances).  The logsumexp ``L`` is natural-log, fp32
+[b, h, n], and ``-1e30`` for a row with no valid key, whose output and
+gradients are 0.  ``lens`` gets no gradient.
 
 Dispatch is by device: a CPU tensor runs the plain version; a CUDA tensor
 launches the kernel, and anything the kernel does not take raises.  There
@@ -64,13 +66,14 @@ HEAD_DIM = 64  # the kernel's head width (every F5-TTS config)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# A and C: (b, h, n, dh, out dtype, rows per block, ring stages, qscale)
 KERNEL = CudaKernel(  # kernel A
     "flash_attention_fwd", "flash_attention.cu",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 KERNEL_STATS = CudaKernel(  # kernel C
     "flash_attention_fwd_stats", "flash_attention.cu",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 # D and E: (b, h, n, dh, out dtype[, seg], rows per block, ring stages, qscale, scale)
 KERNEL_DQ = CudaKernel(  # kernel D
@@ -84,11 +87,11 @@ KERNEL_DKV = CudaKernel(  # kernel E
 # the two-segment instances: one more int, seg, before the scales
 KERNEL_SEG = CudaKernel(  # kernel F
     "flash_attention_fwd_seg", "flash_attention.cu",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 KERNEL_STATS_SEG = CudaKernel(  # kernel C, two-segment mode
     "flash_attention_fwd_stats_seg", "flash_attention.cu",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 )
 KERNEL_DQ_SEG = CudaKernel(  # kernel D, two-segment mode
     "flash_attention_bwd_dq_seg", "flash_attention_bwd.cu",
@@ -101,6 +104,10 @@ KERNEL_DKV_SEG = CudaKernel(  # kernel E, two-segment mode
 KERNELS = (KERNEL, KERNEL_STATS, KERNEL_DQ, KERNEL_DKV,
            KERNEL_SEG, KERNEL_STATS_SEG, KERNEL_DQ_SEG, KERNEL_DKV_SEG)
 NO_KEY_LSE = -1e30  # the logsumexp of a row with no valid key
+# kernels A, C, F: the (rows per block, ring stages) configurations built,
+# and the one the wrappers launch (the fastest at the training shape)
+FWD_CONFIGS = ((64, 2), (64, 3), (128, 2), (128, 3), (192, 2))
+FWD_CONFIG = (64, 2)
 # kernels D and E: the (rows per block, ring stages) configurations built,
 # and the ones the wrappers launch (the fastest at the training shape)
 BWD_CONFIGS = ((64, 2), (128, 2), (64, 3))
@@ -202,37 +209,51 @@ def _seg_args(seg):
     return () if seg is None else (int(seg),)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lens: torch.Tensor, seg: int | None = None) -> torch.Tensor:
-    """Launch kernel A (kernel F with ``seg``) on PyTorch's current stream."""
-    _check(q, k, v, lens, seg)
+def _bf16(*xs):
+    """The kernels read bf16 operands: fp32 inputs are cast here (the
+    returned tensors keep them alive until the launch is queued)."""
+    return [x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16) for x in xs]
+
+
+def _fwd_tail(q, seg, config):
     b, h, n, dh = q.shape
+    if config not in FWD_CONFIGS:
+        raise ValueError(f"forward kernel configuration {config} is not one of {FWD_CONFIGS}")
+    return (b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), *config,
+            float(dh) ** -0.5 * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lens: torch.Tensor, seg: int | None = None,
+                         config: tuple[int, int] = FWD_CONFIG) -> torch.Tensor:
+    """Launch kernel A (kernel F with ``seg``) on PyTorch's current stream:
+    o in q's dtype.  ``config`` (rows per block, ring stages) is one of
+    ``FWD_CONFIGS``."""
+    _check(q, k, v, lens, seg)
     out = torch.empty_like(q)
-    if n == 0 or b == 0 or h == 0:
-        return out
-    qscale = float(dh) ** -0.5 * LOG2E
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    kernel = KERNEL if seg is None else KERNEL_SEG
-    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  b, h, n, dh, _DTYPE_CODE[q.dtype], *_seg_args(seg), qscale, stream)
+    if q.numel():
+        kernel = KERNEL if seg is None else KERNEL_SEG
+        ops = _bf16(q, k, v)
+        kernel.launch(*(x.data_ptr() for x in ops), lens.data_ptr(), out.data_ptr(),
+                      *_fwd_tail(q, seg, config))
     return out
 
 
 def flash_attention_fwd_stats_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                   lens: torch.Tensor, seg: int | None = None
+                                   lens: torch.Tensor, seg: int | None = None,
+                                   config: tuple[int, int] = FWD_CONFIG
                                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel C (its two-segment instance with ``seg``): (o, L fp32 [b, h, n])."""
+    """Launch kernel C (its two-segment instance with ``seg``): (o in q's
+    dtype, L fp32 [b, h, n]).  ``config`` as kernel A's."""
     _check(q, k, v, lens, seg)
-    b, h, n, dh = q.shape
+    b, h, n, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    if n == 0 or b == 0 or h == 0:
-        return out, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    kernel = KERNEL_STATS if seg is None else KERNEL_STATS_SEG
-    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), b, h, n, dh, _DTYPE_CODE[q.dtype],
-                  *_seg_args(seg), float(dh) ** -0.5 * LOG2E, stream)
+    if q.numel():
+        kernel = KERNEL_STATS if seg is None else KERNEL_STATS_SEG
+        ops = _bf16(q, k, v)
+        kernel.launch(*(x.data_ptr() for x in ops), lens.data_ptr(), out.data_ptr(),
+                      lse.data_ptr(), *_fwd_tail(q, seg, config))
     return out, lse
 
 
@@ -254,7 +275,7 @@ def _bwd_args(q, k, v, do, L, D, lens):
     """The launch's leading pointers; the kernels read bf16 operands, so
     fp32 q, k, v, do are cast here (the returned tensors keep them alive
     until the launch is queued on the stream)."""
-    ops = [x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16) for x in (q, k, v, do)]
+    ops = _bf16(q, k, v, do)
     return ops, [x.data_ptr() for x in ops] + [L.data_ptr(), D.data_ptr(), lens.data_ptr()]
 
 

@@ -23,7 +23,13 @@ relative (the int32 sum is exact; the output is bitwise the plain one's),
 at ragged m, k, n too, and a W8A8 linear on the card must launch it.
 Kernels H (pipelined flash attention, every tile configuration) and I
 (fused LayerNorm-modulate matmul) are held as kernel A: 2e-2 max, 2e-3
-mean error, I's relative to the largest reference value.
+mean error, I's relative to the largest reference value.  The forward
+kernels A, C, F and kernel B (ConvPositionEmbedding) are checked in every
+configuration built (``FWD_CONFIGS``, ``fused_convpos.CONFIGS``) at
+n = 1, 63, 65, 127, 129, lengths of 0 and lengths that end on a tile edge
+beside ones that end inside a tile, with a two-launch bitwise determinism
+check; B's fp32 instance (three bf16 products) against the fp32 plain
+version, TF32 off, to 1e-4 relative to the largest reference value.
 """
 
 import pytest
@@ -45,7 +51,9 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("n,lens", [(200, [200, 163]), (1000, [0, 963]), (65, [65, 1])])
+@pytest.mark.parametrize("n,lens", [(200, [200, 163]), (1000, [0, 963]), (65, [65, 1]),
+                                    (1, [1, 0]), (63, [63, 17]), (127, [127, 64]),
+                                    (129, [129, 128]), (256, [256, 192])])
 def test_flash_kernel_matches_plain(gen, n, lens):
     q, k, v = (torch.randn((2, 16, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
@@ -60,6 +68,37 @@ def test_flash_kernel_matches_plain(gen, n, lens):
         assert torch.all(got[lens.index(0)] == 0)
 
 
+FWD_CASES = [  # (n, lens or (lens_a, lens_t), seg)
+    (1, [1, 0], None), (63, [63, 17], None), (65, [65, 64], None), (127, [127, 0], None),
+    (129, [129, 128], None), (384, [384, 131], None),
+    (300, ([256, 0], [44, 0]), 256),     # seg and a segment end on tile edges; row 1 empty
+    (700, ([600, 333], [100, 77]), 600), # seg inside a tile
+]
+
+
+@pytest.mark.parametrize("n,lens,seg", FWD_CASES)
+def test_forward_kernels_every_config_deterministic(gen, n, lens, seg):
+    """Kernels A, C (and F, C two-segment with seg) in every configuration
+    built: within tolerance of the plain version, the zero-row rule, C's o
+    equal to A's bit for bit, and two launches bitwise equal."""
+    q, k, v = (torch.randn((2, 4, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if seg is not None:
+        lt = lt.T.contiguous()
+    o_ref, L_ref = FA.flash_attention_fwd_stats_plain(q, k, v, lt, seg)
+    empty = ~FA.key_valid(lt, n, seg).any(dim=1)
+    for cfg in FA.FWD_CONFIGS:
+        oa = FA.flash_attention_cuda(q, k, v, lt, seg, config=cfg)
+        oc, L = FA.flash_attention_fwd_stats_cuda(q, k, v, lt, seg, config=cfg)
+        again = FA.flash_attention_cuda(q, k, v, lt, seg, config=cfg)
+        err = (oa.float() - o_ref.float()).abs()
+        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3, cfg
+        assert (L - L_ref).abs().max().item() < 1e-2, cfg
+        assert torch.equal(oa, oc) and torch.equal(oa, again), cfg
+        assert torch.all(oa[empty] == 0) and torch.all(L[empty] == FA.NO_KEY_LSE), cfg
+
+
 def test_flash_kernel_takes_fp32_and_rejects_other_head_dims(gen):
     q = torch.randn((1, 2, 100, 64), generator=gen, device="cuda")
     lens = torch.tensor([70], dtype=torch.int32, device="cuda")
@@ -71,13 +110,18 @@ def test_flash_kernel_takes_fp32_and_rejects_other_head_dims(gen):
                            q[..., :32].contiguous(), lens)
 
 
-@pytest.mark.parametrize("n", [1, 300])
-def test_convpos_kernel_matches_plain(gen, n):
-    d, groups = 1024, 16
+def _convpos_weights(gen, d=1024):
     bound = (64 * 31) ** -0.5
     w1, w2 = ((torch.rand((d, 64, 31), generator=gen, device="cuda") * 2 - 1) * bound
               for _ in range(2))
     b1, b2 = ((torch.rand((d,), generator=gen, device="cuda") * 2 - 1) * bound for _ in range(2))
+    return w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("n", [1, 300, 63, 65, 127, 129, 1024])
+def test_convpos_kernel_matches_plain(gen, n):
+    d, groups = 1024, 16
+    w1, b1, w2, b2 = _convpos_weights(gen, d)
     x = torch.randn((2, n, d), generator=gen, device="cuda")
     args = [t.to(torch.bfloat16) for t in (x, w1, b1, w2, b2)]
     lens = torch.tensor([n, max(n - 37, 0)], dtype=torch.int32, device="cuda")
@@ -87,6 +131,44 @@ def test_convpos_kernel_matches_plain(gen, n):
     want = FC.conv_pos_plain(*[a.float() for a in args], lens, groups)
     err = (got - want).abs()
     assert err.max().item() < 2e-2 and err.mean().item() < 2e-3
+
+
+@pytest.mark.parametrize("n,lens", [(129, [129, 0]), (256, [256, 128]), (300, [0, 0]),
+                                    (200, [192, 64])])
+def test_convpos_kernel_every_config_deterministic(gen, n, lens):
+    """Kernel B in every configuration built, with lengths of 0 and lengths
+    that end on a row-tile edge: within tolerance, zero rows past len, and
+    two launches bitwise equal."""
+    w1, b1, w2, b2 = (t.to(torch.bfloat16) for t in _convpos_weights(gen))
+    x = torch.randn((2, n, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    want = FC.conv_pos_plain(*(t.float() for t in (x, w1, b1, w2, b2)), lt, 16)
+    for cfg in FC.CONFIGS:
+        got = FC.conv_pos_cuda(x, w1, b1, w2, b2, lt, 16, config=cfg)
+        assert torch.equal(got, FC.conv_pos_cuda(x, w1, b1, w2, b2, lt, 16, config=cfg)), cfg
+        err = (got.float() - want).abs()
+        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3, cfg
+        for i, ln in enumerate(lens):
+            assert torch.all(got[i, ln:] == 0), cfg
+
+
+def test_convpos_fp32_instance_keeps_fp32_accuracy(gen):
+    """fp32 x and weights: the kernel's three bf16 products per tap against
+    the fp32 plain version with TF32 off, in every configuration."""
+    w1, b1, w2, b2 = _convpos_weights(gen)
+    x = torch.randn((2, 333, 1024), generator=gen, device="cuda")
+    lt = torch.tensor([333, 250], dtype=torch.int32, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = FC.conv_pos_plain(x, w1, b1, w2, b2, lt, 16)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for cfg in FC.CONFIGS:
+        got = FC.conv_pos_cuda(x, w1, b1, w2, b2, lt, 16, config=cfg)
+        assert got.dtype == torch.float32
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel < 1e-4, (cfg, rel)
 
 
 def test_convpos_kernel_rejects_other_group_widths(gen):

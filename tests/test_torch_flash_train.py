@@ -16,12 +16,13 @@ max 2e-2, mean 4e-3.  The plain backward against fp32 autograd: atol 1e-5.
 Inputs keep every ``lens >= 1`` where JAX is the reference: a row with no
 valid key is where the TPU kernels depart from the documented zero rule.
 
-The card's kernels D and E compute the scores from the raw bf16 q and k and
-apply scale * log2 e in fp32 inside the exponent, where the Pallas kernels
-round q * scale * log2 e to bf16 first.  A torch emulation of the card's
-arithmetic is held against the Pallas backward within the card checks'
-gradient tolerance (chip_smoke.py GRAD_TOL, the same 2e-2 max and 4e-3 mean
-relative error as below).
+The card's kernels (the forward A, C, F and the backward D, E) compute the
+scores from the raw bf16 q and k and apply scale * log2 e in fp32 inside the
+exponent, where the Pallas kernels round q * scale * log2 e to bf16 first.
+Torch emulations of the card's arithmetic are held against the Pallas
+forward (outputs within OUT_TOL, logsumexp within LSE_TOL) and backward
+(within the card checks' gradient tolerance, chip_smoke.py GRAD_TOL, the
+same 2e-2 max and 4e-3 mean relative error as below).
 """
 
 import jax
@@ -202,3 +203,51 @@ def test_card_rounding_point_matches_jax_backward(interpret, n, lens, seg):
     got = _emulated_card_bwd(q, k, v, do, L, D, lens_np, seg)
     for g, w in zip(got, want):
         _assert_rel(g.numpy(), w, GRAD_TOL)
+
+
+def _emulated_card_fwd(q, k, v, lens, seg=None):
+    """Kernels A, C and F's arithmetic on the card: q, k, v rounded to bf16;
+    fp32 scores of the raw bf16 q.k^T; p = exp2((s - m) * scale * log2 e),
+    m the row max of the raw scores; the row sum l of the fp32 p; p rounded
+    to bf16 for P.V, accumulated in fp32; o = P.V / l and the natural-log
+    L = (m * scale * log2 e + log2 l) / log2 e.  (o, L)."""
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    qb, kb, vb = (bf(_t(a)) for a in (q, k, v))
+    qscale = q.shape[-1] ** -0.5 * TFA.LOG2E
+    s = qb @ kb.transpose(-1, -2)
+    valid = TFA.key_valid(_t(lens), q.shape[2], seg)[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2((s - m) * qscale)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (bf(p) @ vb) / l
+    L = (m * qscale + torch.log2(l))[..., 0] / TFA.LOG2E
+    return o, L
+
+
+@pytest.mark.parametrize("n,lens,seg", [
+    (256, [256, 170], None),
+    (384, [131, 384], None),
+    (320, [[256, 40], [190, 17]], 256),
+], ids=["prefix", "prefix-ragged", "two-segment"])
+def test_card_rounding_point_matches_jax_forward(interpret, n, lens, seg):
+    """The moved rounding point of q (raw bf16 q.k^T, scale * log2 e in fp32
+    inside exp2) stays within the forward tolerances of the Pallas kernels:
+    _flash (or _flash_seg with seg) for the output, _flash_fwd_stats for the
+    output and the logsumexp."""
+    q, k, v, _, lens_np = _inputs(n, lens, seed=9)
+    b, h, _, dh = q.shape
+    blk = JFA._pick_block(n, 256)
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lens_np))
+    o_j, L_j = JFA._flash_fwd_stats(jq, jk, jv, jl, blk, blk, seg)
+    if seg is None:
+        o_serve = JFA._flash(jq, jk, jv, jl, blk, blk)
+    else:
+        o_serve = JFA._flash_seg(jq, jk, jv, jl, seg, blk, blk)
+    o, L = _emulated_card_fwd(q, k, v, lens_np, seg)
+    for want in (o_j, o_serve):
+        err = np.abs(o.numpy() - np.asarray(want))
+        assert err.max() < OUT_TOL[0] and err.mean() < OUT_TOL[1], (err.max(), err.mean())
+    np.testing.assert_allclose(L.numpy(), np.asarray(L_j).reshape(b, h, n), atol=LSE_TOL)
