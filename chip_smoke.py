@@ -7,7 +7,7 @@ Run from the repository root:  python3 chip_smoke.py
    ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a, one process per source), and
    each kernel instance's registers and spills.
 2. Kernel A (masked flash attention) against its plain version at the
-   F5TTS_v1_Base shapes [2, 16, n, 64] bf16, n in {256, 1000, 1024, 4096},
+   F5TTS_v1_Base shapes [2, 16, n, 64] bf16, n in {256, 512, 1000, 1024, 4096},
    ragged lens and a row with no valid key, and in every configuration
    built (``flash_attention.FWD_CONFIGS``) at n = 1, 63, 65, 127, 129 and
    256 with lengths of 0 and lengths that end on a tile edge or inside one;
@@ -231,7 +231,7 @@ def phase_flash(torch):
             errs.append(max_err)
         print(f"flash_attention n={n} lens={lens_l}: every configuration within {FLASH_TOL}, "
               f"two launches bitwise equal; max_abs_err {max(errs):.3e}", flush=True)
-    for n in (256, 1000, 1024, 4096):
+    for n in (256, 512, 1000, 1024, 4096):  # 512: the short request's bucket
         q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         cases = [[n, n - 37]] + ([[0, n - 37]] if n == 1000 else [])
@@ -326,7 +326,7 @@ def phase_convpos(torch):
           f"(tol {CONVPOS_FP32_REL_TOL}), every configuration", flush=True)
     if rel32 > CONVPOS_FP32_REL_TOL:
         fail("convpos fp32 instance disagrees with the fp32 plain version")
-    for n in (256, 1000, 1024, 4096):
+    for n in (256, 512, 1000, 1024, 4096):
         x = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
         lens = torch.tensor([n, n - 37], dtype=torch.int32, device="cuda")
         got = FC.conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps)
