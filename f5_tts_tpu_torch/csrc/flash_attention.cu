@@ -38,13 +38,13 @@
 // run on wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate); P is packed
 // from the score accumulators into A fragments.  The online softmax keeps
 // the running max of the raw scores; its row sums stay per thread until
-// the epilogue.  (Two variants were built and timed on the card: issuing
-// tile j's q.k^T before tile j - 1's P.V, so that the softmax runs while
-// P.V is in the tensor cores, and 128-key tiles.  Neither beat this loop at
-// the training shape; PERF.md, PR 6.)  The key loop visits only the tiles holding a valid key
-// (common.cuh key_tiles: the prefix tiles and, in the two-segment mode,
-// the tiles covering [seg, seg + len_t), skipping the gap); the tiles it
-// skips contribute exactly 0.  A tile wholly inside a valid segment skips
+// the epilogue.  (Variants timed on the card did not beat this loop at
+// the training shape: tile j's q.k^T issued before tile j - 1's P.V so
+// that the softmax runs while P.V is in the tensor cores, 128-key tiles, a
+// polynomial exp2 for part of the scores; PERF.md.)  The key loop visits
+// only the tiles holding a valid key (common.cuh key_tiles: the prefix
+// tiles and, in the two-segment mode, the tiles covering [seg, seg +
+// len_t), skipping the gap); the tiles it skips contribute exactly 0.  A tile wholly inside a valid segment skips
 // the per-key test (KeyMask::all); a tile across a boundary keeps it, so
 // no length and no seg is rejected.  o leaves through shared memory in
 // 16-byte stores; its type is a template parameter (the kernels read bf16
