@@ -69,24 +69,36 @@ Run from the repository root:  python3 chip_smoke.py
 13. Training: ``Trainer(E2TTS_Base, device="cuda")`` in mixed precision, 3
     updates on seeded synthetic mels at ``E2TTS_TRAIN_FRAMES`` per update;
     peak memory and valid frames per second.
-14. Kernel G (the W8A8 int8 matrix product) against its plain version at
-    the F5TTS_v1_Base serving shapes (m = 1024 with the fused qkv, out, ff
-    in and ff out (k, n)), at m = 1 and 4096 and two ragged shapes; times
-    it beside its bound, ``torch._int_mm`` plus the scale epilogue (a
-    yardstick) and dense bf16 ``F.linear``.
+14. Kernel G's two instances against their plain versions, bitwise, in
+    bf16 and fp32 x, at the F5TTS_v1_Base serving shapes (m = 1024 with the
+    fused qkv, out, ff in and ff out (k, n)), at m = 1 and 4096 and three
+    ragged shapes (k % 16 != 0 in two): the TPU kernel's function
+    (``int8_matmul``) against ``int8_matmul_plain``, and the serving linear
+    (``linear_w8a8``: row quantization, product, cast and bias in one
+    launch; also its two-launch form, and its row phase alone against
+    ``quantize_rows``) against the plain composition on the card.  Where PyTorch's division of the scale by a Python scalar rounds
+    differently from the true division.  Times both instances beside their
+    bounds, ``torch._int_mm`` plus the scale epilogue and the unfused
+    serving composition on it (yardsticks), and dense bf16 ``F.linear``,
+    with the split of k per shape; both instances at every split of k at
+    qkv and ff out (and ff out at k = 3968); the host's time to issue one
+    eager call of the serving linear and of ``F.linear``.
 15. W8A8 serving: a dense and a W8A8 F5TTS_v1_Base engine serve the same
     short request with the same seed; the generated mels must differ, by
-    less than ``MEL_MAE_GATE``; G launches 4 x depth x NFE times per W8A8
-    engine call and never in the dense one, A and B as often in both, the
-    experiments' H and I in neither.  One
-    W8A8 F5TTS_MMDiT_Base request (G = 4 x (depth - 1) x NFE); E2TTS_Base
-    refuses ``quantize=True``.
+    less than ``MEL_MAE_GATE``; G's serving instance launches 4 x depth x
+    NFE times per W8A8 engine call and never in the dense one, its
+    TPU-function instance never, A and B as often in both, the
+    experiments' H and I in neither; device time, kernel count and busy
+    share of both.  One W8A8 F5TTS_MMDiT_Base request (G = 4 x (depth - 1)
+    x NFE); E2TTS_Base refuses ``quantize=True``.
 16. One full-width W8A8 F5TTS_v1_Base ``forward_cfg`` in fp32, card vs CPU,
-    with the share of int8 activations that the two quantize differently.
+    with the share of int8 activations that the two quantize differently
+    (each quantized linear's input captured on both sides and quantized by
+    the plain ``quantize_rows``).
 17. Kernels H (pipelined flash attention) and I (fused LayerNorm-modulate
-    matmul), the two experiments, against their plain versions (ragged
-    shapes included), timed beside kernel A / SDPA and beside the unfused
-    composition.
+    matmul, K = 1024, 2048 and 4096 and ragged shapes), the two
+    experiments, against their plain versions, timed beside kernel A / SDPA
+    and beside the unfused composition.
 18. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
@@ -800,7 +812,7 @@ def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool
     wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"C": ("flash_fwd_kernel",), "D": ("flash_bwd_dq_kernel",),  # C: every forward instance
               "E": ("flash_bwd_dkv_kernel",), "B": ("convpos_fwd_kernel",),
-              "G": ("int8_matmul_kernel",), "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
+              "G": ("int8_gemm_kernel",), "gemm": ("gemm", "nvjet")}  # cuBLAS kernels
     ms = dict.fromkeys(groups, 0.0)
     total = 0.0
     kernels = []
@@ -810,9 +822,10 @@ def _profile_update(torch, fn, label: str = "one fixed-batch update", host: bool
             continue
         total += t
         kernels.append((t, ev.count, ev.key))
-        for g, pats in groups.items():
+        for g, pats in groups.items():  # the first group that matches
             if any(pat in ev.key.lower() for pat in pats):
                 ms[g] += t
+                break
     out = {"wall_ms": wall_ms, "device_ms": total, "kernels": sum(c for _, c, _ in kernels),
            "busy_share": total / wall_ms if wall_ms else None, **{f"{g}_ms": v for g, v in ms.items()},
            "other_ms": total - sum(ms.values())}
@@ -988,13 +1001,16 @@ def phase_train(torch):
 
 
 def _single_kernels() -> dict:
-    """The kernels outside flash_attention.KERNELS, by letter: B, G, H, I."""
+    """The kernels outside flash_attention.KERNELS, by letter: B, G (the
+    serving instance, ``linear_w8a8``), G_tpu (the TPU-function instance,
+    ``int8_matmul``), H, I."""
     from f5_tts_tpu_torch.ops import fused_convpos as FC
     from f5_tts_tpu_torch.ops import quant as Q
     from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
     from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
 
-    return {"B": FC.KERNEL, "G": Q.KERNEL, "H": XH.KERNEL, "I": XI.KERNEL}
+    return {"B": FC.KERNEL, "G": Q.KERNEL_LINEAR, "G_tpu": Q.KERNEL, "H": XH.KERNEL,
+            "I": XI.KERNEL}
 
 
 def reset_counts() -> None:
@@ -1460,54 +1476,151 @@ def phase_train_e2tts(torch):
 # the W8A8 slice: kernel G, W8A8 serving; the experiment kernels H and I
 
 
-def _int8_bound(m, k, n):
-    """Kernel G's bound: 2mkn int8 operations, or x_q, w_q, both scales and
-    the fp32 output moved once."""
-    return bound_ms(2.0 * m * k * n, m * k + n * k + 4.0 * (m + n) + 4.0 * m * n, PEAK_INT8)
+def _int8_bound(m, k, n, x_bytes=None):
+    """Kernel G's bound: 2mkn int8 operations, or its bytes moved once.  The
+    TPU-function instance (x_bytes None) reads x_q, w_q and both scales and
+    writes fp32; the serving instance reads x in the compute dtype
+    (x_bytes per value), w_q, w_scale and the bias, and writes x's dtype."""
+    if x_bytes is None:
+        nbytes = m * k + n * k + 4.0 * (m + n) + 4.0 * m * n
+    else:
+        nbytes = x_bytes * m * k + n * k + 4.0 * n + x_bytes * (n + m * n)
+    return bound_ms(2.0 * m * k * n, nbytes, PEAK_INT8)
+
+
+# kernel G's cases: the F5TTS_v1_Base serving shapes at m = 1024, m = 1 and
+# 4096, and ragged shapes (k % 16 != 0 in the last two)
+INT8_SHAPES = [(1024, k, n) for k, n in SERVING_KN] + [
+    (1, 1024, 3072), (1, 4096, 1024), (4096, 1024, 3072), (96, 192, 80), (37, 1000, 200),
+    (5, 40, 24)]
 
 
 def phase_int8(torch):
-    """Kernel G against its plain version at the serving shapes, m = 1 and
-    4096, and two ragged shapes; times beside its bound, ``torch._int_mm`` +
-    the scale epilogue (library) and dense bf16 ``F.linear``."""
+    """Kernel G's two instances against their plain versions on the card,
+    bitwise, in bf16 and fp32 x: the TPU kernel's function against
+    ``int8_matmul_plain``, the serving linear (one launch, and the two-launch
+    form) against the plain composition (``quantize_rows``, the product, the
+    cast, the bias).  Where the scale's division rounds on the card.  Times
+    (bf16): the serving instance beside its bound, the two-launch form, the
+    TPU instance beside its own bound, ``torch._int_mm`` + the scale epilogue
+    (library), the unfused serving composition on ``_int_mm``, and dense
+    bf16 ``F.linear``; the split of k per shape."""
     from f5_tts_tpu_torch.ops import quant as Q
     from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(50)
-    shapes = [(1024, k, n) for k, n in SERVING_KN] + [(1, 1024, 3072), (4096, 1024, 3072),
-                                                      (96, 192, 80), (37, 1000, 200)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):  # the scale's rounding point
+        x = (torch.randn((4096, 1024), generator=gen, device="cuda")
+             * torch.rand((4096, 1), generator=gen, device="cuda") * 10).to(dtype)
+        amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8)
+        by_scalar, true_div = amax / 127.0, Q._div127(amax)
+        moved = (x / by_scalar).to(dtype).round() != (x / true_div).to(dtype).round()
+        print(f"int8 scale {dtype}: amax / 127.0 (a Python scalar) differs from the true "
+              f"division on the card in {(by_scalar != true_div).sum().item()} of 4096 rows, "
+              f"moving {moved.sum().item()} int8 values; quantize_rows divides truly", flush=True)
     rows, worst_rel, worst_abs = [], 0.0, 0.0
-    for m, k, n in shapes:
-        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
-        x_q, xs = Q.quantize_rows(x)
+    for m, k, n in INT8_SHAPES:
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
         w_q, ws = Q.quantize_weight(w)
-        got = Q.int8_matmul_cuda(x_q, xs, w_q, ws)
+        split = Q.split_k(m, n, k, sms)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            x[0] = 0  # an all-zero row: scale 1e-8 / 127
+            bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+            x_q, xs = Q.quantize_rows(x)
+            got = Q.int8_matmul_cuda(x_q, xs, w_q, ws)
+            torch.cuda.synchronize()
+            want = Q.int8_matmul_plain(x_q, xs, w_q, ws)
+            diff = (got - want).abs()
+            rel = (diff / want.abs().clamp(min=1e-30)).max().item()
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff.max().item())
+            if not torch.equal(got, want):
+                fail(f"int8_matmul m={m} k={k} n={n}: not bitwise its plain version (max "
+                     f"relative error {rel}, tolerance {INT8_REL_TOL})")
+            q_k, s_k = Q.quantize_rows_cuda(x)
+            if not (torch.equal(q_k, x_q) and torch.equal(s_k, xs)):
+                fail(f"kernel G's row phase {dtype} m={m} k={k}: not bitwise quantize_rows")
+            for b in (bias, None):
+                plain = Q.linear_w8a8_plain(x, w_q, ws, b)
+                for launches in (1, 2):
+                    lin = Q.linear_w8a8_cuda(x, w_q, ws, b, launches=launches)
+                    torch.cuda.synchronize()
+                    if not torch.equal(lin, plain):
+                        err = (lin.float() - plain.float()).abs().max().item()
+                        fail(f"linear_w8a8 {dtype} m={m} k={k} n={n} bias={b is not None} "
+                             f"launches={launches}: not bitwise the plain composition "
+                             f"(max abs {err})")
+            if dtype != torch.bfloat16 or k % 16:
+                continue
+            iters = 50
+            ms = device_ms(lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias), iters)
+            two_ms = device_ms(lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias, launches=2), iters)
+            row_ms = device_ms(lambda: Q.quantize_rows_cuda(x), iters)
+            tpu_ms = device_ms(lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
+            plain_ms = device_ms(lambda: Q.linear_w8a8_plain(x, w_q, ws, bias), 3)
+            tpu_plain_ms = device_ms(lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
+            lib_ms = unfused_ms = None
+            if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes on CUDA
+                w_t = w_q.t()
+                lib_ms = device_ms(lambda: torch._int_mm(x_q, w_t).float() * xs * ws, iters)
+
+                def unfused():
+                    q, s = Q.quantize_rows(x)
+                    return (torch._int_mm(q, w_t).float() * s * ws).to(x.dtype) + bias
+
+                unfused_ms = device_ms(unfused, iters)
+            w_bf16 = w.to(torch.bfloat16)
+            dense_ms = device_ms(lambda: torch.nn.functional.linear(x, w_bf16, bias), iters)
+            bms, by = _int8_bound(m, k, n, x_bytes=2)
+            tpu_bms, tpu_by = _int8_bound(m, k, n)
+            rows.append(dict(m=m, k=k, n=n, split=split, ms=ms, two_launch_ms=two_ms, row_ms=row_ms,
+                             tpu_ms=tpu_ms, plain_ms=plain_ms, tpu_plain_ms=tpu_plain_ms,
+                             library_ms=lib_ms,
+                             unfused_ms=unfused_ms, dense_bf16_ms=dense_ms, bound_ms=bms,
+                             bound_by=by, tpu_bound_ms=tpu_bms, tpu_bound_by=tpu_by))
+            fmt = lambda v: "n/a" if v is None else f"{v:.4f} ms"  # noqa: E731
+            print(f"kernel G m={m} k={k} n={n} split {split}: bitwise both instances, bf16 and "
+                  f"fp32; device time: serving {ms:.4f} ms (bound {bms:.4f} ms, {by}; "
+                  f"{2.0 * m * k * n / ms / 1e9:.1f} TOP/s), two launches {two_ms:.4f} ms (the row "
+                  f"phase alone {row_ms:.4f} ms), "
+                  f"TPU instance {tpu_ms:.4f} ms (bound {tpu_bms:.4f} ms, {tpu_by}), plain "
+                  f"{plain_ms:.4f} ms, _int_mm+epilogue {fmt(lib_ms)}, quantize_rows+_int_mm+"
+                  f"epilogue+cast+bias {fmt(unfused_ms)}, bf16 F.linear {dense_ms:.4f} ms",
+                  flush=True)
+        print(f"kernel G m={m} k={k} n={n}: both instances bitwise their plain versions "
+              f"(bf16 and fp32 x; with and without bias; one and two launches)", flush=True)
+    # every split of k at qkv and ff out, and ff out at a k that is not a
+    # power of two (bf16 x with a bias); the host's time to issue one eager
+    # call, against bf16 F.linear
+    for m, k, n in ((1024, 1024, 3072), (1024, 4096, 1024), (1024, 3968, 1024)):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        w_q, ws = Q.quantize_weight(w)
+        bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        x_q, xs = Q.quantize_rows(x)
+        t = {}
+        for sp in (1, 2, 4):
+            t[f"serving split {sp}"] = device_ms(lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias,
+                                                                           splits=sp), 50)
+            t[f"TPU instance split {sp}"] = device_ms(
+                lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws, splits=sp), 50)
+        print(f"kernel G m={m} k={k} n={n} by split of k, device time: " + ", ".join(
+            f"{key} {v:.4f} ms" for key, v in t.items()), flush=True)
+    w_bf16 = w.to(torch.bfloat16)
+    host_us = {}
+    for tag, fn in (("linear_w8a8", lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias)),
+                    ("bf16 F.linear", lambda: torch.nn.functional.linear(x, w_bf16, bias))):
+        for _ in range(20):
+            fn()
         torch.cuda.synchronize()
-        want = Q.int8_matmul_plain(x_q, xs, w_q, ws)
-        diff = (got - want).abs()
-        rel = (diff / want.abs().clamp(min=1e-30)).max().item()
-        exact = torch.equal(got, want)
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff.max().item())
-        if not rel <= INT8_REL_TOL:
-            fail(f"int8_matmul m={m} k={k} n={n}: max relative error {rel} > {INT8_REL_TOL}")
-        iters = 50
-        ms = device_ms(lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
-        plain_ms = device_ms(lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
-        lib_ms = None
-        if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes on CUDA
-            w_t = w_q.t()
-            lib_ms = device_ms(lambda: torch._int_mm(x_q, w_t).float() * xs * ws, iters)
-        dense_ms = device_ms(lambda: torch.nn.functional.linear(x, w), iters)
-        bms, by = _int8_bound(m, k, n)
-        rows.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, dense_bf16_ms=dense_ms, bound_ms=bms, bound_by=by,
-                         max_rel=rel, bitwise=exact))
-        print(f"int8_matmul m={m} k={k} n={n}: max rel err {rel:.3e} (tol {INT8_REL_TOL}), "
-              f"bitwise {exact}; device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"_int_mm+epilogue {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bf16 "
-              f"F.linear {dense_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{2.0 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
+        t0 = time.perf_counter()
+        for _ in range(400):
+            fn()
+        host_us[tag] = (time.perf_counter() - t0) / 400 * 1e6
+        torch.cuda.synchronize()
+    print("kernel G m=1024 k=3968 n=1024: host time to issue one eager call " + ", ".join(
+        f"{key} {v:.1f} us" for key, v in host_us.items()), flush=True)
     return rows, worst_abs, worst_rel
 
 
@@ -1567,9 +1680,11 @@ def phase_w8a8_serving(torch):
                                host=False)
         prof["busy_share_of_unprofiled_wall"] = prof["device_ms"] / (wall * 1e3)
         print(f"W8A8 serving F5TTS_v1_Base {tag}: device busy {prof['device_ms']:.1f} ms of "
-              f"{wall * 1e3:.1f} ms unprofiled wall; kernel A {prof['fwd_share']:.1%} "
-              f"({prof['C_ms']:.1f} ms) and B {prof['B_share']:.1%} ({prof['B_ms']:.1f} ms) of "
-              "the device time", flush=True)
+              f"{wall * 1e3:.1f} ms unprofiled wall ({prof['busy_share_of_unprofiled_wall']:.1%}), "
+              f"{prof['kernels']} kernels; kernel A {prof['fwd_share']:.1%} "
+              f"({prof['C_ms']:.1f} ms), B {prof['B_share']:.1%} ({prof['B_ms']:.1f} ms), G "
+              f"{prof['G_ms']:.1f} ms, cuBLAS {prof['gemm_ms']:.1f} ms, the rest "
+              f"{prof['other_ms']:.1f} ms of the device time", flush=True)
         out[tag] = dict(wall_s=wall, audio_s=len(wav) / sr, rtf=wall / (len(wav) / sr),
                         calls=len(calls), launches=launched, spec=spec, profile=prof)
         print(f"W8A8 serving F5TTS_v1_Base {tag}: {len(calls)} engine call(s), "
@@ -1580,6 +1695,9 @@ def phase_w8a8_serving(torch):
     if d["launches"]["G"] != 0 or q["launches"]["G"] != want_g:
         fail(f"W8A8 launches of G: dense {d['launches']['G']} (want 0), quantized "
              f"{q['launches']['G']} (want 4 x {depth} x {NFE} x {q['calls']} = {want_g})")
+    if d["launches"]["G_tpu"] or q["launches"]["G_tpu"]:
+        fail("W8A8 serving: G's TPU-function instance launched; every quantized linear is one "
+             "launch of the serving instance")
     for tag, launched in (("dense", d["launches"]), ("W8A8", q["launches"])):
         if launched["H"] or launched["I"]:
             fail(f"W8A8 serving {tag}: the experiment kernels launched (H {launched['H']}, "
@@ -1593,11 +1711,14 @@ def phase_w8a8_serving(torch):
         fail(f"W8A8 serving: mel shapes {d['spec'].shape} != {q['spec'].shape}")
     mae = float(np.abs(d["spec"] - q["spec"]).mean())
     print(f"W8A8 serving F5TTS_v1_Base: generated-mel MAE dense vs W8A8 {mae:.5f} (gate "
-          f"{MEL_MAE_GATE}, and > 0); RTF ratio W8A8 / dense {q['rtf'] / d['rtf']:.3f}", flush=True)
+          f"{MEL_MAE_GATE}, and > 0); RTF ratio W8A8 / dense {q['rtf'] / d['rtf']:.3f}; kernels "
+          f"W8A8 {q['profile']['kernels']} dense {d['profile']['kernels']}; device time W8A8 "
+          f"{q['profile']['device_ms']:.1f} ms dense {d['profile']['device_ms']:.1f} ms", flush=True)
     if not 0.0 < mae < MEL_MAE_GATE:
         fail(f"W8A8 serving: mel MAE {mae} outside (0, {MEL_MAE_GATE})")
     result = dict(mel_mae=mae,
-                  launches_per_call={key: q["launches"][key] // q["calls"] for key in "GHI"},
+                  launches_per_call={key: q["launches"][key] // q["calls"]
+                                     for key in ("G", "G_tpu", "H", "I")},
                   **{f"{t}_{k}": out[t][k] for t in out
                      for k in ("rtf", "wall_s", "audio_s", "profile")},
                   dense_launches=d["launches"], w8a8_launches=q["launches"])
@@ -1644,34 +1765,40 @@ def phase_w8a8_serving(torch):
 
 def phase_w8a8_full_width(torch):
     """F5TTS_v1_Base W8A8 forward_cfg in fp32: card (kernel G) vs CPU (plain
-    version), and the share of activations quantized to another int8 step."""
+    version), and the share of int8 activations the two quantize
+    differently: each quantized linear's input is captured on both sides
+    and quantized by the plain ``quantize_rows`` on its own device (the card
+    quantizes inside G, bitwise as ``quantize_rows`` does there, phase 14)."""
     import copy
 
     from f5_tts_tpu_torch.models import dit as D
+    from f5_tts_tpu_torch.models import layers as L
     from f5_tts_tpu_torch.ops import quant as Q
 
     cfg, model, run = _full_width_dit(torch)
     n = 256
     D.fuse_for_inference(model)
     names = Q.quantize_dit_blocks(model, cfg)
-    seen = []  # the int8 activations of every quantized linear, in call order
-    inner = Q.quantize_rows
+    seen = []  # the input of every quantized linear, in call order
+    inner = L.linear_w8a8
 
-    def recording(t):
-        q, s = inner(t)
-        seen.append(q.cpu())
-        return q, s
+    def recording(x, *args):
+        seen.append(x.detach())
+        return inner(x, *args)
 
-    Q.quantize_rows = recording
+    L.linear_w8a8 = recording
     try:
         reset_counts()
         got = run(copy.deepcopy(model).cuda(), "cuda")
         launched = counts()
-        q_card, seen[:] = list(seen), []
+        x_card, seen[:] = list(seen), []
         want = run(model, "cpu")
-        q_cpu = list(seen)
+        x_cpu = list(seen)
     finally:
-        Q.quantize_rows = inner
+        L.linear_w8a8 = inner
+    q_card = [Q.quantize_rows(x.reshape(-1, x.shape[-1]))[0].cpu() for x in x_card]
+    q_cpu = [Q.quantize_rows(x.reshape(-1, x.shape[-1]))[0] for x in x_cpu]
+    del x_card, x_cpu
     rel = ((got - want).abs().max() / want.abs().max()).item()
     flips = [(a != c).float().mean().item() for a, c in zip(q_card, q_cpu)]
     steps = max((a.int() - c.int()).abs().max().item() for a, c in zip(q_card, q_cpu))
@@ -1690,7 +1817,8 @@ def phase_w8a8_full_width(torch):
 
 def phase_experiments(torch):
     """Kernels H and I against their plain versions (bf16), timed beside
-    kernel A / SDPA and beside the unfused composition."""
+    kernel A / SDPA and beside the unfused composition (I at K = 1024,
+    2048 and 4096, and at ragged shapes)."""
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
     from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
@@ -1736,8 +1864,9 @@ def phase_experiments(torch):
               "plain version", flush=True)
 
     worst_i = 0.0
-    row_i = None
-    for m, kk, nn in ((2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200)):
+    rows_i = {}
+    for m, kk, nn in ((2048, 1024, 3072), (2048, 2048, 3072), (2048, 4096, 3072),
+                      (37, 1000, 1001), (100, 1024, 200), (64, 20, 36), (8, 2048, 64)):
         args = XI.inputs(m, kk, nn, "cuda", seed=61)
         got = XI.fused_ln_matmul_cuda(*args)
         torch.cuda.synchronize()
@@ -1749,23 +1878,25 @@ def phase_experiments(torch):
         if not (mx <= LN_MATMUL_TOL[0] and mean <= LN_MATMUL_TOL[1]):
             fail(f"kernel I M={m} K={kk} N={nn} disagrees with its plain version")
         if m == 2048:
-            x, w, bias, sc, sh = args
             ms = device_ms(lambda: XI.fused_ln_matmul_cuda(*args), 50)
             plain_ms = device_ms(lambda: XI.fused_ln_matmul_plain(*args), 20)
             lib_ms = device_ms(lambda: XI.unfused(*args), 50)
             nbytes = 2.0 * (m * kk + kk * nn + m * nn) + 4.0 * (nn + 2 * kk)
             bms, by = bound_ms(2.0 * m * kk * nn, nbytes, PEAK_BF16)
-            row_i = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+            rows_i[kk] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                              bound_by=by)
             print(f"kernel I M={m} K={kk} N={nn}, device time per call: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, "
                   f"unfused torch {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
                   f"{2.0 * m * kk * nn / ms / 1e9:.1f} TFLOP/s", flush=True)
+    x, w, bias, sc, sh = XI.inputs(8, 2048, 64, "cuda")
     try:
-        XI.fused_ln_matmul_cuda(*XI.inputs(8, 2048, 64, "cuda"))
-    except ValueError as e:
-        print(f"kernel I K=2048: raises ValueError ({e})", flush=True)
+        XI.fused_ln_matmul_cuda(x.float(), w, bias, sc, sh)
+    except TypeError as e:
+        print(f"kernel I fp32 x: raises TypeError ({e})", flush=True)
     else:
-        fail("kernel I took a K larger than its shared-memory panel")
+        fail("kernel I took an fp32 x")
+    row_i = dict(rows_i[1024], by_k=rows_i)
     return rows_h, worst_h, row_i, worst_i
 
 
@@ -1794,7 +1925,7 @@ def ptxas_summary(log: str) -> list[str]:
         except (OSError, subprocess.CalledProcessError):
             continue
         # the kernel's name and template arguments, without "void " and its parameter list
-        table = {n: d.split("(anonymous namespace)::")[-1].split("(")[0].removeprefix("void ")
+        table = {n: d.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
                  for n, d in zip(names, dem)}
         return [" | ".join([table.get(x.split(" | ")[0], x.split(" | ")[0])] + x.split(" | ")[1:])
                 if " | " in x else x for x in out]
@@ -1958,16 +2089,35 @@ def main() -> int:
                   "training", "relative to max |reference|"),
     ]
     g = next(r for r in int8_rows if (r["m"], r["k"], r["n"]) == (1024, 1024, 4096))
+    g_shapes = {f"{r['m']}x{r['k']}x{r['n']}": {
+        key: r[key] for key in ("split", "ms", "two_launch_ms", "row_ms", "tpu_ms", "bound_ms",
+                                "tpu_bound_ms", "library_ms", "unfused_ms", "dense_bf16_ms")}
+        for r in int8_rows if r["m"] == 1024}
     h = h_rows[1024]
+    g8 = "f5_tts_tpu_torch/csrc/int8_matmul.cu"
     kernels += [
-        {"name": "int8_matmul", "route": "cuda", "source": "f5_tts_tpu_torch/csrc/int8_matmul.cu",
+        {"name": "int8_linear", "route": "cuda", "source": g8,
          "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"]["G"],
-         "max_abs_err": int8_abs, "max_rel_err": int8_rel, "ms": g["ms"],
-         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+         "max_abs_err": 0.0, "err_kind": "bitwise the plain composition on the card",
+         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "library_ms": g["unfused_ms"],
+         "library_covers": "quantize_rows + torch._int_mm + the scale epilogue + cast + bias",
+         "shape_mkn": [1024, 1024, 4096], "split": g["split"],
+         "two_launch_ms": g["two_launch_ms"], "dense_bf16_linear_ms": g["dense_bf16_ms"],
+         "serving_shapes": g_shapes,
+         "ms_kind": "device time (CUDA-graph replay), as every time in this line",
+         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32"},
+        {"name": "int8_matmul", "route": "cuda", "source": g8,
+         "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"]["G_tpu"],
+         "on_serving_path": False,
+         "launches_note": "the TPU kernel's own function (int8 in, fp32 out); serving runs "
+                          "int8_linear, so this instance launches only for quantized_linear and "
+                          "direct int8_matmul calls",
+         "max_abs_err": int8_abs, "max_rel_err": int8_rel, "ms": g["tpu_ms"],
+         "plain_ms": g["tpu_plain_ms"], "bound_ms": g["tpu_bound_ms"],
+         "bound_by": g["tpu_bound_by"],
          "library_ms": g["library_ms"], "shape_mkn": [1024, 1024, 4096],
          "library_covers": "torch._int_mm + the scale epilogue",
-         "ms_kind": "device time (CUDA-graph replay), as every time in this line",
-         "dense_bf16_linear_ms": g["dense_bf16_ms"],
          "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32"},
         {"name": "flash_attention_pipelined", "route": "cuda",
          "source": "f5_tts_tpu_torch/csrc/flash_attention_pipelined.cu",
@@ -1987,7 +2137,9 @@ def main() -> int:
          "plain_ms": i_row["plain_ms"], "bound_ms": i_row["bound_ms"],
          "bound_by": i_row["bound_by"], "library_ms": i_row["library_ms"],
          "library_covers": "F.layer_norm + modulate + torch.addmm (unfused)",
-         "shape_mkn": [2048, 1024, 3072]},
+         "shape_mkn": [2048, 1024, 3072],
+         "by_k": {str(kk): {key: r[key] for key in ("ms", "library_ms", "bound_ms")}
+                  for kk, r in i_row["by_k"].items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

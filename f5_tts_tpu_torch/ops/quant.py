@@ -11,43 +11,76 @@ JAX counterpart: ``f5_tts_tpu/ops/quant.py``: ``quantize_rows`` /
 
 Layout: the port holds a quantized weight as nn.Linear does, ``w_q`` int8
 [n, k] (k contiguous) with ``w_scale`` fp32 [n]; JAX holds [k, n] and
-[1, n].  [n, k] is the layout mma.sync's col-major B operand reads with one
-32-bit load per register (``ldmatrix.trans`` does not take 8-bit elements).
-``quantize_cols`` keeps JAX's [k, n] signature for the tests.
+[1, n].  [n, k] is K-major, the only order ``wgmma`` takes for 8-bit
+operands.  ``quantize_cols`` keeps JAX's [k, n] signature for the tests.
 
 Numerics, as JAX: activations are quantized in their own dtype (bf16 on the
 card): the row max, the scale ``max(amax, 1e-8) / 127`` and ``x / scale``
 are each rounded to x's dtype, rounded half to even, clipped to +-127, and
-only the scale is then cast to fp32.  Weights are quantized from the
-compute-dtype weights upcast to fp32, as the JAX engine does
-(``infer/engine.py:234-241``: fuse, cast, quantize).  The product is
+only the scale is then cast to fp32.  Both divisions are true divisions on
+either device (PyTorch's CUDA division by a Python scalar multiplies by its
+reciprocal, so the scale divides by a tensor of 127).  Weights are
+quantized from the compute-dtype weights upcast to fp32, as the JAX engine
+does (``infer/engine.py:234-241``: fuse, cast, quantize).  The product is
 ``float(int32 sum) * x_scale * w_scale`` in fp32, in that order; the linear
 casts it to x's dtype and only then adds the bias.
 
-Dispatch is by device: a CPU tensor runs ``int8_matmul_plain``; a CUDA tensor
-launches kernel G (``csrc/int8_matmul.cu``), and anything it does not take
-raises.  ``KERNEL.launches`` counts its launches.
+Kernel G (``csrc/int8_matmul.cu``) has two instances, dispatched by device
+(a CPU tensor runs the plain version; a CUDA tensor launches the kernel,
+and anything it does not take raises):
+
+- ``int8_matmul``: the TPU kernel's function, int8 in, fp32 out;
+  ``KERNEL.launches`` counts it.  Only ``quantized_linear`` (a test form)
+  and direct callers use it.
+- ``linear_w8a8``: the serving linear, one launch per call that quantizes
+  x's rows, multiplies and applies the cast and the bias;
+  ``KERNEL_LINEAR.launches`` counts it.  ``layers.linear`` and ``mha`` call
+  it for every quantized linear, so on the card ``quantize_rows``, the cast
+  and the bias launch nothing.
+
+Both split k across blocks when there are fewer output tiles than SMs
+(``split_k``).  The per-tile arrival counters and the serving instance's
+grid barrier live in ``cuda_build.sync_words``, its quantized rows and the
+split partial sums in one scratch buffer per device (``_scratch``): all are
+shared by every launch on a device, so launches of G on two streams of one
+device at once are not supported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn as nn
 
-from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.cuda_build import CudaKernel, sync_words
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = CudaKernel("int8_matmul", "int8_matmul.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+KERNEL = CudaKernel("int8_matmul", "int8_matmul.cu",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+KERNEL_LINEAR = CudaKernel("int8_linear", "int8_matmul.cu",
+                           [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 K_MAX = 2**31 // 127**2  # the longest k whose int32 sum cannot overflow
+TILE_M, TILE_N, TILE_K = 128, 256, 128  # kernel G's output tile and k step
+SPLIT_MAX = 8
+SPLIT_MIN_STEPS = 16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
+_SCRATCH: dict = {}  # device -> kernel G's uint8 scratch
+
+
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 by true division in t's dtype on either device: a 0-dim
+    tensor on t's device, not a Python scalar, which PyTorch's CUDA
+    division turns into a product by 1/127 (one ulp off in some rows)."""
+    return t / t.new_full((), 127.0)
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[m, k] -> (int8 [m, k], fp32 scales [m, 1]); symmetric per row, in x's dtype."""
     amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = _div127(torch.clamp(amax, min=1e-8))
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.float()
 
@@ -55,7 +88,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[k, n] -> (int8 [k, n], fp32 scales [1, n]); symmetric per column, in w's dtype."""
     amax = w.abs().amax(dim=0, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = _div127(torch.clamp(amax, min=1e-8))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.float()
 
@@ -89,36 +122,99 @@ def _check(x_q, x_scale, w_q, w_scale):
         raise ValueError(f"int8_matmul takes fp32 x_scale [{m}, 1] and w_scale [{n}], got "
                          f"{x_scale.dtype} {tuple(x_scale.shape)}, "
                          f"{w_scale.dtype} {tuple(w_scale.shape)}")
-    for name, t in (("x_q", x_q), ("x_scale", x_scale), ("w_q", w_q), ("w_scale", w_scale)):
+    _check_operands("int8_matmul", x_q.device, x_q=x_q, x_scale=x_scale, w_q=w_q,
+                    w_scale=w_scale)
+    _check_sizes("int8_matmul", m, n, k)
+
+
+def _check_operands(who, device, **tensors):
+    for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"int8_matmul needs a contiguous, 16-byte aligned {name}")
-        if t.device != x_q.device:
-            raise ValueError(f"{name} is on {t.device}, x_q on {x_q.device}")
+            raise ValueError(f"{who} needs a contiguous, 16-byte aligned {name}")
+        if t.device != device:
+            raise ValueError(f"{who}: {name} is on {t.device}, not {device}")
+
+
+def _check_sizes(who, m, n, k):
     if k > K_MAX:
-        raise ValueError(f"int8_matmul: k = {k} > {K_MAX} could overflow the int32 sum")
-    if -(-m // 64) > 65535 or max(m, n) >= 2**31:
-        raise ValueError(f"int8_matmul: m = {m}, n = {n} exceed the kernel grid")
+        raise ValueError(f"{who}: k = {k} > {K_MAX} could overflow the int32 sum")
+    if k == 0 or max(m, n, k) >= 2**31 or _tiles(m, n) * SPLIT_MAX >= 2**31:
+        raise ValueError(f"{who}: m = {m}, n = {n}, k = {k} outside what the kernel takes")
+
+
+def _tiles(m: int, n: int) -> int:
+    return -(-m // TILE_M) * -(-n // TILE_N)
+
+
+@functools.lru_cache(maxsize=4096)
+def split_k(m: int, n: int, k: int, sms: int) -> int:
+    """Kernel G's split of k: as many splits as leave no SM idle while the
+    [m, n] output has fewer 128 x 256 tiles than ``sms`` SMs, at most
+    ``SPLIT_MAX``, each at least ``SPLIT_MIN_STEPS`` 128-wide k steps (a
+    split's partial tile goes through L2 and back, which shorter splits do
+    not repay on the H100), rebalanced so none is empty."""
+    steps = -(-k // TILE_K)
+    s = max(1, min(sms // _tiles(m, n), steps // SPLIT_MIN_STEPS, SPLIT_MAX))
+    return -(-steps // -(-steps // s))
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch(device: torch.device, nbytes: int) -> torch.Tensor:
+    """Kernel G's per-device scratch (the serving instance's int8 rows and
+    their scales, the split partial sums), at least ``nbytes``: each launch
+    is done with it before the next one on the stream starts, so one
+    buffer serves them all (grown outside a CUDA graph capture)."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < nbytes:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernel G's scratch must grow before a CUDA graph capture: "
+                               "launch the kernel once outside the capture first")
+        buf = torch.empty(max(nbytes, 1 << 24), dtype=torch.uint8, device=device)
+        _SCRATCH[device] = buf
+    return buf
+
+
+def _align(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def int8_matmul_cuda(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
-                     w_scale: torch.Tensor) -> torch.Tensor:
-    """Launch kernel G on PyTorch's current stream: fp32 [m, n]."""
+                     w_scale: torch.Tensor, splits: int | None = None) -> torch.Tensor:
+    """Launch kernel G's TPU-function instance on PyTorch's current stream:
+    fp32 [m, n].  ``splits``: the k split (default ``split_k``)."""
     _check(x_q, x_scale, w_q, w_scale)
     m, k = x_q.shape
     n = w_q.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m == 0 or n == 0:
         return out
+    dev = x_q.device
+    splits = splits or split_k(m, n, k, _sms(dev))
+    tiles = _tiles(m, n)
+    part = _scratch(dev, tiles * splits * TILE_M * TILE_N * 4) if splits > 1 else None
     KERNEL.launch(x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                  out.data_ptr(), m, n, k, torch.cuda.current_stream(x_q.device).cuda_stream)
+                  out.data_ptr(), _ptr(part), sync_words(dev, 1 + tiles).data_ptr(), m, n, k,
+                  splits, _stream(dev))
     return out
 
 
 def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """x_q int8 [m, k], x_scale fp32 [m, 1], w_q int8 [n, k], w_scale fp32
-    [n] -> fp32 [m, n].  Device dispatch of kernel G: the plain version for
-    CPU tensors."""
+    [n] -> fp32 [m, n].  Device dispatch of kernel G's TPU-function
+    instance: the plain version for CPU tensors."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale)
     if x_q.device.type == "cuda":
@@ -126,15 +222,95 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     raise ValueError(f"int8_matmul: no implementation for device {x_q.device}")
 
 
-def linear_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+def linear_w8a8_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """The quantized linear of JAX ``layers.linear``: rows of x quantized
     on the fly in x's dtype, the int8 product, the cast to x's dtype, then
     the bias."""
     shp = x.shape
     x_q, x_scale = quantize_rows(x.reshape(-1, shp[-1]))
-    y = int8_matmul(x_q, x_scale, w_q, w_scale).reshape(*shp[:-1], -1).to(x.dtype)
+    y = int8_matmul_plain(x_q, x_scale, w_q, w_scale).reshape(*shp[:-1], -1).to(x.dtype)
     return y if bias is None else y + bias
+
+
+def linear_w8a8_cuda(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor | None = None, splits: int | None = None,
+                     launches: int = 1) -> torch.Tensor:
+    """Launch kernel G's serving instance on PyTorch's current stream: x
+    [..., k] bf16 or fp32 -> [..., n] in x's dtype.  ``launches=2`` runs
+    the row quantization and the product as two launches of the same
+    kernel (a yardstick for the one-launch form, which serving uses)."""
+    shp = x.shape
+    k = shp[-1]
+    x2 = x.reshape(-1, k)
+    m, n = x2.shape[0], w_q.shape[0]
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
+        raise TypeError(f"linear_w8a8 kernel takes bf16 or fp32 x, got {x.dtype}")
+    if w_q.dtype != torch.int8 or w_q.ndim != 2 or w_q.shape[1] != k:
+        raise ValueError(f"linear_w8a8 takes int8 w_q [n, {k}], got {w_q.dtype} "
+                         f"{tuple(w_q.shape)}")
+    if w_scale.dtype != torch.float32 or w_scale.shape != (n,):
+        raise ValueError(f"linear_w8a8 takes fp32 w_scale [{n}], got {w_scale.dtype} "
+                         f"{tuple(w_scale.shape)}")
+    if bias is not None and (bias.dtype != x.dtype or bias.shape != (n,)):
+        raise ValueError(f"linear_w8a8 takes a bias [{n}] of x's dtype {x.dtype}, got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    if launches not in (1, 2):
+        raise ValueError(f"linear_w8a8: launches is 1 or 2, got {launches}")
+    dev = x.device
+    if bias is None:
+        _check_operands("linear_w8a8", dev, x=x2, w_q=w_q, w_scale=w_scale)
+    else:
+        _check_operands("linear_w8a8", dev, x=x2, w_q=w_q, w_scale=w_scale, bias=bias)
+    _check_sizes("linear_w8a8", m, n, k)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m == 0 or n == 0:
+        return out.reshape(*shp[:-1], n)
+    splits = splits or split_k(m, n, k, _sms(dev))
+    tiles = _tiles(m, n)
+    xq_bytes, xs_bytes = _align(m * k), _align(4 * m)
+    scratch = _scratch(dev, xq_bytes + xs_bytes + tiles * splits * TILE_M * TILE_N * 4)
+    x_q = scratch.data_ptr()
+    part = x_q + xq_bytes + xs_bytes if splits > 1 else None
+    sync, stream = sync_words(dev, 1 + tiles).data_ptr(), _stream(dev)
+    for phases in ((3,) if launches == 1 else (1, 2)):
+        KERNEL_LINEAR.launch(x2.data_ptr(), code, x_q, x_q + xq_bytes, w_q.data_ptr(),
+                             w_scale.data_ptr(), _ptr(bias), out.data_ptr(), part, sync, m, n,
+                             k, splits, phases, stream)
+    return out.reshape(*shp[:-1], n)
+
+
+def quantize_rows_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's row phase alone (one launch of the serving instance with
+    the product off): ``quantize_rows`` of a bf16 or fp32 x [m, k] on the
+    card, as the serving linear quantizes its input."""
+    if x.ndim != 2 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"quantize_rows_cuda takes bf16 or fp32 x [m, k], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    m, k = x.shape
+    _check_operands("quantize_rows_cuda", x.device, x=x)
+    _check_sizes("quantize_rows_cuda", m, 1, k)
+    x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    x_scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if m:
+        KERNEL_LINEAR.launch(x.data_ptr(), _DTYPE_CODE[x.dtype], x_q.data_ptr(),
+                             x_scale.data_ptr(), None, None, None, None, None,
+                             sync_words(x.device, 1).data_ptr(), m, 1, k, 1, 1,
+                             _stream(x.device))
+    return x_q, x_scale
+
+
+def linear_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """JAX ``layers.linear``'s ``kernel_q`` branch.  Device dispatch of
+    kernel G's serving instance: the plain composition for CPU tensors,
+    one launch for CUDA tensors."""
+    if x.device.type == "cpu":
+        return linear_w8a8_plain(x, w_q, w_scale, bias)
+    if x.device.type == "cuda":
+        return linear_w8a8_cuda(x, w_q, w_scale, bias)
+    raise ValueError(f"linear_w8a8: no implementation for device {x.device}")
 
 
 def quantized_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None

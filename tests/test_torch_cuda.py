@@ -18,12 +18,16 @@ E stream 64-row tiles in blocks of up to 128 rows: their cases include
 n = 1, 127, 129 and 1000, valid prefixes and segments that end on a tile
 edge beside ones that end inside a tile, and a determinism check (two
 launches, bitwise-equal dq, dk, dv, in every configuration built).
-Kernel G (the W8A8 int8 product) must equal its plain version to 1e-6
-relative (the int32 sum is exact; the output is bitwise the plain one's),
-at ragged m, k, n too, and a W8A8 linear on the card must launch it.
+Kernel G (the W8A8 int8 product) must equal its plain version bitwise (and
+so within 1e-6 relative: the int32 sum is exact), at the serving shapes,
+m = 1 and 4096 and ragged m, k, n; its serving instance (quantization,
+product, cast and bias in one launch) must equal the plain composition on
+the card bitwise in bf16 and fp32, and a W8A8 linear on the card must
+launch it.
 Kernels H (pipelined flash attention, every tile configuration) and I
-(fused LayerNorm-modulate matmul) are held as kernel A: 2e-2 max, 2e-3
-mean error, I's relative to the largest reference value.  The forward
+(fused LayerNorm-modulate matmul, K up to 4096 and ragged) are held as
+kernel A: 2e-2 max, 2e-3 mean error, I's relative to the largest
+reference value.  The forward
 kernels A, C, F and kernel B (ConvPositionEmbedding) are checked in every
 configuration built (``FWD_CONFIGS``, ``fused_convpos.CONFIGS``) at
 n = 1, 63, 65, 127, 129, lengths of 0 and lengths that end on a tile edge
@@ -341,8 +345,14 @@ def test_two_segment_trainable_grads_match_fp32_autograd(gen):
         assert mx < 2e-2 and mean < 4e-3, (mx, mean)
 
 
-@pytest.mark.parametrize("m,k,n", [(1024, 1024, 3072), (1, 4096, 1024), (96, 192, 80),
-                                   (37, 1000, 200)])
+# kernel G at the F5TTS_v1_Base serving shapes (m = 1024: qkv, out, ff in,
+# ff out), m = 1 and 4096, and ragged shapes (k % 16 != 0 in the last two)
+G_SHAPES = [(1024, 1024, 3072), (1024, 1024, 1024), (1024, 1024, 4096), (1024, 4096, 1024),
+            (1, 4096, 1024), (1, 1024, 3072), (4096, 1024, 3072), (96, 192, 80),
+            (37, 1000, 200), (5, 40, 24)]
+
+
+@pytest.mark.parametrize("m,k,n", G_SHAPES)
 def test_int8_kernel_matches_plain(gen, m, k, n):
     x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
@@ -353,6 +363,69 @@ def test_int8_kernel_matches_plain(gen, m, k, n):
     assert Q.KERNEL.launches == before + 1
     want = Q.int8_matmul_plain(x_q, xs, w_q, ws)
     assert ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item() <= 1e-6
+    assert torch.equal(got, want)  # the int32 sum is exact, the epilogue rounds as the plain one
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", G_SHAPES)
+def test_int8_linear_kernel_matches_plain_composition(gen, m, k, n, dtype):
+    """The serving instance (one launch: row quantization, product, cast,
+    bias) is bitwise the plain composition on the card, with and without a
+    bias, and so is its two-launch form."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    x[0] = 0  # an all-zero row: scale 1e-8 / 127
+    w_q, ws = Q.quantize_weight(torch.randn((n, k), generator=gen, device="cuda") * 0.02)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    for b in (bias, None):
+        before, before_tpu = Q.KERNEL_LINEAR.launches, Q.KERNEL.launches
+        got = Q.linear_w8a8(x, w_q, ws, b)
+        assert Q.KERNEL_LINEAR.launches == before + 1 and Q.KERNEL.launches == before_tpu
+        assert got.dtype == dtype and got.shape == (m, n)
+        want = Q.linear_w8a8_plain(x, w_q, ws, b)
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+        assert torch.equal(Q.linear_w8a8_cuda(x, w_q, ws, b, launches=2), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 4096, 1024), (1, 4096, 1024), (130, 2008, 300),
+                                   (64, 1152, 512)])
+def test_int8_kernels_every_split_of_k(gen, m, k, n):
+    """Both instances bitwise their plain versions at every split of k
+    (partial tiles through the TMA path and, at k % 16 != 0, the cp.async
+    one; a split count that would leave a split empty, 4 of 9 k steps, is
+    lowered), launched twice: the int32 sums are order-free."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w_q, ws = Q.quantize_weight(torch.randn((n, k), generator=gen, device="cuda") * 0.02)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    x_q, xs = Q.quantize_rows(x)
+    want, want_lin = Q.int8_matmul_plain(x_q, xs, w_q, ws), Q.linear_w8a8_plain(x, w_q, ws, bias)
+    for splits in (1, 2, 3, 4, 8):
+        for _ in range(2):
+            assert torch.equal(Q.int8_matmul_cuda(x_q, xs, w_q, ws, splits=splits), want), splits
+            assert torch.equal(Q.linear_w8a8_cuda(x, w_q, ws, bias, splits=splits), want_lin), \
+                splits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows_divides_truly_on_the_card(gen, dtype):
+    """quantize_rows gives the CPU's int8 values and scales on the card: its
+    two divisions are true divisions on both devices; and kernel G's row
+    phase (its division by a reciprocal and two corrections) gives them too,
+    over 8M values whose rows span e^(+-9) in scale, with zero rows."""
+    x = torch.randn((512, 1024), generator=gen, device="cuda") * torch.rand(
+        (512, 1), generator=gen, device="cuda") * 10
+    x = x.to(dtype)
+    q, s = Q.quantize_rows(x)
+    q_cpu, s_cpu = Q.quantize_rows(x.cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    for k in (4096, 4224, 5000):  # the row held in registers, two passes, k % 16 != 0
+        x = (torch.randn((2048, k), generator=gen, device="cuda") * torch.exp(
+            torch.randn((2048, 1), generator=gen, device="cuda") * 3)).to(dtype)
+        x[::97] = 0
+        before = Q.KERNEL_LINEAR.launches
+        q_k, s_k = Q.quantize_rows_cuda(x)
+        assert Q.KERNEL_LINEAR.launches == before + 1
+        q, s = Q.quantize_rows(x)
+        assert torch.equal(q_k, q) and torch.equal(s_k, s), k
 
 
 def test_w8a8_linear_launches_the_int8_kernel(gen):
@@ -361,9 +434,10 @@ def test_w8a8_linear_launches_the_int8_kernel(gen):
     from f5_tts_tpu_torch.models.layers import linear
 
     x = torch.randn((3, 50, 256), generator=gen, device="cuda").to(torch.bfloat16)
-    before = Q.KERNEL.launches
+    before = Q.KERNEL_LINEAR.launches
     y = linear(lin, x)
-    assert Q.KERNEL.launches == before + 1 and y.dtype == torch.bfloat16 and y.shape == (3, 50, 384)
+    assert Q.KERNEL_LINEAR.launches == before + 1 and y.dtype == torch.bfloat16 and \
+        y.shape == (3, 50, 384)
     want = Q.linear_w8a8(x.cpu(), lin.weight_q.cpu(), lin.w_scale.cpu(), lin.bias.cpu())
     assert (y.cpu().float() - want.float()).abs().max().item() <= 1e-2
 
@@ -384,7 +458,9 @@ def test_pipelined_flash_kernel_matches_plain(gen, n, lens):
             assert torch.all(got[lens.index(0)] == 0)
 
 
-@pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200)])
+@pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200),
+                                   (8, 2048, 64), (256, 2048, 512), (130, 4096, 300),
+                                   (64, 20, 36), (96, 1000, 256)])
 def test_fused_ln_matmul_kernel_matches_plain(gen, m, k, n):
     args = XI.inputs(m, k, n, "cuda", seed=7)
     before = XI.KERNEL.launches
@@ -393,6 +469,9 @@ def test_fused_ln_matmul_kernel_matches_plain(gen, m, k, n):
     want = XI.fused_ln_matmul_plain(*args).float()
     err = (got - want).abs() / want.abs().max()
     assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
-    with pytest.raises(ValueError, match="shared-memory"):
-        XI.fused_ln_matmul(*XI.inputs(8, 2048, 64, "cuda"))
 
+
+def test_fused_ln_matmul_kernel_refuses_fp32_x(gen):
+    x, w, bias, sc, sh = XI.inputs(8, 2048, 64, "cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        XI.fused_ln_matmul(x.float(), w, bias, sc, sh)

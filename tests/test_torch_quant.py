@@ -13,6 +13,13 @@ Inputs come from numpy seeds, fp32 unless a test says bf16; the JAX Pallas
   still agree in all but at most 0.1% of the entries, by one step.
 - ``int8_matmul_plain`` equals JAX's kernel on the same int8 inputs (rtol
   1e-6: the int32 sum is exact on both sides).
+- The serving linear's plain version (``linear_w8a8_plain``, what kernel
+  G's serving instance computes in one launch on the card) is JAX
+  ``layers.linear`` on a ``kernel_q`` tree bit for bit, in bf16 and fp32,
+  at ragged shapes, with an all-zero row and values whose quotient by the
+  scale sits on a rounding half; a numpy emulation of the kernel's
+  quantize arithmetic (true fp32 division, rounding to x's dtype, then
+  rint) is JAX ``quantize_rows`` bit for bit.
 - The quantized weights are JAX's ``kernel_q`` leaves, name for name and
   value for value, for DiT and MMDiT; UNetT raises ``ValueError`` (JAX a
   ``KeyError``).
@@ -36,6 +43,7 @@ import torch
 
 from f5_tts_tpu.infer import engine as JE
 from f5_tts_tpu.models import dit as JD
+from f5_tts_tpu.models import layers as JL
 from f5_tts_tpu.models import mmdit as JM
 from f5_tts_tpu.models.configs import ModelConfig as JModelConfig
 from f5_tts_tpu.ops import quant as JQ
@@ -127,6 +135,95 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take():
         TQ.int8_matmul_cuda(x_q.float(), torch.ones((4, 1)), x_q, torch.ones((4,)))
     with pytest.raises(ValueError, match="w_scale"):
         TQ.int8_matmul_cuda(x_q, torch.ones((4, 1)), x_q, torch.ones((1, 4)))
+
+
+def _rows_with_edges(seed, m, k, dtype):
+    """_rows at [m, k] in dtype, with an all-zero row and a row whose
+    scale is exactly 2 and whose values are 2 (j + 0.5): their quotients
+    by the scale are halves, which round to even."""
+    x = _rows(seed, (m, k))
+    x[min(1, m - 1)] = 0.0
+    if m > 2:
+        j = np.arange(k) % 127 - 63.0
+        x[2] = 2.0 * (j + 0.5)
+        x[2, 0] = 254.0  # the row max: scale = 254 / 127 = 2
+    return jnp.asarray(x).astype(dtype)
+
+
+def _emulated_quantize_rows(x32, dtype):
+    """Kernel G's quantize arithmetic in numpy: the row max, the scale
+    max(amax, 1e-8) / 127 and x / scale by true fp32 division, each rounded
+    to x's dtype, then rint (half to even) and the clip."""
+    to = (lambda a: a.astype(jnp.bfloat16).astype(np.float32)) if dtype == "bfloat16" else (
+        lambda a: a)
+    amax = np.abs(x32).max(axis=-1, keepdims=True)
+    scale = to(to(np.maximum(amax, np.float32(1e-8))) / np.float32(127.0))
+    q = np.clip(np.rint(to(x32 / scale)), -127, 127).astype(np.int8)
+    return q, scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_quantize_arithmetic_matches_jax(dtype):
+    x = _rows_with_edges(7, 64, 384, dtype)
+    x32 = np.asarray(x.astype(jnp.float32))
+    q, scale = _emulated_quantize_rows(x32, dtype)
+    qj, sj = JQ.quantize_rows(x)
+    np.testing.assert_array_equal(q, np.asarray(qj))
+    np.testing.assert_array_equal(scale, np.asarray(sj))
+    assert scale[1, 0] == np.float32(_emulated_quantize_rows(np.zeros((1, 1), np.float32),
+                                                             dtype)[1][0, 0])
+    assert scale[2, 0] == 2.0 and (q[2, 1:6] == np.rint(np.arange(1, 6) - 63.0 + 0.5)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,n", [((96, 192), 80), ((37, 200), 72), ((2, 19, 64), 48)])
+def test_linear_w8a8_plain_matches_jax_linear_bitwise(dtype, shape, n):
+    """The serving linear (JAX layers.linear's kernel_q branch): quantize,
+    int8 product, cast, bias, in x's dtype, bit for bit."""
+    m, k = int(np.prod(shape[:-1])), shape[-1]
+    x = _rows_with_edges(m + k, m, k, dtype).reshape(shape)
+    rng = np.random.default_rng(n)
+    w_q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    ws = rng.uniform(1e-3, 1e-1, (1, n)).astype(np.float32)
+    bias = jnp.asarray(rng.standard_normal(n).astype(np.float32) * 0.1).astype(dtype)
+    want = np.asarray(JL.linear({"kernel_q": jnp.asarray(w_q), "w_scale": jnp.asarray(ws),
+                                 "bias": bias}, x).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = TQ.linear_w8a8(torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt),
+                         torch.from_numpy(np.ascontiguousarray(w_q.T)), torch.from_numpy(ws[0]),
+                         torch.from_numpy(np.array(bias.astype(jnp.float32))).to(tdt))
+    assert got.dtype == tdt and tuple(got.shape) == (*shape[:-1], n)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_split_k_keeps_every_split_long_and_none_empty():
+    sms = 132
+    for m, k, n in [(1024, 1024, 3072), (1024, 1024, 1024), (1024, 1024, 4096),
+                    (1024, 4096, 1024), (1, 1024, 3072), (1, 4096, 1024), (4096, 1024, 3072),
+                    (37, 1000, 200), (128, 65536, 256)]:
+        s = TQ.split_k(m, n, k, sms)
+        steps = -(-k // TQ.TILE_K)
+        per = -(-steps // s)
+        assert 1 <= s <= TQ.SPLIT_MAX and (s - 1) * per < steps  # no empty split
+        assert s == 1 or (per >= TQ.SPLIT_MIN_STEPS and TQ._tiles(m, n) * s <= sms)
+    assert TQ.split_k(1024, 1024, 4096, sms) == 2 and TQ.split_k(1024, 3072, 1024, sms) == 1
+
+
+def test_linear_w8a8_dispatch_and_refusals():
+    x = torch.ones((3, 8), dtype=torch.bfloat16)
+    w_q, ws = TQ.quantize_weight(torch.ones((4, 8)))
+    assert torch.equal(TQ.linear_w8a8(x, w_q, ws), TQ.linear_w8a8_plain(x, w_q, ws))
+    with pytest.raises(ValueError, match="no implementation"):
+        TQ.linear_w8a8(x.to("meta"), w_q.to("meta"), ws.to("meta"))
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        TQ.linear_w8a8_cuda(x.half(), w_q, ws)
+    with pytest.raises(ValueError, match="w_q"):
+        TQ.linear_w8a8_cuda(x, w_q.float(), ws)
+    with pytest.raises(ValueError, match="bias"):
+        TQ.linear_w8a8_cuda(x, w_q, ws, torch.zeros(4))
+    with pytest.raises(ValueError, match="k = "):
+        TQ.linear_w8a8_cuda(torch.zeros((1, TQ.K_MAX + 1), dtype=torch.bfloat16),
+                            torch.zeros((1, TQ.K_MAX + 1), dtype=torch.int8), torch.ones(1))
 
 
 def _dit_carried(seed=0):
