@@ -76,13 +76,16 @@ Run from the repository root:  python3 chip_smoke.py
     (``int8_matmul``) against ``int8_matmul_plain``, and the serving linear
     (``linear_w8a8``: row quantization, product, cast and bias in one
     launch; also its two-launch form, and its row phase alone against
-    ``quantize_rows``) against the plain composition on the card.  Where PyTorch's division of the scale by a Python scalar rounds
-    differently from the true division.  Times both instances beside their
-    bounds, ``torch._int_mm`` plus the scale epilogue and the unfused
-    serving composition on it (yardsticks), and dense bf16 ``F.linear``,
-    with the split of k per shape; both instances at every split of k at
-    qkv and ff out (and ff out at k = 3968); the host's time to issue one
-    eager call of the serving linear and of ``F.linear``.
+    ``quantize_rows``) against the plain composition on the card; a row
+    holding a NaN gives a NaN scale and output row on both sides.  Where
+    PyTorch's division of the scale by a Python scalar rounds differently
+    from the true division.  Times both instances beside their bounds,
+    ``torch._int_mm`` plus the scale epilogue and the unfused serving
+    composition on it (yardsticks), and dense bf16 ``F.linear``, with the
+    split of k per shape; both instances at every split of k at qkv and ff
+    out (and ff out at k = 3968); the host's time to issue one eager call
+    of the serving linear in its one- and two-launch forms and of
+    ``F.linear`` at each serving shape.
 15. W8A8 serving: a dense and a W8A8 F5TTS_v1_Base engine serve the same
     short request with the same seed; the generated mels must differ, by
     less than ``MEL_MAE_GATE``; G's serving instance launches 4 x depth x
@@ -1495,6 +1498,49 @@ INT8_SHAPES = [(1024, k, n) for k, n in SERVING_KN] + [
     (5, 40, 24)]
 
 
+HOST_ROUNDS, HOST_CALLS = 7, 300
+
+
+def _host_us(torch, fns: dict) -> dict:
+    """The host's time to issue one eager call of each function, in us: the
+    median over ``HOST_ROUNDS`` rounds of ``HOST_CALLS`` calls, the
+    functions taking turns within each round, the card drained between."""
+    times = {tag: [] for tag in fns}
+    for _ in range(HOST_ROUNDS):
+        for tag, fn in fns.items():
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            times[tag].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+    return {tag: sorted(v)[len(v) // 2] for tag, v in times.items()}
+
+
+def _check_nan_row(torch, Q, x, w_q, ws, bias, tag):
+    """A row of x holding a NaN: kernel G's serving instance and its row
+    phase give a NaN scale and a NaN output row, as the plain composition
+    does, and every other row bitwise as before."""
+    x = x.clone()
+    x[-1, x.shape[1] // 2] = float("nan")
+    plain = Q.linear_w8a8_plain(x, w_q, ws, bias)
+    q_p, s_p = Q.quantize_rows(x)
+    for launches in (1, 2):
+        lin = Q.linear_w8a8_cuda(x, w_q, ws, bias, launches=launches)
+        q_k, s_k = Q.quantize_rows_cuda(x)
+        torch.cuda.synchronize()
+        if not (lin[-1].isnan().all() and s_k[-1].isnan().all() and s_p[-1].isnan().all()
+                and plain[-1].isnan().all()):
+            fail(f"kernel G {tag} launches={launches}: a row holding a NaN does not give a NaN "
+                 f"scale and output row on both sides")
+        if not (torch.equal(lin[:-1], plain[:-1]) and torch.equal(q_k[:-1], q_p[:-1])
+                and torch.equal(s_k[:-1], s_p[:-1])):
+            fail(f"kernel G {tag} launches={launches}: the rows without NaN are not bitwise "
+                 f"the plain composition beside a NaN row")
+
+
 def phase_int8(torch):
     """Kernel G's two instances against their plain versions on the card,
     bitwise, in bf16 and fp32 x: the TPU kernel's function against
@@ -1504,7 +1550,10 @@ def phase_int8(torch):
     (bf16): the serving instance beside its bound, the two-launch form, the
     TPU instance beside its own bound, ``torch._int_mm`` + the scale epilogue
     (library), the unfused serving composition on ``_int_mm``, and dense
-    bf16 ``F.linear``; the split of k per shape."""
+    bf16 ``F.linear``; the split of k per shape; the host's time per eager
+    call (``_host_us``).  Returns the rows, the TPU instance's largest
+    absolute and relative differences and the serving instance's largest
+    absolute difference (all 0 when bitwise)."""
     from f5_tts_tpu_torch.ops import quant as Q
     from f5_tts_tpu_torch.utils.device import device_ms
 
@@ -1519,7 +1568,7 @@ def phase_int8(torch):
         print(f"int8 scale {dtype}: amax / 127.0 (a Python scalar) differs from the true "
               f"division on the card in {(by_scalar != true_div).sum().item()} of 4096 rows, "
               f"moving {moved.sum().item()} int8 values; quantize_rows divides truly", flush=True)
-    rows, worst_rel, worst_abs = [], 0.0, 0.0
+    rows, worst_rel, worst_abs, lin_abs = [], 0.0, 0.0, 0.0
     for m, k, n in INT8_SHAPES:
         w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
         w_q, ws = Q.quantize_weight(w)
@@ -1546,11 +1595,14 @@ def phase_int8(torch):
                 for launches in (1, 2):
                     lin = Q.linear_w8a8_cuda(x, w_q, ws, b, launches=launches)
                     torch.cuda.synchronize()
+                    err = (lin.float() - plain.float()).abs().max().item()
+                    lin_abs = max(lin_abs, err)
                     if not torch.equal(lin, plain):
-                        err = (lin.float() - plain.float()).abs().max().item()
                         fail(f"linear_w8a8 {dtype} m={m} k={k} n={n} bias={b is not None} "
                              f"launches={launches}: not bitwise the plain composition "
                              f"(max abs {err})")
+            if k == 1024 or k % 16:  # a NaN row: the register and two-pass rows, gathers
+                _check_nan_row(torch, Q, x, w_q, ws, bias, f"{dtype} m={m} k={k} n={n}")
             if dtype != torch.bfloat16 or k % 16:
                 continue
             iters = 50
@@ -1560,6 +1612,7 @@ def phase_int8(torch):
             tpu_ms = device_ms(lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws), iters)
             plain_ms = device_ms(lambda: Q.linear_w8a8_plain(x, w_q, ws, bias), 3)
             tpu_plain_ms = device_ms(lambda: Q.int8_matmul_plain(x_q, xs, w_q, ws), 3)
+            w_bf16 = w.to(torch.bfloat16)
             lib_ms = unfused_ms = None
             if m > 16 and k % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes on CUDA
                 w_t = w_q.t()
@@ -1570,15 +1623,19 @@ def phase_int8(torch):
                     return (torch._int_mm(q, w_t).float() * s * ws).to(x.dtype) + bias
 
                 unfused_ms = device_ms(unfused, iters)
-            w_bf16 = w.to(torch.bfloat16)
             dense_ms = device_ms(lambda: torch.nn.functional.linear(x, w_bf16, bias), iters)
             bms, by = _int8_bound(m, k, n, x_bytes=2)
             tpu_bms, tpu_by = _int8_bound(m, k, n)
+            host = _host_us(torch, {
+                "one_launch": lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias),
+                "two_launch": lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias, launches=2),
+                "dense_bf16": lambda: torch.nn.functional.linear(x, w_bf16, bias)})
             rows.append(dict(m=m, k=k, n=n, split=split, ms=ms, two_launch_ms=two_ms, row_ms=row_ms,
                              tpu_ms=tpu_ms, plain_ms=plain_ms, tpu_plain_ms=tpu_plain_ms,
                              library_ms=lib_ms,
                              unfused_ms=unfused_ms, dense_bf16_ms=dense_ms, bound_ms=bms,
-                             bound_by=by, tpu_bound_ms=tpu_bms, tpu_bound_by=tpu_by))
+                             bound_by=by, tpu_bound_ms=tpu_bms, tpu_bound_by=tpu_by,
+                             host_us=host))
             fmt = lambda v: "n/a" if v is None else f"{v:.4f} ms"  # noqa: E731
             print(f"kernel G m={m} k={k} n={n} split {split}: bitwise both instances, bf16 and "
                   f"fp32; device time: serving {ms:.4f} ms (bound {bms:.4f} ms, {by}; "
@@ -1586,13 +1643,14 @@ def phase_int8(torch):
                   f"phase alone {row_ms:.4f} ms), "
                   f"TPU instance {tpu_ms:.4f} ms (bound {tpu_bms:.4f} ms, {tpu_by}), plain "
                   f"{plain_ms:.4f} ms, _int_mm+epilogue {fmt(lib_ms)}, quantize_rows+_int_mm+"
-                  f"epilogue+cast+bias {fmt(unfused_ms)}, bf16 F.linear {dense_ms:.4f} ms",
-                  flush=True)
+                  f"epilogue+cast+bias {fmt(unfused_ms)}, bf16 F.linear {dense_ms:.4f} ms; host "
+                  f"time per eager call (median of {HOST_ROUNDS} rounds of {HOST_CALLS}): one "
+                  f"launch {host['one_launch']:.2f} us, two launches {host['two_launch']:.2f} us, "
+                  f"bf16 F.linear {host['dense_bf16']:.2f} us", flush=True)
         print(f"kernel G m={m} k={k} n={n}: both instances bitwise their plain versions "
               f"(bf16 and fp32 x; with and without bias; one and two launches)", flush=True)
     # every split of k at qkv and ff out, and ff out at a k that is not a
-    # power of two (bf16 x with a bias); the host's time to issue one eager
-    # call, against bf16 F.linear
+    # power of two (bf16 x with a bias)
     for m, k, n in ((1024, 1024, 3072), (1024, 4096, 1024), (1024, 3968, 1024)):
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
@@ -1607,21 +1665,7 @@ def phase_int8(torch):
                 lambda: Q.int8_matmul_cuda(x_q, xs, w_q, ws, splits=sp), 50)
         print(f"kernel G m={m} k={k} n={n} by split of k, device time: " + ", ".join(
             f"{key} {v:.4f} ms" for key, v in t.items()), flush=True)
-    w_bf16 = w.to(torch.bfloat16)
-    host_us = {}
-    for tag, fn in (("linear_w8a8", lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias)),
-                    ("bf16 F.linear", lambda: torch.nn.functional.linear(x, w_bf16, bias))):
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(400):
-            fn()
-        host_us[tag] = (time.perf_counter() - t0) / 400 * 1e6
-        torch.cuda.synchronize()
-    print("kernel G m=1024 k=3968 n=1024: host time to issue one eager call " + ", ".join(
-        f"{key} {v:.1f} us" for key, v in host_us.items()), flush=True)
-    return rows, worst_abs, worst_rel
+    return rows, worst_abs, worst_rel, lin_abs
 
 
 def _quantized_engine(torch, tts):
@@ -1996,7 +2040,7 @@ def main() -> int:
     print(f"summary: full-width {full}; MMDiT gradient {mm_grad}; E2TTS serving {e2tts}; MMDiT "
           f"serving {mmdit}; E2TTS training {e2tts_train}", flush=True)
 
-    int8_rows, int8_abs, int8_rel = phase_int8(torch)
+    int8_rows, int8_abs, int8_rel, lin_abs = phase_int8(torch)
     lap("14 (kernel G)")
     w8a8 = phase_w8a8_serving(torch)  # counts set to 0 before each timed request
     lap("15 (W8A8 serving)")
@@ -2091,14 +2135,16 @@ def main() -> int:
     g = next(r for r in int8_rows if (r["m"], r["k"], r["n"]) == (1024, 1024, 4096))
     g_shapes = {f"{r['m']}x{r['k']}x{r['n']}": {
         key: r[key] for key in ("split", "ms", "two_launch_ms", "row_ms", "tpu_ms", "bound_ms",
-                                "tpu_bound_ms", "library_ms", "unfused_ms", "dense_bf16_ms")}
+                                "tpu_bound_ms", "library_ms", "unfused_ms", "dense_bf16_ms",
+                                "host_us")}
         for r in int8_rows if r["m"] == 1024}
     h = h_rows[1024]
     g8 = "f5_tts_tpu_torch/csrc/int8_matmul.cu"
     kernels += [
         {"name": "int8_linear", "route": "cuda", "source": g8,
          "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"]["G"],
-         "max_abs_err": 0.0, "err_kind": "bitwise the plain composition on the card",
+         "max_abs_err": lin_abs, "err_kind": "against the plain composition on the card "
+                                             "(0 when bitwise, as phase 14 requires)",
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": g["bound_by"], "library_ms": g["unfused_ms"],
          "library_covers": "quantize_rows + torch._int_mm + the scale epilogue + cast + bias",

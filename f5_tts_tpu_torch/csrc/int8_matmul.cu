@@ -26,7 +26,11 @@
 // division by a Python scalar multiplies by 1/127 instead, which the plain
 // version avoids by dividing by a tensor) rounded to TX, x / scale by true
 // division rounded to TX (div_rn below), then rint (half to even) and a
-// clip to +-127.
+// clip to +-127.  The bitwise claim is for finite x.  The row max
+// propagates NaN as torch.amax does, so a row holding a NaN gets a NaN
+// scale and a NaN output row on both sides (its int8 values are -127 here,
+// whatever the cast of NaN to int8 gives there); rows holding an infinity
+// are not covered.
 //
 // Design.  A persistent kernel of 256 threads (two consumer warpgroups).
 // 1. Row quantization (serving instance): each warp takes whole rows of x,
@@ -112,10 +116,18 @@ __device__ __forceinline__ float round_to(float v) {
   }
 }
 
+// max(a, b), NaN where either is, as torch.amax and torch.clamp give it
+// (fmaxf would drop the NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // quantize_rows' scale of a row: max(amax, 1e-8) / 127, each step in TX
 template <typename TX>
 __device__ __forceinline__ float row_scale(float amax) {
-  return round_to<TX>(__fdiv_rn(round_to<TX>(fmaxf(amax, 1e-8f)), 127.f));
+  return round_to<TX>(__fdiv_rn(round_to<TX>(max_nan(amax, 1e-8f)), 127.f));
 }
 
 // x / s rounded as the IEEE division rounds it, from y = RN(1 / s) (one
@@ -158,11 +170,11 @@ __device__ __forceinline__ void quantize_rows_phase(const Args& a) {
           float v[8];
           unpack8(raw[i], v);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+          for (int e = 0; e < 8; ++e) amax = max_nan(amax, fabsf(v[e]));
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
-          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+          amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
         }
         const float s = row_scale<TX>(amax), y = __frcp_rn(s);
 #pragma unroll
@@ -188,14 +200,14 @@ __device__ __forceinline__ void quantize_rows_phase(const Args& a) {
         float v[8];
         load8(row + c, v);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+        for (int e = 0; e < 8; ++e) amax = max_nan(amax, fabsf(v[e]));
       }
     } else {
-      for (int c = lane; c < a.k; c += 32) amax = fmaxf(amax, fabsf(to_float(row[c])));
+      for (int c = lane; c < a.k; c += 32) amax = max_nan(amax, fabsf(to_float(row[c])));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
     }
     const float s = row_scale<TX>(amax), y = __frcp_rn(s);
     if constexpr (VEC) {

@@ -19,8 +19,6 @@ import subprocess
 import threading
 import time
 
-import torch
-
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -144,23 +142,3 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: CUDA error {code}: "
                                f"{self._err(code).decode(errors='replace')}")
         self.launches += 1
-
-
-_SYNC: dict = {}  # device -> int32 words the kernels leave as they found them
-
-
-def sync_words(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 words on ``device`` for the kernels' cross-block
-    signals (G and I: the grid barrier's word at 0; G: its split tiles'
-    arrival counters after it), zeroed once here.  Every launch leaves them
-    as it found them (the barrier word's top bit aside, which nothing reads
-    as a count), so they are shared by every launch on the device; two
-    launches of these kernels must not run concurrently on two streams."""
-    buf = _SYNC.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the kernels' sync words must be allocated before a CUDA graph "
-                               "capture: launch the kernel once outside the capture first")
-        buf = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
-        _SYNC[device] = buf
-    return buf

@@ -40,10 +40,9 @@ and anything it does not take raises):
 
 Both split k across blocks when there are fewer output tiles than SMs
 (``split_k``).  The per-tile arrival counters and the serving instance's
-grid barrier live in ``cuda_build.sync_words``, its quantized rows and the
-split partial sums in one scratch buffer per device (``_scratch``): all are
-shared by every launch on a device, so launches of G on two streams of one
-device at once are not supported.
+grid barrier word, its quantized rows and the split partial sums live in
+the current stream's workspaces (``ops/workspace.py``): launches on two
+streams never share them, and a CUDA graph's are never freed under it.
 """
 
 from __future__ import annotations
@@ -54,7 +53,8 @@ import functools
 import torch
 import torch.nn as nn
 
-from f5_tts_tpu_torch.ops.cuda_build import CudaKernel, sync_words
+from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.workspace import workspace
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,7 +67,6 @@ TILE_M, TILE_N, TILE_K = 128, 256, 128  # kernel G's output tile and k step
 SPLIT_MAX = 8
 SPLIT_MIN_STEPS = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
-_SCRATCH: dict = {}  # device -> kernel G's uint8 scratch
 
 
 def _div127(t: torch.Tensor) -> torch.Tensor:
@@ -163,19 +162,11 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _scratch(device: torch.device, nbytes: int) -> torch.Tensor:
-    """Kernel G's per-device scratch (the serving instance's int8 rows and
-    their scales, the split partial sums), at least ``nbytes``: each launch
-    is done with it before the next one on the stream starts, so one
-    buffer serves them all (grown outside a CUDA graph capture)."""
-    buf = _SCRATCH.get(device)
-    if buf is None or buf.numel() < nbytes:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("kernel G's scratch must grow before a CUDA graph capture: "
-                               "launch the kernel once outside the capture first")
-        buf = torch.empty(max(nbytes, 1 << 24), dtype=torch.uint8, device=device)
-        _SCRATCH[device] = buf
-    return buf
+def _sync(device: torch.device, tiles: int) -> int:
+    """The address of the cross-block words (zeroed, and left so by every
+    launch): the grid barrier's at 0, a split tile's arrival counter after
+    it, shared with kernel I on the stream."""
+    return workspace(device, "sync", 4 * (1 + tiles), zero=True).data_ptr()
 
 
 def _align(nbytes: int) -> int:
@@ -203,10 +194,10 @@ def int8_matmul_cuda(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor
     dev = x_q.device
     splits = splits or split_k(m, n, k, _sms(dev))
     tiles = _tiles(m, n)
-    part = _scratch(dev, tiles * splits * TILE_M * TILE_N * 4) if splits > 1 else None
+    part = (workspace(dev, "G scratch", tiles * splits * TILE_M * TILE_N * 4)
+            if splits > 1 else None)
     KERNEL.launch(x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                  out.data_ptr(), _ptr(part), sync_words(dev, 1 + tiles).data_ptr(), m, n, k,
-                  splits, _stream(dev))
+                  out.data_ptr(), _ptr(part), _sync(dev, tiles), m, n, k, splits, _stream(dev))
     return out
 
 
@@ -270,10 +261,11 @@ def linear_w8a8_cuda(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     splits = splits or split_k(m, n, k, _sms(dev))
     tiles = _tiles(m, n)
     xq_bytes, xs_bytes = _align(m * k), _align(4 * m)
-    scratch = _scratch(dev, xq_bytes + xs_bytes + tiles * splits * TILE_M * TILE_N * 4)
+    scratch = workspace(dev, "G scratch",
+                        xq_bytes + xs_bytes + tiles * splits * TILE_M * TILE_N * 4)
     x_q = scratch.data_ptr()
     part = x_q + xq_bytes + xs_bytes if splits > 1 else None
-    sync, stream = sync_words(dev, 1 + tiles).data_ptr(), _stream(dev)
+    sync, stream = _sync(dev, tiles), _stream(dev)
     for phases in ((3,) if launches == 1 else (1, 2)):
         KERNEL_LINEAR.launch(x2.data_ptr(), code, x_q, x_q + xq_bytes, w_q.data_ptr(),
                              w_scale.data_ptr(), _ptr(bias), out.data_ptr(), part, sync, m, n,
@@ -296,7 +288,7 @@ def quantize_rows_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if m:
         KERNEL_LINEAR.launch(x.data_ptr(), _DTYPE_CODE[x.dtype], x_q.data_ptr(),
                              x_scale.data_ptr(), None, None, None, None, None,
-                             sync_words(x.device, 1).data_ptr(), m, 1, k, 1, 1,
+                             _sync(x.device, 0), m, 1, k, 1, 1,
                              _stream(x.device))
     return x_q, x_scale
 

@@ -30,7 +30,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from f5_tts_tpu_torch.ops.cuda_build import CudaKernel, sync_words
+from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.workspace import workspace
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,7 +83,7 @@ def fused_ln_matmul_cuda(x, w, bias, scale1p, shift) -> torch.Tensor:
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)  # row mean, rstd
     KERNEL.launch(x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale1p.data_ptr(),
                   shift.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                  sync_words(x.device, 1).data_ptr(), m, n, k,
+                  workspace(x.device, "sync", 4, zero=True).data_ptr(), m, n, k,
                   torch.cuda.current_stream(x.device).cuda_stream)
     return out
 

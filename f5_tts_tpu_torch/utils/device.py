@@ -31,7 +31,10 @@ def device_ms(fn, iters: int, reps: int = 5) -> float:
     wherever a call's kernels take less than its Python wrapper (tens of
     microseconds); the graph replays the launches with no host work between
     them.  ``fn`` must be capturable: no host synchronisation, no allocation
-    outside PyTorch's allocator."""
+    outside PyTorch's allocator.  The graph is captured on a stream of its
+    own, whose kernel workspaces (``ops/workspace.py``) go with it."""
+    from f5_tts_tpu_torch.ops.workspace import release
+
     fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
@@ -40,7 +43,7 @@ def device_ms(fn, iters: int, reps: int = 5) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -52,4 +55,5 @@ def device_ms(fn, iters: int, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     del graph
+    release(side)
     return start.elapsed_time(end) / (reps * iters)

@@ -22,8 +22,11 @@ Kernel G (the W8A8 int8 product) must equal its plain version bitwise (and
 so within 1e-6 relative: the int32 sum is exact), at the serving shapes,
 m = 1 and 4096 and ragged m, k, n; its serving instance (quantization,
 product, cast and bias in one launch) must equal the plain composition on
-the card bitwise in bf16 and fp32, and a W8A8 linear on the card must
-launch it.
+the card bitwise in bf16 and fp32 (a row holding a NaN: a NaN scale and
+output row on both sides), and a W8A8 linear on the card must launch it.
+Its workspaces (``ops/workspace.py``) are per stream: launches on two
+streams at once stay bitwise, and a buffer a CUDA graph captured is never
+freed under the graph (a larger call on its stream raises).
 Kernels H (pipelined flash attention, every tile configuration) and I
 (fused LayerNorm-modulate matmul, K up to 4096 and ragged) are held as
 kernel A: 2e-2 max, 2e-3 mean error, I's relative to the largest
@@ -426,6 +429,106 @@ def test_quantize_rows_divides_truly_on_the_card(gen, dtype):
         assert Q.KERNEL_LINEAR.launches == before + 1
         q, s = Q.quantize_rows(x)
         assert torch.equal(q_k, q) and torch.equal(s_k, s), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1024, 4224, 1000])  # the row in registers, two passes, gathers
+def test_int8_linear_kernel_nan_row(gen, dtype, k):
+    """A row holding a NaN gets a NaN scale and a NaN output row from the
+    serving instance and its row phase, as from the plain composition (the
+    row max propagates NaN as torch.amax does); the other rows stay
+    bitwise."""
+    m, n = 40, 256
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    x[7, k // 3] = float("nan")
+    w_q, ws = Q.quantize_weight(torch.randn((n, k), generator=gen, device="cuda") * 0.02)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    want = Q.linear_w8a8_plain(x, w_q, ws, bias)
+    q, s = Q.quantize_rows(x)
+    rest = torch.arange(m, device="cuda") != 7
+    for launches in (1, 2):
+        got = Q.linear_w8a8_cuda(x, w_q, ws, bias, launches=launches)
+        assert torch.equal(got.isnan(), want.isnan()) and got[7].isnan().all()
+        assert torch.equal(got[rest], want[rest])
+    q_k, s_k = Q.quantize_rows_cuda(x)
+    assert torch.equal(s_k.isnan(), s.isnan()) and s_k[7].isnan().all()
+    assert torch.equal(s_k[rest], s[rest]) and torch.equal(q_k[rest], q[rest])
+
+
+def _g_case(gen, m, k=4096, n=1024):
+    """Inputs of the serving instance at a shape that splits k (partials
+    and arrival counters in the workspaces), and its plain output."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w_q, ws = Q.quantize_weight(torch.randn((n, k), generator=gen, device="cuda") * 0.02)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    return (x, w_q, ws, bias), Q.linear_w8a8_plain(x, w_q, ws, bias)
+
+
+def test_int8_kernel_workspaces_are_per_stream(gen):
+    """Kernel G launched on two streams at once, at a split of k, many
+    times over: each stream has its own scratch and arrival counters, so
+    every output stays bitwise its plain version."""
+    from f5_tts_tpu_torch.ops import workspace as W
+
+    cases = [_g_case(gen, m) for m in (1024, 512)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, (args, _)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(Q.linear_w8a8_cuda(*args, splits=4))
+    torch.cuda.synchronize()
+    for got, (_, want) in zip(outs, cases):
+        assert all(torch.equal(o, want) for o in got)
+    ptrs = set()
+    for s in streams:
+        with torch.cuda.stream(s):
+            ptrs.add(W.workspace(torch.device("cuda", torch.cuda.current_device()),
+                                 "G scratch", 1).data_ptr())
+    assert len(ptrs) == 2
+    for s in streams:
+        W.release(s)
+
+
+def test_int8_kernel_workspace_held_by_a_graph(gen):
+    """A CUDA graph replays into the workspaces it captured: a larger call
+    on the capture stream raises instead of freeing them under the graph,
+    the same call on another stream runs, the graph still replays bitwise,
+    and once the stream is released the larger call runs there too.  A
+    capture on a stream with no workspace yet raises (nothing is allocated
+    inside a capture)."""
+    from f5_tts_tpu_torch.ops import workspace as W
+
+    (args, want), (big, want_big) = _g_case(gen, 256), _g_case(gen, 2048)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q.linear_w8a8_cuda(*args, splits=4)  # the workspaces of the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = Q.linear_w8a8_cuda(*args, splits=4)
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="held by a CUDA graph"):
+            Q.linear_w8a8_cuda(*big, splits=4)
+    assert torch.equal(Q.linear_w8a8_cuda(*big, splits=4), want_big)  # another stream
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    del graph
+    W.release(side)
+    with torch.cuda.stream(side):
+        got = Q.linear_w8a8_cuda(*big, splits=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want_big)
+    W.release(side)
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="outside a CUDA graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            Q.linear_w8a8_cuda(*args, splits=4)
 
 
 def test_w8a8_linear_launches_the_int8_kernel(gen):
