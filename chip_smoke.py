@@ -1498,16 +1498,20 @@ INT8_SHAPES = [(1024, k, n) for k, n in SERVING_KN] + [
     (5, 40, 24)]
 
 
-HOST_ROUNDS, HOST_CALLS = 7, 300
+HOST_ROUNDS, HOST_CALLS = 21, 200
 
 
 def _host_us(torch, fns: dict) -> dict:
-    """The host's time to issue one eager call of each function, in us: the
-    median over ``HOST_ROUNDS`` rounds of ``HOST_CALLS`` calls, the
-    functions taking turns within each round, the card drained between."""
+    """The host's time to issue one eager call of each function, in us:
+    ``HOST_ROUNDS`` rounds of ``HOST_CALLS`` calls of each, the order of the
+    functions reversed from one round to the next, the card drained
+    between.  Returns each function's median, and under ``"rounds"`` its
+    time in every round (to count the rounds one function wins)."""
     times = {tag: [] for tag in fns}
-    for _ in range(HOST_ROUNDS):
-        for tag, fn in fns.items():
+    order = list(fns)
+    for r in range(HOST_ROUNDS):
+        for tag in (order if r % 2 == 0 else order[::-1]):
+            fn = fns[tag]
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
@@ -1516,7 +1520,9 @@ def _host_us(torch, fns: dict) -> dict:
                 fn()
             times[tag].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
             torch.cuda.synchronize()
-    return {tag: sorted(v)[len(v) // 2] for tag, v in times.items()}
+    out = {tag: sorted(v)[len(v) // 2] for tag, v in times.items()}
+    out["rounds"] = times
+    return out
 
 
 def _check_nan_row(torch, Q, x, w_q, ws, bias, tag):
@@ -1630,6 +1636,9 @@ def phase_int8(torch):
                 "one_launch": lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias),
                 "two_launch": lambda: Q.linear_w8a8_cuda(x, w_q, ws, bias, launches=2),
                 "dense_bf16": lambda: torch.nn.functional.linear(x, w_bf16, bias)})
+            rounds = host.pop("rounds")
+            host["one_launch_wins"] = sum(
+                a < b for a, b in zip(rounds["one_launch"], rounds["two_launch"]))
             rows.append(dict(m=m, k=k, n=n, split=split, ms=ms, two_launch_ms=two_ms, row_ms=row_ms,
                              tpu_ms=tpu_ms, plain_ms=plain_ms, tpu_plain_ms=tpu_plain_ms,
                              library_ms=lib_ms,
@@ -1645,7 +1654,8 @@ def phase_int8(torch):
                   f"{plain_ms:.4f} ms, _int_mm+epilogue {fmt(lib_ms)}, quantize_rows+_int_mm+"
                   f"epilogue+cast+bias {fmt(unfused_ms)}, bf16 F.linear {dense_ms:.4f} ms; host "
                   f"time per eager call (median of {HOST_ROUNDS} rounds of {HOST_CALLS}): one "
-                  f"launch {host['one_launch']:.2f} us, two launches {host['two_launch']:.2f} us, "
+                  f"launch {host['one_launch']:.2f} us, two launches {host['two_launch']:.2f} us "
+                  f"(one launch cheaper in {host['one_launch_wins']} of {HOST_ROUNDS} rounds), "
                   f"bf16 F.linear {host['dense_bf16']:.2f} us", flush=True)
         print(f"kernel G m={m} k={k} n={n}: both instances bitwise their plain versions "
               f"(bf16 and fp32 x; with and without bias; one and two launches)", flush=True)
