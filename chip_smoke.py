@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds every CUDA kernel from
    ``f5_tts_tpu_torch/csrc`` (nvcc, sm_90a, one process per source), and
-   each kernel instance's registers and spills.
+   each kernel instance's registers, spills and whether ptxas serialised
+   its wgmma (it must not, nor spill, for any instance of kernel H).
 2. Kernel A (masked flash attention) against its plain version at the
    F5TTS_v1_Base shapes [2, 16, n, 64] bf16, n in {256, 512, 1000, 1024, 4096},
    ragged lens and a row with no valid key, and in every configuration
@@ -98,10 +99,14 @@ Run from the repository root:  python3 chip_smoke.py
     with the share of int8 activations that the two quantize differently
     (each quantized linear's input captured on both sides and quantized by
     the plain ``quantize_rows``).
-17. Kernels H (pipelined flash attention) and I (fused LayerNorm-modulate
-    matmul, K = 1024, 2048 and 4096 and ragged shapes), the two
-    experiments, against their plain versions, timed beside kernel A / SDPA
-    and beside the unfused composition.
+17. Kernels H (warp-specialised pipelined flash attention) and I (fused
+    LayerNorm-modulate matmul, K = 1024, 2048 and 4096 and ragged shapes),
+    the two experiments, against their plain versions.  Every instance of
+    H (``exp_pipelined_flash.CONFIGS``) in six cases (``H_CASES``: ragged n,
+    lens of 0, a length across a tile edge, b*h = 128), bitwise in two
+    launches and in a CUDA-graph replay; timed at [2, 16, 1024, 64] and
+    [2, 16, 4096, 64] beside kernel A, SDPA and the plain version, each with
+    its share of the bound.  I timed beside the unfused composition.
 18. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
@@ -1869,39 +1874,71 @@ def phase_w8a8_full_width(torch):
                 max_steps=steps, launches=launched)
 
 
+def _graph_replay(torch, fn):
+    """fn() captured once in a CUDA graph (after a warm-up on the capture
+    stream) and replayed into its output, which is zeroed first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# kernel H's cases (b, n, lens) at 16 heads: the experiment's shape, ragged n
+# with a row of no valid key, a single valid key, n = 4096, a length across a
+# tile edge, and b*h = 128
+H_CASES = ((2, 1024, [1024, 824]), (2, 1000, [0, 963]), (2, 65, [65, 1]), (2, 4096, [4096, 4059]),
+           (2, 1025, [1025, 127]), (8, 1024, [1024, 1000, 1, 64, 129, 512, 1023, 0]))
+
+
 def phase_experiments(torch):
     """Kernels H and I against their plain versions (bf16), timed beside
     kernel A / SDPA and beside the unfused composition (I at K = 1024,
-    2048 and 4096, and at ragged shapes)."""
+    2048 and 4096, and at ragged shapes).  Every instance of H in every
+    case of ``H_CASES``, launched twice and replayed from a CUDA graph,
+    bitwise equal each time."""
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.scripts import exp_fused_ln_matmul as XI
     from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
     from f5_tts_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(60)
-    b, h, dh = 2, 16, 64
+    h, dh = 16, 64
     worst_h = 0.0
     rows_h = {}
-    for n, lens_l in ((1024, [1024, 824]), (1000, [0, 963]), (65, [65, 1]), (4096, [4096, 4059])):
+    for b, n, lens_l in H_CASES:
         q, k, v = (torch.randn((b, h, n, dh), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
         want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens)
-        for bq, bk in XH.CONFIGS:
-            got = XH.flash_pipe_cuda(q, k, v, lens, bq, bk)
+        tag = f"kernel H [{b}, {h}, {n}, {dh}] lens={lens_l}"
+        for cfg in XH.CONFIGS:
+            got = _check_twice(torch, f"{tag} {cfg}", lambda: XH.flash_pipe_cuda(q, k, v, lens, *cfg))
             torch.cuda.synchronize()
             err = (got.float() - want).abs()
             mx, mean = err.max().item(), err.mean().item()
             worst_h = max(worst_h, mx)
             if not (mx <= FLASH_TOL[0] and mean <= FLASH_TOL[1]):
-                fail(f"kernel H ({bq}, {bk}) n={n} lens={lens_l}: max {mx} mean {mean}")
-            if 0 in lens_l and got[lens_l.index(0)].abs().max().item() != 0.0:
-                fail("kernel H: a row with no valid key must give 0")
-        if n in (1024, 4096):  # device time per call, as phase 14
+                fail(f"{tag} {cfg}: max {mx} mean {mean}")
+            for i, kv in enumerate(lens_l):
+                if kv == 0 and got[i].abs().max().item() != 0.0:
+                    fail(f"{tag} {cfg}: a row with no valid key must give exactly 0")
+            if not torch.equal(_graph_replay(torch, lambda: XH.flash_pipe_cuda(q, k, v, lens, *cfg)),
+                               got):
+                fail(f"{tag} {cfg}: a CUDA-graph replay differs from the eager launch")
+        print(f"{tag}: every instance within {FLASH_TOL} of the plain version, bitwise in two "
+              "launches and in a graph replay", flush=True)
+        if b == 2 and n in (1024, 4096):  # device time per call, as phase 14
             iters = 50 if n == 1024 else 10
-            t = {f"H_{bq}x{bk}": device_ms(lambda: XH.flash_pipe_cuda(q, k, v, lens, bq,
-                                                                             bk), iters)
-                 for bq, bk in XH.CONFIGS}
+            t = {"H_" + "x".join(map(str, cfg)): device_ms(
+                lambda: XH.flash_pipe_cuda(q, k, v, lens, *cfg), iters) for cfg in XH.CONFIGS}
             t["A"] = device_ms(lambda: FA.flash_attention_cuda(q, k, v, lens), iters)
             t["plain"] = device_ms(lambda: FA.flash_attention_plain(q.float(), k.float(),
                                                                            v.float(), lens), 3)
@@ -1911,11 +1948,9 @@ def phase_experiments(torch):
             bms, by = bound_ms(sum(4.0 * h * n * kv * dh for kv in lens_l),
                                4.0 * b * h * n * dh * 2 + 4 * b, PEAK_BF16)
             rows_h[n] = dict(**t, bound_ms=bms, bound_by=by)
-            print(f"kernel H n={n} lens={lens_l}, device time per call: " + ", ".join(
-                f"{key} {val:.4f} ms" for key, val in t.items()) + f", bound {bms:.4f} ms ({by})",
-                flush=True)
-        print(f"kernel H n={n} lens={lens_l}: every configuration within {FLASH_TOL} of the "
-              "plain version", flush=True)
+            print(f"{tag}, device time per call (share of the {bms:.4f} ms bound, {by}): "
+                  + ", ".join(f"{key} {val:.4f} ms ({bms / val:.1%})" for key, val in t.items()),
+                  flush=True)
 
     worst_i = 0.0
     rows_i = {}
@@ -1956,10 +1991,17 @@ def phase_experiments(torch):
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
-    demangled name (template arguments included), registers and spills."""
+    demangled name (template arguments included), registers and spills, and
+    whether ptxas serialised its wgmma instructions (its "Potential
+    Performance Loss" notes, with their codes)."""
     import re
 
     names, out, name, spill = [], [], None, ""
+    serialized = {}
+    for line in log.splitlines():
+        m = re.search(r"\((C\d+)\) Potential Performance Loss: wgmma.*in the function '(\w+)'", line)
+        if m:
+            serialized.setdefault(m.group(2), []).append(m.group(1))
     for line in log.splitlines():
         if line.startswith("=="):
             out.append(line.strip())
@@ -1970,7 +2012,9 @@ def ptxas_summary(log: str) -> list[str]:
             spill = line.strip()
         if "Used" in line and "registers" in line and name:
             names.append(name)
-            out.append(f"{name} | {line.split(':', 1)[1].strip()} | {spill}")
+            ser = serialized.get(name)
+            out.append(f"{name} | {line.split(':', 1)[1].strip()} | {spill} | "
+                       + (f"wgmma serialized ({', '.join(ser)})" if ser else "wgmma not serialized"))
             name = None
     for tool in ("c++filt", "/usr/local/cuda/bin/cu++filt"):  # demangle where one is there
         try:
@@ -2007,8 +2051,18 @@ def main() -> int:
 
     LIBRARY.build()
     print(f"built {LIBRARY.sources()} in {LIBRARY.build_seconds or 0.0:.1f} s", flush=True)
-    for line in ptxas_summary(LIBRARY.build_log):
+    summary = ptxas_summary(LIBRARY.build_log)
+    for line in summary:
         print("  " + line, flush=True)
+    # kernel H's design rests on asynchronous wgmma: ptxas must neither
+    # serialise nor spill any of its instances
+    import re
+
+    h_ptxas = [line for line in summary if "flash_pipe_kernel" in line]
+    if not h_ptxas or any("wgmma not serialized" not in line
+                          or not re.search(r"\b0 bytes spill stores", line) for line in h_ptxas):
+        fail(f"kernel H: ptxas serialised wgmma or spilled: {h_ptxas}")
+    print(f"kernel H: {len(h_ptxas)} instances, no spills, no wgmma serialization", flush=True)
 
     t_start = time.perf_counter()
     clock = {"t": t_start}
@@ -2148,7 +2202,10 @@ def main() -> int:
                                 "tpu_bound_ms", "library_ms", "unfused_ms", "dense_bf16_ms",
                                 "host_us")}
         for r in int8_rows if r["m"] == 1024}
+    from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH
+
     h = h_rows[1024]
+    h_key = "H_" + "x".join(map(str, XH.CONFIG))
     g8 = "f5_tts_tpu_torch/csrc/int8_matmul.cu"
     kernels += [
         {"name": "int8_linear", "route": "cuda", "source": g8,
@@ -2180,10 +2237,16 @@ def main() -> int:
          "replaces": "scripts/exp_pipelined_flash.py:24",
          "launches": w8a8["launches_per_call"]["H"], "experiment": True,
          "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32",
-         "max_abs_err": h_err, "ms": h["H_64x64"], "plain_ms": h["plain"],
+         "max_abs_err": h_err, "ms": h[h_key], "plain_ms": h["plain"],
          "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["sdpa"],
-         "kernel_a_ms": h["A"], "configs_ms": {k: v for k, v in h.items() if k.startswith("H_")},
-         "shape": [2, 16, 1024, 64], "lens": [1024, 824]},
+         "kernel_a_ms": h["A"], "config": list(XH.CONFIG),
+         "configs_ms": {str(n): {k: v for k, v in r.items() if k.startswith("H_")}
+                        for n, r in h_rows.items()},
+         "shape": [2, 16, 1024, 64], "lens": [1024, 824],
+         "n4096": {"lens": [4096, 4059], "ms": h_rows[4096][h_key],
+                   "plain_ms": h_rows[4096]["plain"], "bound_ms": h_rows[4096]["bound_ms"],
+                   "library_ms": h_rows[4096]["sdpa"], "kernel_a_ms": h_rows[4096]["A"]},
+         "ptxas": h_ptxas},
         {"name": "fused_ln_matmul", "route": "cuda",
          "source": "f5_tts_tpu_torch/csrc/fused_ln_matmul.cu",
          "replaces": "scripts/exp_fused_ln_matmul.py:27",

@@ -504,17 +504,41 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
                "r"(bytes)
                : "memory");
 }
-// until phase `parity` of the barrier has completed
+// a plain arrival (one of the count the barrier was initialised with)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t a, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(a), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// until phase `parity` of the barrier has completed.  A phase that never
+// completes (a copy that never arrives, an arrival count that is never
+// reached) traps after ~2 s (4e9 SM clocks; the H100 runs at 1.6-2.0 GHz)
+// instead of hanging the card, as grid_barrier does.  try_wait suspends the
+// thread for a while before it fails, and the clock is read only once in
+// kWaitClockEvery failed tries: a wait costs the unbounded spin's loop and a
+// counter.
+constexpr long long kWaitTrapClocks = 4000000000LL;
+constexpr unsigned kWaitClockEvery = 1024;
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
+  long long t0 = 0;
+  for (unsigned tries = 1; !mbar_try_wait(a, parity); ++tries) {
+    if (tries % kWaitClockEvery == 0) {
+      const long long now = clock64();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > kWaitTrapClocks) {
+        __trap();
+      }
+    }
   }
 }
 // box (c0, c1) (c0 along the contiguous axis, in elements) of the tensor
@@ -526,6 +550,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// the same for a rank-3 map, box (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -546,6 +579,14 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -558,13 +599,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// Host: the tensor map of a row-major [rows][cols] matrix of esize-byte
-// elements (row stride ld elements; base and ld * esize multiples of 16),
-// copied in boxes of [box_rows][box_cols], 128-byte swizzled (box_cols *
-// esize == 128) or not.  Returns 0 or a CUDA error code.
-static inline int make_tmap(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-                            int esize, long long rows, long long cols, long long ld, int box_rows,
-                            int box_cols, bool swizzle) {
+// Host: cuTensorMapEncodeTiled, fetched once at run time (null where the
+// installed CUDA has none)
+static inline EncodeTiledFn tmap_encoder() {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -575,11 +612,22 @@ static inline int make_tmap(CUtensorMap* map, const void* base, CUtensorMapDataT
 #else
     const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
 #endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || fn == nullptr) {
-      return cudaErrorNotSupported;
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      encode = reinterpret_cast<EncodeTiledFn>(fn);
     }
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  return encode;
+}
+
+// Host: the tensor map of a row-major [rows][cols] matrix of esize-byte
+// elements (row stride ld elements; base and ld * esize multiples of 16),
+// copied in boxes of [box_rows][box_cols], 128-byte swizzled (box_cols *
+// esize == 128) or not.  Returns 0 or a CUDA error code.
+static inline int make_tmap(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                            int esize, long long rows, long long cols, long long ld, int box_rows,
+                            int box_cols, bool swizzle) {
+  const EncodeTiledFn encode = tmap_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * esize)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
@@ -589,6 +637,76 @@ static inline int make_tmap(CUtensorMap* map, const void* base, CUtensorMapDataT
                             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Host: the rank-3 tensor map of a contiguous bf16 [mats][rows][64] array
+// (attention's [b h, n, 64]), copied in 128-byte-swizzled boxes of
+// [1][box_rows][64].  Unlike a 2-D [mats * rows, 64] view, a box is cut at
+// its own matrix's last row: rows past it arrive as zeros and a store
+// stops there, never touching the next matrix.  Returns 0 or a CUDA
+// error code.
+static inline int make_tmap_rows64(CUtensorMap* map, const void* base, long long mats,
+                                   long long rows, int box_rows) {
+  const EncodeTiledFn encode = tmap_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kSwCols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kSwRow),
+                                 static_cast<cuuint64_t>(rows * kSwRow)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kSwCols), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Warp specialisation (sm_90a): a warpgroup hands registers to the others
+// (setmaxnreg; every warp of the warpgroup executes it, and the kernel must
+// be compiled with __launch_bounds__ so that the count at entry is known),
+// and warpgroups order their work on named barriers (ids 1-15; 0 is
+// __syncthreads').  bar.sync waits until `threads` threads have arrived at
+// barrier id, counting those that only arrive (bar.arrive, which does not
+// wait); both counts are multiples of 32.
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d(64 x 128) (+)= a(64 x 16, registers) . B(16 x 128, K-major descriptor)
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 // All blocks of a cooperative grid meet here.  Block 0 adds

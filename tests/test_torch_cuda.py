@@ -27,10 +27,13 @@ output row on both sides), and a W8A8 linear on the card must launch it.
 Its workspaces (``ops/workspace.py``) are per stream: launches on two
 streams at once stay bitwise, and a buffer a CUDA graph captured is never
 freed under the graph (a larger call on its stream raises).
-Kernels H (pipelined flash attention, every tile configuration) and I
-(fused LayerNorm-modulate matmul, K up to 4096 and ragged) are held as
-kernel A: 2e-2 max, 2e-3 mean error, I's relative to the largest
-reference value.  The forward
+Kernels H (pipelined flash attention, every instance, with ragged n, lens
+of 0, a length across a tile edge and b*h = 128; bitwise across two
+launches, in a CUDA-graph replay and on two streams at once) and I (fused
+LayerNorm-modulate matmul, K up to 4096 and ragged) are held as kernel A:
+2e-2 max, 2e-3 mean error, I's relative to the largest reference value.
+A block waiting on an mbarrier that never completes must trap within
+seconds (in a child process), not hang.  The forward
 kernels A, C, F and kernel B (ConvPositionEmbedding) are checked in every
 configuration built (``FWD_CONFIGS``, ``fused_convpos.CONFIGS``) at
 n = 1, 63, 65, 127, 129, lengths of 0 and lengths that end on a tile edge
@@ -545,20 +548,106 @@ def test_w8a8_linear_launches_the_int8_kernel(gen):
     assert (y.cpu().float() - want.float()).abs().max().item() <= 1e-2
 
 
-@pytest.mark.parametrize("n,lens", [(1024, [1024, 824]), (1000, [0, 963]), (65, [65, 1])])
-def test_pipelined_flash_kernel_matches_plain(gen, n, lens):
-    q, k, v = (torch.randn((2, 4, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
+PIPE_CASES = [  # (b, h, n, lens): ragged n, lens 0, a straddling length, b*h = 128
+    (2, 4, 1024, [1024, 824]), (2, 4, 1000, [0, 963]), (2, 4, 65, [65, 1]),
+    (2, 4, 1025, [1025, 127]), (2, 16, 4096, [4096, 4059]), (1, 1, 1, [1]),
+    (8, 16, 1024, [1024, 1000, 1, 64, 129, 512, 1023, 0]),
+]
+
+
+@pytest.mark.parametrize("b,h,n,lens", PIPE_CASES)
+def test_pipelined_flash_kernel_matches_plain(gen, b, h, n, lens):
+    q, k, v = (torch.randn((b, h, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     want = FA.flash_attention_plain(q.float(), k.float(), v.float(), lens_t)
-    for bq, bk in XH.CONFIGS:
+    for cfg in XH.CONFIGS:
         before = XH.KERNEL.launches
-        got = XH.flash_pipe(q, k, v, lens_t, bq, bk).float()
+        got = XH.flash_pipe(q, k, v, lens_t, *cfg)
         assert XH.KERNEL.launches == before + 1
-        err = (got - want).abs()
-        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3, (bq, bk)
-        if 0 in lens:
-            assert torch.all(got[lens.index(0)] == 0)
+        err = (got.float() - want).abs()
+        assert err.max().item() < 2e-2 and err.mean().item() < 2e-3, cfg
+        for i, kv in enumerate(lens):
+            if kv == 0:
+                assert torch.all(got[i] == 0), cfg
+        assert torch.equal(got, XH.flash_pipe(q, k, v, lens_t, *cfg)), cfg  # no atomics
+
+
+def test_pipelined_flash_kernel_graph_replay_is_bitwise(gen):
+    """The tensor maps are kernel parameters: a captured launch replays on
+    the buffers it was captured with and matches the eager call bitwise."""
+    q, k, v = (torch.randn((2, 16, 1025, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([1025, 127], dtype=torch.int32, device="cuda")
+    for cfg in XH.CONFIGS:
+        eager = XH.flash_pipe(q, k, v, lens, *cfg)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            XH.flash_pipe(q, k, v, lens, *cfg)  # warm-up on the capture stream
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = XH.flash_pipe(q, k, v, lens, *cfg)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), cfg
+        q.mul_(-1)  # new inputs in the captured buffers: the replay reads them
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, XH.flash_pipe(q, k, v, lens, *cfg)), cfg
+        q.mul_(-1)
+
+
+def test_pipelined_flash_kernel_on_two_streams_at_once(gen):
+    shapes = ((2, 16, 1024, [1024, 824]), (4, 8, 777, [777, 1, 0, 500]))
+    ins = []
+    for b, h, n, lens in shapes:
+        qkv = [torch.randn((b, h, n, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3)]
+        ins.append((*qkv, torch.tensor(lens, dtype=torch.int32, device="cuda")))
+    want = [XH.flash_pipe(*a) for a in ins]
+    streams = [torch.cuda.Stream() for _ in ins]
+    got = [None] * len(ins)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for i, (st, a) in enumerate(zip(streams, ins)):
+            with torch.cuda.stream(st):
+                got[i] = XH.flash_pipe(*a)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_bounded_mbar_wait_traps_instead_of_hanging(gen):
+    """A block waiting on an mbarrier that never completes traps after ~2 s
+    (common.cuh mbar_wait), run in a process of its own since the trap
+    ends the CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    from f5_tts_tpu_torch.ops.cuda_build import LIBRARY
+
+    LIBRARY.build()  # the child reuses the libraries built here
+    code = ("import sys, time, torch\n"
+            "from f5_tts_tpu_torch.scripts import exp_pipelined_flash as XH\n"
+            "torch.zeros(1, device='cuda')\n"
+            "t = time.time()\n"
+            "XH.probe_bounded_wait()\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError:\n"
+            "    print(f'trapped {time.time() - t:.2f}')\n"
+            "    sys.exit(0)\n"
+            "sys.exit(1)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                       cwd=root)
+    assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
+    seconds = float(r.stdout.split("trapped ")[1].split()[0])
+    assert 1.0 <= seconds <= 10.0, seconds
 
 
 @pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (37, 1000, 1001), (100, 1024, 200),

@@ -17,6 +17,10 @@ bf16 step of the output where a summation order tips a rounding: max error
 The JAX scripts are loaded from their paths; both call
 ``enable_persistent_cache()`` at import, which is replaced by a no-op so
 that the test worker's JAX compilation cache stays where it is.
+
+The timing-only variants of kernel H that
+``f5_tts_tpu_torch/scripts/exp_pipelined_flash_variants.py`` builds on the
+card must each apply to the committed kernel source.
 """
 
 import importlib.util
@@ -92,6 +96,23 @@ def test_flash_pipe_dispatch_refuses_what_kernel_h_does_not_take():
         XH.flash_pipe_cuda(q, q, q, lens)
     with pytest.raises(ValueError, match="block_q"):
         XH.flash_pipe_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), lens, 32, 64)
+
+
+def test_kernel_h_variants_apply_to_its_source():
+    """The timing-only variants of kernel H (exp_pipelined_flash_variants)
+    are edits of the committed source: each must find what it edits, and
+    change it, so that the card run measures what PERF.md says it does."""
+    from f5_tts_tpu_torch.ops.cuda_build import CSRC_DIR
+    from f5_tts_tpu_torch.scripts import exp_pipelined_flash_variants as XV
+
+    with open(os.path.join(CSRC_DIR, "flash_attention_pipelined.cu")) as f:
+        src = f.read()
+    vs = XV.variants(src)
+    assert vs["kernel"] == src
+    assert len(set(vs.values())) == len(vs)
+    assert vs["trace"].count("clock64()") == len(XV.STEP_PHASES) + 1
+    assert "(BAR_TURN" not in vs["no_pingpong"] and "exp2_cubic(x)" not in vs["no_exp2"]
+    assert "step(sa, sb, j)" not in vs["fa3_order"] and vs["fa3_order"].count("fa3_step<") == 3
 
 
 def _ln_inputs(m, k, n, seed):
