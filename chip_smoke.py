@@ -22,7 +22,8 @@ Run from the repository root:  python3 chip_smoke.py
 4. One full-width F5TTS_v1_Base ``forward_cfg`` at n=256 in fp32, on the card
    through the kernels against the CPU through the plain versions.
 5. End to end: ``F5TTS(model="F5TTS_v1_Base", init_random=True)`` in bf16,
-   after one warm-up request, serves a short request, a long one that is
+   after each request once (its first hit captures the engine's CUDA graph
+   of its key; timed apart), serves a short request, a long one that is
    chunked into a batch of rows, and a streamed one; checks the wavs, that
    every attention and ConvPositionEmbedding call of the run went through
    the kernels, and that no request copied the ConvPositionEmbedding
@@ -63,7 +64,8 @@ Run from the repository root:  python3 chip_smoke.py
 11. Full-width F5TTS_MMDiT_Base masked gradient, card vs CPU, fp32, on the
     training kernels (22 launches each of C, D, E in the two-segment mode).
 12. End to end: ``F5TTS(model="E2TTS_Base")`` serves a short and a long
-    request, ``F5TTS(model="F5TTS_MMDiT_Base")`` a short one (bucket <= 1024);
+    request, ``F5TTS(model="F5TTS_MMDiT_Base")`` a short one (bucket <= 1024),
+    each after its first hit (the graph's capture, timed apart);
     the launch counts prove every attention and ConvPositionEmbedding call
     ran a kernel; a profile of the short request (the shares of device time
     of the forward flash kernel and of B).
@@ -107,7 +109,21 @@ Run from the repository root:  python3 chip_smoke.py
     launches and in a CUDA-graph replay; timed at [2, 16, 1024, 64] and
     [2, 16, 4096, 64] beside kernel A, SDPA and the plain version, each with
     its share of the bound.  I timed beside the unfused composition.
-18. Prints the kernels' JSON line, then the result line.
+18. The serving surface.  The engine's CUDA graphs: a replay equals the
+    module-level eager function bitwise in mel and int16 wav (F5TTS_v1_Base
+    dense short request at bucket 512 and its chunked long form, W8A8 short,
+    E2TTS_Base and F5TTS_MMDiT_Base short); A's, B's and G's launches over
+    three replays are three eager calls'; ``warmup_all`` over buckets (512,
+    1024, 2048) x batches (1, 2, 4) with each capture's seconds and the
+    graph pool's bytes; the short request eager against graph (wall,
+    device time, kernel count, busy share; dense and W8A8).  The serving
+    layers on the card: ``http_server.serve`` with a DynamicBatcher
+    (max_batch 4) answers four concurrent ``request_tts`` calls in one
+    batch, each equal to the same request alone (``GRAPH_WAV_TOL``); one
+    request streamed through the socket server and client; ``cli.main`` on
+    ``examples/basic.toml`` with ``--init_random``; a batcher closed with a
+    request in flight resolves its future.
+19. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -174,6 +190,11 @@ MEL_MAE_GATE = 0.10
 # move an activation across an int8 rounding boundary, one step of its row's
 # scale (~1/127 of the row max), which the remaining layers carry
 W8A8_FULL_REL_TOL = 1e-2
+# a request served in a concurrent batch against the same request alone, on
+# the int16 wav scaled to [-1, 1]: tests/test_torch_slice.py's
+# test_rows_are_batch_invariant_per_seed tolerance (a row computes alike in
+# every batch of its shape, so the card gives 0)
+GRAPH_WAV_TOL = 1e-4
 # kernel I vs its plain version, relative to the largest reference value: the
 # kernel rounds the product + bias once to bf16, the plain version (JAX
 # xla_ref) rounds the product, then the sum
@@ -486,12 +507,28 @@ def phase_e2e(torch):
             total += ln - min(int(0.15 * sr), total, ln)
         return total
 
-    # one warm-up request first: the first call of each shape pays one-time
-    # library setup (cuBLAS / cuDNN handles and heuristics), not serving time
-    t0 = time.perf_counter()
-    tts.infer(REF_WAV, REF_TEXT, short, show_info=quiet, seed=1)
-    torch.cuda.synchronize()
-    print(f"e2e warm-up request: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    (ref_wav, ref_sr), ref_text = preprocess_ref_audio_text(REF_WAV, REF_TEXT, show_info=quiet)
+    chunks = chunk_text(long, max_chars=200)
+
+    def stream(seed):
+        return list(infer_batch_process(eng, (ref_wav, ref_sr), ref_text, chunks, tts.vocab,
+                                        tokenizer=tts.tokenizer, opts=PipelineOptions(seed=seed),
+                                        streaming=True))
+
+    # every request once first: the first call of each engine key captures its
+    # CUDA graph (one eager call, then the capture; cuBLAS / cuDNN set-up too),
+    # timed apart from the served requests
+    for name, run in (("short", lambda: tts.infer(REF_WAV, REF_TEXT, short, show_info=quiet,
+                                                  seed=1)),
+                      ("long", lambda: tts.infer(REF_WAV, REF_TEXT, long, show_info=quiet,
+                                                 seed=1)),
+                      ("stream", lambda: stream(1))):
+        graphs = len(eng.graphs)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        print(f"e2e first hit {name}: {time.perf_counter() - t0:.2f} s wall, "
+              f"{len(eng.graphs) - graphs} graph(s) captured", flush=True)
     calls.clear()
 
     FA.KERNEL.launches = FC.KERNEL.launches = 0
@@ -515,13 +552,9 @@ def phase_e2e(torch):
             fail("long request was not chunked into a batch of >= 2 rows")
         results.append((name, wall, len(wav) / out_sr, rows, len(new)))
 
-    (ref_wav, ref_sr), ref_text = preprocess_ref_audio_text(REF_WAV, REF_TEXT, show_info=quiet)
     before = len(calls)
     t0 = time.perf_counter()
-    chunks = chunk_text(long, max_chars=200)
-    pieces = list(infer_batch_process(eng, (ref_wav, ref_sr), ref_text, chunks, tts.vocab,
-                                      tokenizer=tts.tokenizer, opts=PipelineOptions(seed=7),
-                                      streaming=True))
+    pieces = stream(7)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     new = calls[before:]
@@ -1367,10 +1400,12 @@ def phase_e2e_backbone(torch, model_name: str, texts):
 
     eng.generate_batch_from_wavs = recording
     quiet = lambda *a, **k: None  # noqa: E731
-    t0 = time.perf_counter()
-    tts.infer(REF_WAV, REF_TEXT, texts[0][1], show_info=quiet, seed=1)
-    torch.cuda.synchronize()
-    print(f"e2e {model_name} warm-up request: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    for name, text in texts:  # the first hit of each key captures its CUDA graph
+        t0 = time.perf_counter()
+        tts.infer(REF_WAV, REF_TEXT, text, show_info=quiet, seed=1)
+        torch.cuda.synchronize()
+        print(f"e2e {model_name} first hit {name}: {time.perf_counter() - t0:.2f} s wall",
+              flush=True)
     calls.clear()
     reset_counts()
     results = []
@@ -1989,6 +2024,365 @@ def phase_experiments(torch):
     return rows_h, worst_h, row_i, worst_i
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: the engine's CUDA graphs and the serving layers
+
+def _recorded_run(eng) -> list:
+    """Wrap ``eng._run`` (one engine call: its graph's replay) to keep each
+    call's (entry, args, decode, (mel, wav)) on the device."""
+    calls = []
+    inner = eng._run
+
+    def run(entry, args, decode):
+        out = inner(entry, args, decode)
+        calls.append((entry, args, decode, out))
+        return out
+
+    eng._run = run
+    return calls
+
+
+def _eager(eng, entry, args, decode):
+    """The module-level eager function on one engine call's inputs."""
+    from f5_tts_tpu_torch.infer import engine as TE
+
+    if entry == "wav":
+        return TE.sample_and_decode_from_wav(eng.model.transformer, eng.vocoder, eng.model_cfg,
+                                             eng.options, *args, args[-1].shape[1],
+                                             decode=decode)
+    return TE.sample_and_decode(eng.model.transformer, eng.vocoder, eng.model_cfg, eng.options,
+                                *args, decode=decode)
+
+
+def _check_replays(torch, tag, eng, calls) -> None:
+    """Every recorded call (a graph replay) against the eager function on
+    the same inputs and noise: bitwise in mel and int16 wav."""
+    for entry, args, decode, (mel, wav) in calls:
+        want_mel, want_wav = _eager(eng, entry, args, decode)
+        mel_diff = (mel.float() - want_mel.float()).abs().max().item()
+        wav_diff = (wav.int() - want_wav.int()).abs().max().item()
+        print(f"graphs {tag}: replay vs eager, {entry} entry, b={args[0].shape[0]} "
+              f"n={args[-1].shape[1]}: mel max |diff| {mel_diff}, int16 wav max |diff| "
+              f"{wav_diff} (want bitwise)", flush=True)
+        if not (torch.equal(mel, want_mel) and torch.equal(wav, want_wav)):
+            fail(f"graphs {tag}: a replay differs from the eager call")
+
+
+def _replay_launches(torch, tag, tts, n_replays: int = 3) -> dict:
+    """A's, B's and G's launches over ``n_replays`` replays of the short
+    request against ``n_replays`` times one eager call's."""
+    eng = tts.engine
+    quiet = lambda *a, **k: None  # noqa: E731
+    calls = _recorded_run(eng)
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)  # the key is warm
+    del eng._run
+    entry, args, decode, _ = calls[0]
+    names = ("A", "B", "G")
+    reset_counts()
+    _eager(eng, entry, args, decode)
+    eager = {k: counts()[k] for k in names}
+    reset_counts()
+    for _ in range(n_replays):
+        tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+    torch.cuda.synchronize()
+    replayed = {k: counts()[k] for k in names}
+    print(f"graphs {tag}: launches over {n_replays} replays {replayed}, one eager call "
+          f"{eager}", flush=True)
+    if any(replayed[k] != n_replays * eager[k] for k in names) or not eager["A"] \
+            or not eager["B"]:
+        fail(f"graphs {tag}: replays did not count {n_replays} x one eager call's launches")
+    return dict(eager=eager, replays=n_replays, replayed=replayed)
+
+
+def _eager_vs_graph(torch, tag, tts, reps: int = 3) -> dict:
+    """The short request served eagerly (the engine's call swapped for the
+    module-level function, here only) and through its graph: median wall of
+    ``reps`` runs, then device time, kernel count and busy share from one
+    profiled run; the graph's replay alone by CUDA events."""
+    import statistics
+
+    eng = tts.engine
+    quiet = lambda *a, **k: None  # noqa: E731
+
+    def run():
+        tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+        torch.cuda.synchronize()
+
+    out = {}
+    for mode in ("eager", "graph"):
+        if mode == "eager":
+            eng._run = lambda entry, args, decode: _eager(eng, entry, args, decode)
+        run()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = statistics.median(walls) * 1e3
+        prof = _profile_update(torch, run, f"one {tag} short request, {mode} (device only)",
+                               host=False)
+        if mode == "eager":
+            del eng._run
+        out[mode] = dict(wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
+                         device_ms=prof["device_ms"], kernels=prof["kernels"],
+                         busy=prof["device_ms"] / wall_ms)
+    calls = _recorded_run(eng)
+    run()
+    del eng._run
+    entry, args, decode, _ = calls[0]
+    key = (entry, args[0].shape[0], args[-1].shape[1],
+           args[0].shape[1] if entry == "wav" else None, decode, eng.dtype, eng.options)
+    graph = eng.graphs[key].graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    out["graph"]["replay_event_ms"] = start.elapsed_time(end) / reps
+    for mode, r in out.items():
+        print(f"graphs {tag} short request {mode}: wall {r['wall_ms']:.1f} ms (median of "
+              f"{reps}: {', '.join(f'{w:.1f}' for w in r['walls_ms'])}), device {r['device_ms']:.1f} "
+              f"ms, {r['kernels']} kernels, busy {r['busy']:.1%}"
+              + (f", one replay by events {r['replay_event_ms']:.1f} ms" if mode == "graph"
+                 else ""), flush=True)
+    return out
+
+
+def _serving_layers(torch, tts) -> dict:
+    """``http_server.serve`` on 127.0.0.1 with a DynamicBatcher (max_batch
+    4, a window that holds all four) answers four concurrent ``request_tts``
+    calls; the socket server streams one request to the client;
+    ``cli.main`` runs ``examples/basic.toml`` with ``--init_random``; a
+    batcher closed with a request in flight resolves its future."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.audio.io import load_wav
+    from f5_tts_tpu_torch.audio.preprocess import preprocess_ref_audio_text
+    from f5_tts_tpu_torch.infer import batcher as B
+    from f5_tts_tpu_torch.infer import cli
+    from f5_tts_tpu_torch.infer import http_server as H
+    from f5_tts_tpu_torch.infer import pipeline as P
+    from f5_tts_tpu_torch.infer import socket_client as SC
+    from f5_tts_tpu_torch.infer import socket_server as SS
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    eng = tts.engine
+    out = {}
+    texts = ["I don't really care what you call me.", "The rivers carve the valleys slowly.",
+             "Take only what you need, give back.", "Every creature is part of the story."]
+    seeds = [100 + i for i in range(len(texts))]
+    ref, ref_text = preprocess_ref_audio_text(REF_WAV, REF_TEXT, show_info=quiet)
+    # each request alone, padded to the four rows of the concurrent round's
+    # batch: one graph computes every row of a batch shape alike, so a row
+    # alone equals it batched (this also warms that key)
+    alone = B.DynamicBatcher(eng, max_batch=4, batch_sizes=(4,), queue_delay_ms=0.0)
+    want = [P.infer_process(B.BatchedEngine(alone), ref, ref_text, t, tts.vocab,
+                            tokenizer=tts.tokenizer, opts=P.PipelineOptions(seed=s),
+                            show_info=quiet)[0] for t, s in zip(texts, seeds)]
+    alone.close()
+    want = [(np.clip(w, -1, 1) * 32767).astype("<i2").astype(np.float32) / 32767.0 for w in want]
+
+    box, ready = {}, threading.Event()
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    reset_counts()
+    th = threading.Thread(target=H.serve, args=(tts, REF_WAV, REF_TEXT, "127.0.0.1", 0),
+                          kwargs=dict(max_batch=4, queue_delay_ms=2000.0, ready=on_ready),
+                          daemon=True)
+    th.start()
+    if not ready.wait(120):
+        fail("http: the server did not start")
+    server = box["server"]
+    port = server.server_address[1]
+    got, errors = [None] * len(texts), []
+
+    def client(i):
+        try:
+            got[i] = H.request_tts(texts[i], "127.0.0.1", port, seed=seeds[i])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=300)
+    wall = time.perf_counter() - t0
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/stats")
+    stats = json.loads(conn.getresponse().read())
+    conn.close()
+    server.shutdown()
+    th.join(timeout=120)
+    if errors or any(g is None for g in got):
+        fail(f"http: requests failed: {errors}")
+    if tts.engine is not eng:
+        fail("http: the server did not give the F5TTS its engine back")
+    diffs = [float(np.abs(w - g[0]).max()) if len(w) == len(g[0]) else float("inf")
+             for w, g in zip(want, got)]
+    print(f"http: 4 concurrent requests in {wall:.2f} s wall, batcher stats {stats}; each wav "
+          f"against the same request alone (max |diff| {diffs}, tolerance {GRAPH_WAV_TOL}: "
+          f"tests/test_torch_slice.py::test_rows_are_batch_invariant_per_seed)", flush=True)
+    if stats.get("batches") != 1 or stats.get("avg_batch_size") != 4:
+        fail(f"http: the four requests did not share one batch: {stats}")
+    if any(g[1] != 24000 for g in got) or max(diffs) > GRAPH_WAV_TOL:
+        fail("http: a batched request differs from the same request alone")
+    out["http"] = dict(wall_s=wall, stats=stats, max_diff=max(diffs))
+
+    proc = SS.TTSStreamingProcessor(tts, REF_WAV, REF_TEXT)
+    sock = SS.listen("127.0.0.1", 0)
+    th = threading.Thread(target=SS.serve_socket, args=(sock, proc), daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        streamed = SC.listen_to_f5tts(LONG_TEXT[:200], "127.0.0.1", sock.getsockname()[1])
+    finally:
+        sock.shutdown(socket.SHUT_RDWR)
+        sock.close()
+        th.join(timeout=60)
+    wall = time.perf_counter() - t0
+    print(f"socket: streamed {len(streamed) / 24000:.2f} s of audio in {wall:.2f} s wall",
+          flush=True)
+    if not len(streamed) or not np.isfinite(streamed).all() or th.is_alive():
+        fail("socket: no finite stream, or the server did not stop")
+    out["socket"] = dict(wall_s=wall, audio_s=len(streamed) / 24000)
+    launched = counts()
+    print(f"serving layers launches: A {launched['A']}, B {launched['B']} (through the "
+          "engine's graphs)", flush=True)
+    if not launched["A"] or not launched["B"]:
+        fail("serving layers: the attention or ConvPositionEmbedding kernel never launched")
+    out["launches"] = launched
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        path = cli.main(["-c", os.path.join(REPO, "examples", "basic.toml"), "--init_random",
+                         "--output_dir", tmp, "--output_file", "cli.wav"])
+        wall = time.perf_counter() - t0
+        wav, sr = load_wav(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli: examples/basic.toml --init_random: {len(wav) / sr:.2f} s of audio in "
+          f"{wall:.2f} s wall (model build and first-hit captures included)", flush=True)
+    if sr != 24000 or not len(wav) or not np.isfinite(wav).all():
+        fail("cli: no finite wav")
+    out["cli"] = dict(wall_s=wall, audio_s=len(wav) / sr)
+    torch.cuda.empty_cache()
+
+    batcher = B.DynamicBatcher(eng, max_batch=4, queue_delay_ms=50.0)
+    ids = P.text_to_ids([REF_TEXT + " " + SHORT_TEXT], tts.vocab, tts.tokenizer)[0]
+    fut = batcher.submit(ids[ids != -1], 400, seed=3, ref_wav=ref[0])
+    batcher.close()
+    if not fut.done():
+        fail("batcher: close() left an in-flight request's future pending")
+    state = "failed: " + repr(fut.exception()) if fut.exception() else "resolved"
+    try:
+        batcher.submit(ids, 400, seed=3, ref_wav=ref[0])
+    except RuntimeError:
+        pass
+    else:
+        fail("batcher: a submit after close() was taken")
+    print(f"batcher: close() with a request in flight: its future {state}; a later submit "
+          "raises", flush=True)
+    out["close"] = state
+    return out
+
+
+def phase_graphs(torch):
+    """The engine's CUDA graphs: replays bitwise equal to the eager
+    function (F5TTS_v1_Base dense short and chunked long, W8A8 short,
+    E2TTS_Base and F5TTS_MMDiT_Base short), launch counts through replays,
+    ``warmup_all`` over buckets (512, 1024, 2048) x batches (1, 2, 4), the
+    short request eager against graph (dense, W8A8), and the serving layers
+    on the card."""
+    from f5_tts_tpu_torch.infer.api import F5TTS
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    out = {}
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE)
+    randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(4))
+    dense = tts.engine
+    calls = _recorded_run(dense)
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)  # first hit: captures
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+    tts.infer(REF_WAV, REF_TEXT, LONG_TEXT, show_info=quiet, seed=7)
+    del dense._run
+    if calls[0][1][-1].shape[1] != 512 or max(c[1][0].shape[0] for c in calls) < 2:
+        fail(f"graphs: want a short request at bucket 512 and a chunked long one (b >= 2), got "
+             f"{[(c[1][0].shape[0], c[1][-1].shape[1]) for c in calls]}")
+    _check_replays(torch, "F5TTS_v1_Base dense", dense, calls)
+    out["dense_launches"] = _replay_launches(torch, "F5TTS_v1_Base dense", tts)
+    out["dense_short"] = _eager_vs_graph(torch, "F5TTS_v1_Base dense", tts)
+
+    quant = _quantized_engine(torch, tts)
+    tts.engine = quant
+    calls = _recorded_run(quant)
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+    del quant._run
+    _check_replays(torch, "F5TTS_v1_Base W8A8", quant, calls)
+    out["w8a8_launches"] = _replay_launches(torch, "F5TTS_v1_Base W8A8", tts)
+    out["w8a8_short"] = _eager_vs_graph(torch, "F5TTS_v1_Base W8A8", tts)
+    tts.engine = dense
+    del quant, calls
+    torch.cuda.empty_cache()
+
+    before = set(dense.graphs)
+    t0 = time.perf_counter()
+    dense.warmup_all(buckets=(512, 1024, 2048), batch_sizes=(1, 2, 4))
+    wall = time.perf_counter() - t0
+    # warmup_all's keys: its ref wav is a quarter of each bucket, so S is the
+    # ref-length bucket of n // 4 + 1 frames; the short request's key may be
+    # one of them, captured at its first hit above
+    from f5_tts_tpu_torch.infer.engine import pick_bucket
+
+    hop, n_fft = dense.hop, dense.model_cfg.mel.n_fft
+    want = {(b, n, pick_bucket(n // 4 + 1) * hop + n_fft) for b in (1, 2, 4)
+            for n in (512, 1024, 2048)}
+    warm = [(k, g) for k, g in dense.graphs.items() if k[0] == "wav" and k[1:4] in want]
+    pool = dense.graph_pool_bytes()
+    for k, g in warm:
+        print(f"graphs warmup_all: b={k[1]} n={k[2]} S={k[3]} captured in {g.seconds:.2f} s"
+              + ("" if k not in before else " (at an earlier request's first hit)"), flush=True)
+    print(f"graphs warmup_all: {len(set(dense.graphs) - before)} graphs captured in {wall:.1f} s; "
+          f"the engine's {len(dense.graphs)} graphs hold {pool / 2**30:.2f} GiB in their pool",
+          flush=True)
+    if len(warm) != 9:
+        fail(f"graphs warmup_all: {len(warm)} graphs of its (bucket, batch) pairs, want 9")
+    out["warmup_all"] = dict(wall_s=wall, pool_bytes=pool, graphs=len(dense.graphs),
+                             capture_s={f"b{k[1]}_n{k[2]}_S{k[3]}": g.seconds for k, g in warm})
+
+    out["serving"] = _serving_layers(torch, tts)
+    del tts, dense
+    torch.cuda.empty_cache()
+
+    for name in ("E2TTS_Base", "F5TTS_MMDiT_Base"):
+        tts = F5TTS(model=name, init_random=True, nfe_step=NFE)
+        randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(36))
+        calls = _recorded_run(tts.engine)
+        tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+        del tts.engine._run
+        if calls[0][1][-1].shape[1] > 1024:
+            fail(f"graphs {name}: the short request is above bucket 1024")
+        _check_replays(torch, name, tts.engine, calls)
+        del tts, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -2112,6 +2506,9 @@ def main() -> int:
     lap("16 (W8A8 forward)")
     h_rows, h_err, i_row, i_err = phase_experiments(torch)
     lap("17 (kernels H, I)")
+    graphs = phase_graphs(torch)  # counts set to 0 before the serving layers' requests
+    lap("18 (CUDA graphs, serving layers)")
+    print(f"summary: graphs {graphs}", flush=True)
     print(f"summary: W8A8 serving {w8a8}; W8A8 full-width {w8a8_full}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "

@@ -5,14 +5,19 @@ JAX counterpart: ``f5_tts_tpu/infer/api.py:43-296`` (itself the reference
 ``infer()`` signature and (wav, sr, spec) return.
 
 ``model`` names any shipped architecture of the three backbones
-(``F5TTS_v1_Base``, ``E2TTS_Base``, ``F5TTS_MMDiT_Base`` ...).  The engine
-runs on the card: ``device=None`` means ``"cuda"`` and raises if CUDA is
-unavailable; only an explicit ``device="cpu"`` runs on the CPU (the
-backbone then runs in fp32, on the card in bf16).  Checkpoints load from
-``ckpt_file`` / ``vocoder_local_path`` (reference-named ``.pt`` or
-``.safetensors``); ``init_random=True`` builds seeded random weights.  Hub
-resolution, the Whisper fallback for an empty ``ref_text`` and AOT artifacts
-are not ported yet and raise (see ROADMAP.md).
+(``F5TTS_v1_Base``, ``E2TTS_Base``, ``F5TTS_MMDiT_Base`` ...), or, with
+``model_cfg`` (a reference-schema YAML path or a flat arch dict, as JAX
+takes it), a custom one.  The engine runs on the card: ``device=None``
+means ``"cuda"`` and raises if CUDA is unavailable; only an explicit
+``device="cpu"`` runs on the CPU (the backbone then runs in fp32, on the
+card in bf16).  Checkpoints load from ``ckpt_file`` / ``vocoder_local_path``
+(reference-named ``.pt`` or ``.safetensors``) or an ``hf://org/repo/path``
+URI; with neither, the model and vocoder names resolve through the local HF
+cache first, then a download where the network is reachable
+(``utils/hub.py``, JAX ``api.py:92-131``); ``init_random=True`` builds
+seeded random weights.  The Whisper fallback for an empty ``ref_text``, the
+spectrogram image and AOT artifacts are not ported yet and raise (see
+ROADMAP.md).
 
 W8A8 serving is an ``EngineOptions`` field, not a keyword here, as in the
 JAX ``F5TTS``: build an ``InferenceEngine(..., options=EngineOptions(
@@ -27,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -45,10 +51,11 @@ from f5_tts_tpu_torch.infer.pipeline import (
     infer_process,
 )
 from f5_tts_tpu_torch.models.cfm import CFM
-from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, from_yaml_dict, with_vocab_size
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
 from f5_tts_tpu_torch.utils import ckpt as ckpt_util
+from f5_tts_tpu_torch.utils import hub
 from f5_tts_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
@@ -72,9 +79,11 @@ class F5TTS:
         use_ema: bool = True,
         vocoder_local_path: str | None = None,
         device: str | None = None,
+        hf_cache_dir: str | None = None,  # local HF cache for name -> file resolution
         dtype: torch.dtype | None = None,
         nfe_step: int = NFE_STEP,
         init_random: bool = False,
+        model_cfg: str | dict | None = None,
         artifacts: str | None = None,
     ):
         if ode_method not in ("euler", "midpoint"):
@@ -82,7 +91,17 @@ class F5TTS:
         if artifacts:
             raise NotImplementedError(f"serving AOT artifacts {_NOT_PORTED}")
         self.device = resolve_device(device)
-        model_cfg = MODEL_CONFIGS[model]
+        self.hf_cache_dir = hf_cache_dir
+        if isinstance(model_cfg, str):  # a reference configs/*.yaml (infer_cli.py:268-272)
+            from f5_tts_tpu_torch.train.cli import parse_simple_yaml
+
+            model_cfg = from_yaml_dict(parse_simple_yaml(model_cfg).get("model", {}))
+        elif isinstance(model_cfg, dict):  # a flat arch dict (infer_gradio.py:1037-1068)
+            arch_kw = dict(model_cfg)
+            backbone = arch_kw.pop("backbone", "DiT")
+            model_cfg = from_yaml_dict({"name": model, "backbone": backbone, "arch": arch_kw})
+        elif not model_cfg:
+            model_cfg = MODEL_CONFIGS[model]
         self.vocab, vocab_size = get_tokenizer(vocab_file or None, model_cfg.tokenizer)
         model_cfg = with_vocab_size(model_cfg, vocab_size)
         self.model_cfg = model_cfg
@@ -95,28 +114,43 @@ class F5TTS:
         if self.mel_spec_type != "vocos":
             raise NotImplementedError(f"the {self.mel_spec_type} vocoder {_NOT_PORTED}")
 
-        if ckpt_file.startswith("hf://") or (not ckpt_file and not init_random):
-            raise NotImplementedError(
-                f"resolving checkpoints from the hub {_NOT_PORTED}: pass ckpt_file= "
-                "(a .pt or .safetensors file), or init_random=True")
+        if not ckpt_file and not init_random:  # reference api.py:78-81
+            ckpt_file = hub.resolve_checkpoint(model, self.mel_spec_type, hf_cache_dir) or ""
+        elif ckpt_file.startswith("hf://"):  # reference infer_cli.py:292-293
+            resolved = hub.resolve_hf_file(*hub.parse_hf_uri(ckpt_file), hf_cache_dir)
+            if resolved is None:
+                raise FileNotFoundError(
+                    f"{ckpt_file} not in the local HF cache and not downloadable")
+            ckpt_file = resolved
         if ckpt_file:
             cfm = CFM(model_cfg.arch)
             ckpt_util.load_dit_state(cfm, ckpt_util.load_torch_state(ckpt_file, use_ema=use_ema))
-        else:
+        elif init_random:
             cfm = _seeded(lambda: CFM(model_cfg.arch), 0)
+        else:
+            raise ValueError(
+                f"no checkpoint: {model} was not found in the local HF cache and"
+                " could not be downloaded. Pass ckpt_file=, populate the HF cache"
+                f" (repo {hub.model_hub_spec(model, self.mel_spec_type)[0]}),"
+                " or pass init_random=True for smoke testing.")
 
+        if not vocoder_local_path and not init_random:  # reference utils_infer.py:108-146
+            vocoder_local_path = hub.resolve_vocoder(self.mel_spec_type, hf_cache_dir)
         if vocoder_local_path:
             voc = Vocos()
             ckpt_util.load_into(voc, ckpt_util.load_torch_state(vocoder_local_path, use_ema=False))
         elif init_random:
             voc = _seeded(Vocos, 1)
         else:
-            raise NotImplementedError(
-                f"resolving the vocoder from the hub {_NOT_PORTED}: pass vocoder_local_path=")
+            voc = None
+            warnings.warn(
+                "no vocoder weights (vocoder_local_path not set and init_random=False): the "
+                "engine runs mel-only and waveform calls will fail; pass vocoder_local_path",
+                stacklevel=2)
 
         self.engine = InferenceEngine(
-            cfm.to(self.device), model_cfg, vocoder=voc.to(self.device), dtype=dtype,
-            options=EngineOptions(nfe_step=nfe_step, ode_method=ode_method),
+            cfm.to(self.device), model_cfg, vocoder=None if voc is None else voc.to(self.device),
+            dtype=dtype, options=EngineOptions(nfe_step=nfe_step, ode_method=ode_method),
         )
 
     def export_wav(self, wav, file_wave, remove_silence=False):

@@ -9,6 +9,24 @@ as an explicit tensor; the engine's public methods draw it per row from
 ``torch.Generator(device).manual_seed(seed)``, so a row's noise depends only
 on its seed and the bucket, not on the batch it rides in.
 
+JAX runs one compiled XLA program per call; on the card the engine runs one
+CUDA graph per call.  Each graph is keyed on what is static in JAX's jit:
+the entry (mel or wav), the rows b, the bucket n, the ref-wav length S,
+``decode``, the compute dtype and the ``EngineOptions``.  A key is captured
+at its first call (as JAX compiles at first call) or ahead of time by
+``warmup`` / ``warmup_all``; every call replays it.  A capture first runs the
+call once eagerly on the capture stream (library handles, the lazily
+built tables, kernel G's workspaces, in a workspace scope of the graph's
+own), then records it; the noise is drawn outside the graph and copied
+into its static inputs with the rest of the request.  An engine's graphs
+share one capture stream and one memory pool, and replay on one engine
+stream under one lock (copy-in, replay, clone of the outputs);
+the host fetch of the outputs runs outside the lock, so two callers
+overlap host and card work.  A replay adds the kernel launches its capture
+recorded to their counters (``cuda_build.add_launches``).  A failed
+capture raises: nothing runs eagerly in its place.  A CPU engine runs the
+module-level functions eagerly, which stay the reference for a replay.
+
 Target durations round up to frame buckets; every dynamic length is a mask.
 The text ids are padded to the bucket width, so MMDiT, whose text stream
 is capped at ``text_max_pos`` tokens, serves buckets up to that length and
@@ -25,6 +43,10 @@ time-parallel window, the einsum-tap convpos) raise if set.
 
 from __future__ import annotations
 
+import itertools
+import threading
+import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -35,7 +57,7 @@ from f5_tts_tpu_torch.models import cfm, vocos
 from f5_tts_tpu_torch.models.backbones import get_backbone
 from f5_tts_tpu_torch.models.configs import ModelConfig
 from f5_tts_tpu_torch.models.layers import ConvPositionEmbedding
-from f5_tts_tpu_torch.ops import quant
+from f5_tts_tpu_torch.ops import cuda_build, quant, workspace
 from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, num_frames, stft_pad_amount
 
 SILENCE_FLOOR = float(np.log(1e-5))
@@ -135,6 +157,23 @@ def sample_and_decode_from_wav(model, voc, model_cfg: ModelConfig, opts: EngineO
                              duration, noise, decode=decode)
 
 
+_CAPTURES = itertools.count()  # workspace scope tokens, one per capture
+
+
+@dataclass
+class CapturedGraph:
+    """One engine call recorded as a CUDA graph: its static inputs and
+    outputs, the launches of each kernel one replay makes (in
+    ``cuda_build.KERNELS`` order), and the seconds its capture took (the
+    eager warm-up call included)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: tuple
+    launches: list
+    seconds: float
+
+
 def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarray:
     padded = np.pad(np.asarray(wav, np.float32), stft_pad_amount(mel_cfg), mode="reflect")
     return np.pad(padded, (0, max(0, S - len(padded))))[:S]
@@ -171,6 +210,90 @@ class InferenceEngine:
         self.hop = model_cfg.mel.hop_length
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)
         self._ref_dev_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self.graphs: dict[tuple, CapturedGraph] = {}  # CUDA engines: one per call key
+        self._graph_lock = threading.Lock()
+        if self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._stream = torch.cuda.Stream(self.device)  # every replay runs here
+            self._scopes: list = []  # the graphs' kernel workspaces, dropped with the engine
+            weakref.finalize(self, workspace.release_scopes, self._scopes)
+
+    def _run(self, entry: str, args: tuple, decode: bool):
+        """(mel, int16 wav | None) on the device for the request tensors
+        ``args`` of ``sample_and_decode`` (entry "mel": cond, text_ids, lens,
+        duration, noise) or ``sample_and_decode_from_wav`` ("wav": wav_i16,
+        wav_scale, lens, text_ids, duration, noise).  A CPU engine calls the
+        function; a CUDA engine replays the call's graph, capturing it first
+        if its key is new."""
+        opts = self.options
+        n = args[-1].shape[1]  # the noise [b, n, d]
+
+        def call(*xs):
+            if entry == "mel":
+                return sample_and_decode(self.model.transformer, self.vocoder, self.model_cfg,
+                                         opts, *xs, decode=decode)
+            return sample_and_decode_from_wav(self.model.transformer, self.vocoder,
+                                              self.model_cfg, opts, *xs, n, decode=decode)
+
+        if self.device.type != "cuda":
+            return call(*args)
+        key = (entry, args[0].shape[0], n, args[0].shape[1] if entry == "wav" else None, decode,
+               self.dtype, opts)
+        cur = torch.cuda.current_stream(self.device)
+        with self._graph_lock, torch.inference_mode():
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = self._capture(call, args)
+            self._stream.wait_stream(cur)  # the request's inputs are ready
+            with torch.cuda.stream(self._stream):
+                for dst, src in zip(g.inputs, args):
+                    dst.copy_(src)
+                g.graph.replay()
+                out = tuple(None if o is None else o.clone() for o in g.outputs)
+            cuda_build.add_launches(g.launches)
+            cur.wait_stream(self._stream)  # the caller's fetch waits for this replay only
+            for o in out:
+                if o is not None:
+                    o.record_stream(cur)
+        return out
+
+    def _capture(self, call, args) -> CapturedGraph:
+        """Record ``call`` on copies of ``args`` as a CUDA graph on the
+        engine's capture stream: one eager call there first (lazily built
+        tables, library handles, kernel G's workspaces), then the capture,
+        both in a workspace scope of the graph's own.  The launches during
+        the capture are taken back off the counters and kept as the graph's
+        launches per replay."""
+        t0 = time.perf_counter()
+        cur, stream = torch.cuda.current_stream(self.device), self._capture_stream
+        inputs = tuple(a.clone() for a in args)
+        stream.wait_stream(cur)
+        token = ("engine graph", next(_CAPTURES))
+        self._scopes.append(token)
+        graph = torch.cuda.CUDAGraph()
+        with workspace.scope(token):
+            with torch.cuda.stream(stream):
+                call(*inputs)
+            before = cuda_build.launch_counts()
+            try:
+                # thread_local: another thread may fetch its outputs meanwhile
+                with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = call(*inputs)
+            finally:
+                after = cuda_build.launch_counts()
+                for kern, c in zip(cuda_build.KERNELS, before):
+                    kern.launches = c
+        cur.wait_stream(stream)
+        return CapturedGraph(graph, inputs, outputs, [a - b for a, b in zip(after, before)],
+                             time.perf_counter() - t0)
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes the CUDA allocator holds in the engine's graph pool."""
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     def _ref_wav_device(self, wav_i16: np.ndarray, b: int, S: int) -> torch.Tensor:
         """LRU of the broadcast int16 ref upload, keyed by exact bytes:
@@ -239,10 +362,10 @@ class InferenceEngine:
         text_ids = self._text_matrix(text_ids_list, n)
         duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
         noise = draw_noise(self._seeds(seeds, b), n, d, self.device)
-        mel_out, wav = sample_and_decode(
-            self.model.transformer, self.vocoder, self.model_cfg, self.options,
-            self._to_dev(cond).to(self.dtype), self._to_dev(text_ids), self._to_dev(lens),
-            self._to_dev(duration), noise, decode=decode and self.vocoder is not None)
+        mel_out, wav = self._run(
+            "mel", (self._to_dev(cond).to(self.dtype), self._to_dev(text_ids),
+                    self._to_dev(lens), self._to_dev(duration), noise),
+            decode and self.vocoder is not None)
         mel_np = mel_out.float().cpu().numpy() if fetch_mel else None
         wavs, gen_frames = self._trim_wavs(wav, duration, lens)
         return mel_np, wavs, gen_frames
@@ -273,10 +396,10 @@ class InferenceEngine:
         text_ids = self._text_matrix(text_ids_list, n)
         duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
         noise = draw_noise(self._seeds(seeds, b), n, mel_cfg.n_mel_channels, self.device)
-        mel_out, wav = sample_and_decode_from_wav(
-            self.model.transformer, self.vocoder, self.model_cfg, self.options, wav_dev,
-            self._to_dev(scales), self._to_dev(lens), self._to_dev(text_ids),
-            self._to_dev(duration), noise, n, decode=decode and self.vocoder is not None)
+        mel_out, wav = self._run(
+            "wav", (wav_dev, self._to_dev(scales), self._to_dev(lens), self._to_dev(text_ids),
+                    self._to_dev(duration), noise),
+            decode and self.vocoder is not None)
         mel_np = mel_out.float().cpu().numpy() if fetch_mel else None
         wavs, gen_frames = self._trim_wavs(wav, duration, lens)
         return mel_np, wavs, gen_frames
@@ -288,3 +411,30 @@ class InferenceEngine:
         return self.generate_batch_from_wavs([ref_wav] * len(text_ids_list), text_ids_list,
                                              durations, seeds=seeds, decode=decode,
                                              fetch_mel=fetch_mel)
+
+    def warmup(self, n_frames: int = 1024, text_len: int = 64) -> None:
+        d = self.model_cfg.mel.n_mel_channels
+        ref = np.zeros((n_frames // 4, d), np.float32)
+        txt = np.zeros((text_len,), np.int32)
+        self.generate_batch([ref], [txt], [n_frames - 1], seeds=[0])
+
+    def warmup_all(self, buckets=None, batch_sizes=(1,), fused: bool = True,
+                   warm_crops: bool = True) -> None:
+        """Capture the CUDA graph of every (bucket, batch) pair a server will
+        see, for the fused (wav) or the mel entry (on the CPU: run each
+        call).  A graph lives in its process: a restarted server captures
+        again.  ``warm_crops`` is kept for the JAX signature; the port crops
+        the fetched wav by a plain slice with no executable behind it, so
+        it warms nothing more."""
+        d = self.model_cfg.mel.n_mel_channels
+        sr = self.model_cfg.mel.target_sample_rate
+        for n in buckets or self.buckets:
+            for b in batch_sizes:
+                txts = [np.zeros((min(64, n),), np.int32)] * b
+                durs = [n - 1] * b
+                if fused:
+                    wav = np.zeros(int(min(n // 4 * self.hop, 11 * sr)), np.float32)
+                    self.generate_batch_from_wav(wav, txts, durs, seeds=[0] * b, fetch_mel=False)
+                else:
+                    ref = np.zeros((n // 4, d), np.float32)
+                    self.generate_batch([ref] * b, txts, durs, seeds=[0] * b, fetch_mel=False)

@@ -25,6 +25,7 @@ checkpoints do, and its
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,6 +71,20 @@ def timestep_schedule(steps: int, sway_sampling_coef: float | None = -1.0,
     if sway_sampling_coef is not None:
         t = t + sway_sampling_coef * (np.cos(np.pi / 2.0 * t) - 1.0 + t)
     return t.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_tensors(steps: int, sway_sampling_coef: float | None, use_epss: bool,
+                     dtype: torch.dtype, device: torch.device):
+    """The schedule on ``device``, built once per (steps, sway, epss, dtype,
+    device): the step times t_k [steps] in fp32 (for the AdaLN tables) and
+    the step sizes dt_k [steps] in ``dtype``.  ``sample`` indexes them
+    instead of copying host values to the card on every call, which a CUDA
+    graph capture cannot do; a captured graph reads them by address, so
+    they are never evicted."""
+    ts = timestep_schedule(steps, sway_sampling_coef, use_epss)
+    return (torch.as_tensor(ts[:-1], device=device),
+            torch.as_tensor(ts[1:] - ts[:-1], device=device).to(dtype))
 
 
 @dataclass(frozen=True)
@@ -140,6 +155,8 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
                                                                           device=dev))
 
     ts = timestep_schedule(opts.steps, opts.sway_sampling_coef, opts.use_epss)
+    t_dev, dt_dev = schedule_tensors(opts.steps, opts.sway_sampling_coef, opts.use_epss,
+                                     compute_dtype, dev)
 
     extra = _stream_kwargs(cfg, text_ids)
 
@@ -157,13 +174,12 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
     # go, where the backbone has them as tables (DiT)
     tables = None
     if opts.ode_method == "euler" and hasattr(bb, "precompute_adaln"):
-        tables = bb.precompute_adaln(model, cfg, torch.as_tensor(ts[:-1], device=dev),
-                                     dtype=compute_dtype)
+        tables = bb.precompute_adaln(model, cfg, t_dev, dtype=compute_dtype)
 
     for k in range(len(ts) - 1):
         t_k = np.float32(ts[k])
         dt_k = np.float32(ts[k + 1] - ts[k])
-        dt_c = torch.tensor(float(dt_k), dtype=compute_dtype, device=dev)
+        dt_c = dt_dev[k]  # 0-dim, in the compute dtype: a Python float would round elsewhere
         if opts.ode_method == "midpoint":
             k1 = velocity(x, t_k)
             t_mid = np.float32(t_k + np.float32(0.5) * dt_k)

@@ -106,6 +106,19 @@ def _lib_name(source: str) -> str:
 
 
 LIBRARY = KernelLibrary()
+KERNELS: list = []  # every CudaKernel made, in order
+
+
+def launch_counts() -> list[int]:
+    """Every kernel's ``launches``, in ``KERNELS`` order."""
+    return [k.launches for k in KERNELS]
+
+
+def add_launches(counts: list[int]) -> None:
+    """Add ``counts`` (in ``KERNELS`` order, as ``launch_counts``) to the
+    kernels' ``launches``: the launches of one CUDA graph replay."""
+    for k, c in zip(KERNELS, counts):
+        k.launches += c
 
 
 class CudaKernel:
@@ -113,7 +126,8 @@ class CudaKernel:
 
     ``launches`` counts successful launches and nothing else; the C function
     returns ``cudaGetLastError()`` after its launch, and a non-zero code
-    raises here.
+    raises here.  A CUDA graph replays launches without calling ``launch``:
+    whoever replays one adds its launches back (``add_launches``).
     """
 
     def __init__(self, name: str, source: str, argtypes: list):
@@ -122,6 +136,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def _load(self):
         if self._fn is None:

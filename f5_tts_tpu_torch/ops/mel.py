@@ -58,7 +58,7 @@ class MelConfig:
                           win_length=self.win_length)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # CUDA graphs read these by address: never evicted
 def _fbank(cfg: MelConfig, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     fb = mel_filterbank(cfg.target_sample_rate, cfg.n_fft, cfg.n_mel_channels)
     return torch.as_tensor(fb, device=device, dtype=dtype)

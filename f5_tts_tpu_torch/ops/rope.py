@@ -44,7 +44,7 @@ def abs_pos_table(max_len: int, dim: int, theta: float = 10000.0) -> np.ndarray:
     return np.concatenate([np.cos(freqs), np.sin(freqs)], axis=-1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)  # CUDA graphs read these by address: never evicted
 def device_table(kind: str, max_len: int, dim: int, device: torch.device) -> torch.Tensor:
     """``rotary_freqs`` (kind "rope") or ``abs_pos_table`` (kind "abs") as an
     fp32 tensor on ``device``, built once per (kind, length, dim, device)."""

@@ -57,7 +57,7 @@ def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # CUDA graphs read these by address: never evicted
 def stft_basis(n_fft: int, win_length: int, device: torch.device, dtype: torch.dtype):
     """Analysis bases (cos, sin) [n_fft, n_freq] as tensors on ``device``."""
     cos_m, sin_m = dft_matrices(n_fft, _padded_window(n_fft, win_length))
@@ -84,7 +84,7 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return out.reshape(b, -1)[:, :out_len]
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # CUDA graphs read these by address: never evicted
 def istft_basis(n_fft: int, win_length: int, device: torch.device, dtype: torch.dtype):
     """Inverse rFFT bases (cos [n_freq, n_fft], sin [n_freq, n_fft]) with the
     synthesis window folded in, and the squared window [n_fft]."""

@@ -40,8 +40,13 @@ n = 1, 63, 65, 127, 129, lengths of 0 and lengths that end on a tile edge
 beside ones that end inside a tile, with a two-launch bitwise determinism
 check; B's fp32 instance (three bf16 products) against the fp32 plain
 version, TF32 off, to 1e-4 relative to the largest reference value.
+The serving engine's CUDA graphs (a narrow DiT, dense and W8A8): a replay
+equals the module-level eager function bitwise, N replays count N eager
+calls' launches of A, B and G, and two threads replaying one engine get
+each request's own rows, bitwise.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -667,3 +672,129 @@ def test_fused_ln_matmul_kernel_refuses_fp32_x(gen):
     x, w, bias, sc, sh = XI.inputs(8, 2048, 64, "cuda")
     with pytest.raises(TypeError, match="bf16"):
         XI.fused_ln_matmul(x.float(), w, bias, sc, sh)
+
+
+# The engine's CUDA graphs: a narrow DiT (dim 1024 for kernel B's 16 groups
+# of 64 channels, depth 2, 16 heads of 64) and the full Vocos, bf16, NFE 4.
+
+def _card_engine(quantize: bool):
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.cfm import CFM
+    from f5_tts_tpu_torch.models.configs import DiTConfig, ModelConfig
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(name="narrow", arch=DiTConfig(depth=2, text_dim=64, conv_layers=1),
+                      tokenizer="char")
+    cfm = CFM(cfg.arch)
+    randomize_zero_init(cfm.transformer, torch.Generator().manual_seed(1))
+    return InferenceEngine(cfm.cuda(), cfg, vocoder=Vocos().cuda(), dtype=torch.bfloat16,
+                           options=EngineOptions(nfe_step=4, quantize=quantize))
+
+
+def _request(b, seed=0):
+    rng = np.random.default_rng(seed)
+    refs = [(0.2 * rng.standard_normal(int(24000 * (0.8 + 0.3 * i)))).astype(np.float32)
+            for i in range(b)]
+    ids = [rng.integers(0, 200, size=30 + 5 * i).astype(np.int32) for i in range(b)]
+    return refs, ids, [300 + 20 * i for i in range(b)], [seed + i for i in range(b)]
+
+
+def _recorded_run(eng):
+    """Wrap ``eng._run`` to keep each call's (entry, args, decode, out)."""
+    calls = []
+    inner = eng._run
+
+    def run(entry, args, decode):
+        out = inner(entry, args, decode)
+        calls.append((entry, args, decode, out))
+        return out
+
+    eng._run = run
+    return calls
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["dense", "w8a8"])
+def test_engine_graph_replay_is_bitwise_eager(gen, quantize):
+    """Every engine call replays its graph; with the same inputs and noise
+    the replay equals the module-level eager function bitwise, in mel and
+    int16 wav, at batch 1 and 2, both entries."""
+    from f5_tts_tpu_torch.infer import engine as TE
+
+    eng = _card_engine(quantize)
+    calls = _recorded_run(eng)
+    for b in (1, 2):
+        refs, ids, durs, seeds = _request(b, seed=b)
+        eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+        eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)  # a replay of a known key
+        mels = [np.zeros((len(r) // 256, 100), np.float32) for r in refs]
+        eng.generate_batch(mels, ids, durs, seeds=seeds)
+    assert len(eng.graphs) == 4 and len(calls) == 6
+    for entry, args, decode, (mel, wav) in calls:
+        if entry == "wav":
+            want = TE.sample_and_decode_from_wav(eng.model.transformer, eng.vocoder,
+                                                 eng.model_cfg, eng.options, *args,
+                                                 args[-1].shape[1], decode=decode)
+        else:
+            want = TE.sample_and_decode(eng.model.transformer, eng.vocoder, eng.model_cfg,
+                                        eng.options, *args, decode=decode)
+        assert torch.equal(mel, want[0]) and torch.equal(wav, want[1]), entry
+        assert wav.dtype == torch.int16 and torch.isfinite(mel.float()).all()
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["dense", "w8a8"])
+def test_engine_replays_add_their_launches(gen, quantize):
+    """A's, B's and G's counts after N replays are N times one eager call's
+    (the capture itself counts nothing); G launches only when W8A8."""
+    from f5_tts_tpu_torch.infer import engine as TE
+
+    eng = _card_engine(quantize)
+    refs, ids, durs, seeds = _request(1)
+    calls = _recorded_run(eng)
+    eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)  # captures the key
+    kernels = (FA.KERNEL, FC.KERNEL, Q.KERNEL_LINEAR)
+    for k in kernels:
+        k.launches = 0
+    _, args, decode, _ = calls[0]
+    TE.sample_and_decode_from_wav(eng.model.transformer, eng.vocoder, eng.model_cfg,
+                                  eng.options, *args, args[-1].shape[1], decode=decode)
+    eager = [k.launches for k in kernels]
+    assert eager[0] == 2 * 4 and eager[1] == 4 and eager[2] == (4 * 2 * 4 if quantize else 0)
+    for k in kernels:
+        k.launches = 0
+    for _ in range(3):
+        eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+    assert [k.launches for k in kernels] == [3 * c for c in eager]
+
+
+def test_engine_two_threads_replay_one_engine(gen):
+    """Two threads serve different requests through one engine at once
+    (the graphs share one pool and one lock); each row equals the same
+    request served alone."""
+    import threading
+
+    eng = _card_engine(False)
+    reqs = [_request(1, seed=s) for s in (1, 2, 3, 4)] + [_request(2, seed=5)]
+    want = [eng.generate_batch_from_wavs(*r[:3], seeds=r[3])[1] for r in reqs]
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            for rep in range(3):
+                for i in range(t, len(reqs), 2):
+                    got[(i, rep)] = eng.generate_batch_from_wavs(*reqs[i][:3],
+                                                                 seeds=reqs[i][3])[1]
+        except Exception as e:  # noqa: BLE001 - surfaced by the assert below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert len(got) == 3 * len(reqs)
+    for (i, _), wavs in got.items():
+        for a, b in zip(wavs, want[i]):
+            np.testing.assert_array_equal(a, b)
