@@ -123,7 +123,25 @@ Run from the repository root:  python3 chip_smoke.py
     request streamed through the socket server and client; ``cli.main`` on
     ``examples/basic.toml`` with ``--init_random``; a batcher closed with a
     request in flight resolves its future.
-19. Prints the kernels' JSON line, then the result line.
+19. The BigVGAN vocoder path: F5TTS_Base with the bigvgan mel and BigVGAN v2
+    at full width (seeded random weights) serves a short request at bucket
+    512 and a chunked long one at 2048 from the engine's CUDA graphs, each
+    replay bitwise the eager function, A's and B's launches over three
+    replays three eager calls'; the short request's graph (wall, device
+    time, kernels, busy share), its device time split into
+    BigVGAN (the anti-aliased activations against the rest) and the DiT
+    sampler; BigVGAN alone at 512 and 4096 frames (device time per decode
+    as the engine runs it, cuDNN's TF32 default, and with TF32 off, the
+    int16 difference between the two, the bound at the TF32 and the fp32
+    peak); the bigvgan mel on the card against ``log_mel_np`` on the CPU
+    (``BIGVGAN_MEL_TOL``); ``warmup_all`` over (512, 2048) x (1, 4) with the
+    capture seconds and the pool's bytes.  The single-device Picard sampler
+    on F5TTS_v1_Base, W = 4: at tol 0 as many sweeps as steps, the mel
+    within ``PICARD_MEL_MAE_TOL`` of the sequential sampler, a replay
+    bitwise the eager Picard call, depth A and one B launch per sweep; at
+    tol 1e-3 and 1e-2 the sweeps, the wall and the mel against the
+    sequential sampler.
+20. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -145,6 +163,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 HBM_BPS = 3.35e12
+PEAK_TF32 = 495e12  # dense TF32 tensor cores
+PEAK_FP32 = 67e12  # fp32 outside the tensor cores
 
 REF_WAV = os.path.join(REPO, "examples", "assets", "basic_ref_en.wav")
 REF_TEXT = "Some call me nature, others call me mother nature."
@@ -203,6 +223,16 @@ LN_MATMUL_TOL = (2e-2, 2e-3)
 # Kernel B runs fp32 there; kernel A still rounds q, k, v, p to bf16 (2^-9
 # relative), which the gated residual stream carries to the output damped
 FULL_WIDTH_REL_TOL = 1e-3
+# the bigvgan log-mel on the card (fp32 cuBLAS, no TF32) against the port's
+# numpy log_mel_np on the CPU: max abs error in log units, where bins near
+# the 1e-5 floor lose relative precision to cancellation
+BIGVGAN_MEL_TOL = 1e-3
+# Picard at tol 0 against the sequential sampler, bf16 on the card: the
+# window runs W * 2b rows through each forward where the sequential sampler
+# runs 2b, so cuBLAS may pick other kernels and the two round differently
+# (not bitwise); generated-region mel MAE, a tenth of quant_ab's W8A8 gate
+PICARD_MEL_MAE_TOL = MEL_MAE_GATE / 10
+PICARD_W = 4
 
 
 def fail(msg: str) -> None:
@@ -2049,9 +2079,9 @@ def _eager(eng, entry, args, decode):
     if entry == "wav":
         return TE.sample_and_decode_from_wav(eng.model.transformer, eng.vocoder, eng.model_cfg,
                                              eng.options, *args, args[-1].shape[1],
-                                             decode=decode)
+                                             decode=decode, vocoder_type=eng.vocoder_type)
     return TE.sample_and_decode(eng.model.transformer, eng.vocoder, eng.model_cfg, eng.options,
-                                *args, decode=decode)
+                                *args, decode=decode, vocoder_type=eng.vocoder_type)
 
 
 def _check_replays(torch, tag, eng, calls) -> None:
@@ -2094,7 +2124,7 @@ def _replay_launches(torch, tag, tts, n_replays: int = 3) -> dict:
     return dict(eager=eager, replays=n_replays, replayed=replayed)
 
 
-def _eager_vs_graph(torch, tag, tts, reps: int = 3) -> dict:
+def _eager_vs_graph(torch, tag, tts, reps: int = 3, modes=("eager", "graph")) -> dict:
     """The short request served eagerly (the engine's call swapped for the
     module-level function, here only) and through its graph: median wall of
     ``reps`` runs, then device time, kernel count and busy share from one
@@ -2109,7 +2139,7 @@ def _eager_vs_graph(torch, tag, tts, reps: int = 3) -> dict:
         torch.cuda.synchronize()
 
     out = {}
-    for mode in ("eager", "graph"):
+    for mode in modes:
         if mode == "eager":
             eng._run = lambda entry, args, decode: _eager(eng, entry, args, decode)
         run()
@@ -2383,6 +2413,285 @@ def phase_graphs(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the BigVGAN vocoder path, the bigvgan mel and the single-device Picard sampler
+
+def bigvgan_work(cfg, n_frames: int) -> dict:
+    """Multiply-adds of one BigVGAN decode of ``n_frames`` mel frames, from
+    the config's shapes: the dense convs (conv_pre, the transposed-conv
+    upsamples, the AMP blocks' convs, conv_post) and the anti-aliased
+    activations' grouped 12-tap filters (~12 multiply-adds per channel and
+    sample up, 12 down), with the activations' input elements."""
+    t, ch = n_frames, cfg.upsample_initial_channel
+    convs, acts, elems = ch * cfg.num_mels * 7 * t, 0, 0
+    for r, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        convs += ch * (ch // 2) * k * t
+        ch, t = ch // 2, t * r
+        for rk, dil in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            convs += len(dil) * 2 * ch * ch * rk * t
+            acts += len(dil) * 2 * 24 * ch * t
+            elems += len(dil) * 2 * ch * t
+    acts, elems = acts + 24 * ch * t, elems + ch * t  # activation_post
+    return dict(conv_macs=convs + ch * 7 * t, act_macs=acts, act_elems=elems)
+
+
+def _bigvgan_bound(voc, n_frames: int) -> dict:
+    """The least time of one decode, by the on-chip-measurement guide: the
+    bytes it must move (weights, the mel, the wav; fp32) over HBM, the dense
+    convs over the fp32 (67 TFLOP/s) or the TF32 (495) tensor-core peak,
+    and the activations' filters over the fp32 peak (no tensor-core path);
+    the largest of the three."""
+    w = bigvgan_work(voc.cfg, n_frames)
+    nbytes = 4 * (sum(p.numel() for p in voc.parameters()) + n_frames * (voc.cfg.num_mels + 256))
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_act = 2 * w["act_macs"] / PEAK_FP32 * 1e3
+    out = dict(w, bytes=nbytes)
+    for name, peak in (("fp32", PEAK_FP32), ("tf32", PEAK_TF32)):
+        t_conv = 2 * w["conv_macs"] / peak * 1e3
+        ms = max(t_bytes, t_conv, t_act)
+        out[f"bound_ms_{name}"] = ms
+        out[f"bound_by_{name}"] = ("bytes" if ms == t_bytes else "operations")
+    return out
+
+
+def _bigvgan_alone(torch, voc, n_frames: int, split: bool) -> dict:
+    """One decode of ``n_frames`` frames (b = 1): device time as the engine
+    runs it (cuDNN's TF32 default) and with TF32 off, the int16 wav's max
+    difference between the two, the bound; with ``split``, the device time
+    of the 109 anti-aliased activations alone at their shapes in that
+    decode (the rest: the convs and the residual adds)."""
+    from f5_tts_tpu_torch.models import bigvgan as BV
+    from f5_tts_tpu_torch.utils.device import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(n_frames)
+    mel = torch.randn((1, n_frames, 100), generator=gen, device="cuda") - 5.0
+    decode = lambda: BV.decode(voc, mel)  # noqa: E731
+    to_i16 = lambda w: (torch.clamp(w, -1.0, 1.0) * 32767.0).to(torch.int16)  # noqa: E731
+    iters = 3 if n_frames <= 1024 else 1
+    out = dict(n=n_frames, ms=device_ms(decode, iters), **_bigvgan_bound(voc, n_frames))
+    wav = decode()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out["fp32_ms"] = device_ms(decode, iters)
+        ref = decode()
+    out["wav_rms"] = wav.float().square().mean().sqrt().item()
+    out["clamped_share"] = (wav.abs() >= 1.0).float().mean().item()
+    out["tf32_vs_fp32_i16_max"] = (to_i16(wav).int() - to_i16(ref).int()).abs().max().item()
+    out["tf32_vs_fp32_max_abs"] = (wav - ref).abs().max().item()
+    if split:
+        inputs = []
+        hooks = [a.register_forward_pre_hook(lambda m, a_: inputs.append((m, a_[0])))
+                 for a in BV.activations(voc)]
+        decode()
+        for h in hooks:
+            h.remove()
+        out["activations"] = len(inputs)
+        out["act_ms"] = device_ms(lambda: [m(x) for m, x in inputs], 1)
+        del inputs
+    print(f"bigvgan alone, n={n_frames}: {out['ms']:.3f} ms per decode (cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, the engine's default), {out['fp32_ms']:.3f} ms "
+          f"TF32 off; bound {out['bound_ms_tf32']:.3f} ms at "
+          f"the TF32 peak, {out['bound_ms_fp32']:.3f} ms at the fp32 peak "
+          f"({2 * out['conv_macs'] / 1e12:.3f} TFLOP of convs, {2 * out['act_macs'] / 1e9:.2f} "
+          f"GFLOP of activation filters, {out['bytes'] / 1e6:.0f} MB); int16 wav TF32 vs off "
+          f"max |diff| {out['tf32_vs_fp32_i16_max']} (float {out['tf32_vs_fp32_max_abs']:.2e}; "
+          f"wav rms {out['wav_rms']:.3f}, clamped {out['clamped_share']:.1%})"
+          + (f"; the {out['activations']} activations alone {out['act_ms']:.3f} ms "
+             f"({out['act_ms'] / out['ms']:.1%})" if split else ""), flush=True)
+    return out
+
+
+def _bigvgan_mel_on_card(torch) -> dict:
+    """The bigvgan log-mel on the card (``log_mel_prepadded``) against the
+    port's numpy ``log_mel_np`` on the CPU, over the example clip."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.audio.io import load_wav
+    from f5_tts_tpu_torch.ops import mel as M
+
+    cfg = M.MelConfig(mel_spec_type="bigvgan")
+    wav, _ = load_wav(REF_WAV)
+    pad = M.stft_pad_amount(cfg)
+    padded = np.pad(np.pad(wav, pad, mode="reflect"), (0, 4096))[None].astype(np.float32)
+    got = M.log_mel_prepadded(torch.from_numpy(padded).cuda(), cfg)
+    k = M.num_frames(len(wav), cfg)
+    want = M.log_mel_np(wav, cfg)
+    err = float(np.abs(got[:, :k].cpu().numpy() - want).max())
+    print(f"bigvgan mel on the card vs log_mel_np on the CPU: {k} frames, max |diff| {err:.2e} "
+          f"(tolerance {BIGVGAN_MEL_TOL})", flush=True)
+    if not err <= BIGVGAN_MEL_TOL:
+        fail(f"bigvgan mel on the card: max |diff| {err} > {BIGVGAN_MEL_TOL}")
+    return dict(frames=k, max_abs=err)
+
+
+def _picard(torch, tts) -> dict:
+    """F5TTS_v1_Base with the Picard sampler, W = 4: at tol 0 (sweeps ==
+    steps, the mel against the sequential sampler, a replay against the
+    eager Picard call bitwise, A and B launches per sweep), at tol 1e-3
+    (JAX's default) and 1e-2 (sweeps, wall and mel against the sequential
+    sampler)."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    eng = tts.engine
+    quiet = lambda *a, **k: None  # noqa: E731
+    seq_opts = eng.options
+    depth = tts.model_cfg.arch.depth
+
+    def serve(opts, reps=0):
+        """The short request under ``opts`` (first hit captures), then the
+        median wall of ``reps`` more; the mel of its engine call."""
+        eng.options = opts
+        calls = _recorded_run(eng)
+        tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        del eng._run
+        return calls, (statistics.median(walls) * 1e3 if walls else None)
+
+    out = {}
+    seq_calls, seq_wall = serve(seq_opts, reps=3)
+    seq_mel = seq_calls[0][3][0].float()
+    for tol in (0.0, 1e-3, 1e-2):
+        opts = dataclasses.replace(seq_opts, time_parallel_window=PICARD_W, picard_tol=tol)
+        calls, wall = serve(opts, reps=3)
+        sweeps = eng.last_sweeps
+        entry, args, decode, (mel, wav) = calls[0]
+        lens, dur = args[2], args[4]
+        gen = (torch.arange(mel.shape[1], device=mel.device)[None, :] >= lens[:, None]) & \
+            (torch.arange(mel.shape[1], device=mel.device)[None, :] < dur[:, None])
+        mae = ((mel.float() - seq_mel).abs() * gen[..., None]).sum().item() / \
+            (gen.sum().item() * mel.shape[-1])
+        key = next(k for k in eng.graphs if k[-1] == opts)
+        g = eng.graphs[key]
+        r = dict(sweeps=sweeps, wall_ms=wall, seq_wall_ms=seq_wall, mel_mae_vs_seq=mae,
+                 capture_s=g.seconds)
+        print(f"picard F5TTS_v1_Base W={PICARD_W} tol={tol}: {sweeps} sweeps for {NFE} steps, "
+              f"wall {wall:.1f} ms against {seq_wall:.1f} sequential (medians of 3), generated "
+              f"mel MAE against the sequential sampler {mae:.4f}, capture {g.seconds:.2f} s",
+              flush=True)
+        if tol == 0.0:
+            if sweeps != NFE:
+                fail(f"picard at tol 0: {sweeps} sweeps, want {NFE}")
+            if not mae <= PICARD_MEL_MAE_TOL:
+                fail(f"picard at tol 0: generated-mel MAE {mae} against the sequential sampler "
+                     f"> {PICARD_MEL_MAE_TOL}")
+            _check_replays(torch, f"picard W={PICARD_W} tol 0", eng, calls[:1])
+            reset_counts()
+            tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+            torch.cuda.synchronize()
+            c = counts()
+            r["launches"] = {k: c[k] for k in ("A", "B")}
+            print(f"picard: one replayed call launched A {c['A']} and B {c['B']} times over "
+                  f"{eng.last_sweeps} sweeps (want {depth} A and 1 B per sweep)", flush=True)
+            if c["A"] != depth * eng.last_sweeps or c["B"] != eng.last_sweeps:
+                fail("picard: the sweeps' replays did not count their A and B launches")
+        out[f"tol_{tol:g}"] = r
+    eng.options = seq_opts
+    return out
+
+
+def phase_bigvgan(torch):
+    """F5TTS_Base + BigVGAN v2 at full width on the engine's CUDA graphs (a
+    short request at bucket 512, a chunked long one at 2048: replay vs
+    eager, launches, wall / device / busy with the device time split into
+    BigVGAN (and inside it the activations) and the rest); BigVGAN alone at
+    512 and 4096 frames beside its bound, TF32 against fp32; the bigvgan mel
+    on the card; ``warmup_all`` over (512, 2048) x (1, 4); Picard on
+    F5TTS_v1_Base.  It runs under PyTorch's default, cuDNN's TF32 allowed,
+    as a serving process has it (the earlier phases turn TF32 off for their
+    fp32 references)."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        return _phase_bigvgan(torch)
+
+
+def _phase_bigvgan(torch):
+    import dataclasses
+
+    from f5_tts_tpu_torch.infer.api import F5TTS
+    from f5_tts_tpu_torch.infer.engine import pick_bucket
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+    from f5_tts_tpu_torch.ops.mel import MelConfig
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    out = {"mel": _bigvgan_mel_on_card(torch)}
+    cfg = dataclasses.replace(MODEL_CONFIGS["F5TTS_Base"], mel=MelConfig(mel_spec_type="bigvgan"))
+    t0 = time.perf_counter()
+    tts = F5TTS(model="F5TTS_Base", model_cfg=cfg, init_random=True, nfe_step=NFE)
+    eng = tts.engine
+    randomize_zero_init(eng.model.transformer, torch.Generator().manual_seed(19))
+    voc = eng.vocoder
+    print(f"bigvgan: built F5TTS_Base + BigVGAN v2 ({sum(p.numel() for p in voc.parameters())} "
+          f"vocoder parameters) in {time.perf_counter() - t0:.1f} s", flush=True)
+    calls = _recorded_run(eng)
+    t0 = time.perf_counter()
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)  # first hit: captures
+    first = time.perf_counter() - t0
+    wav, sr, _ = tts.infer(REF_WAV, REF_TEXT, LONG_TEXT, show_info=quiet, seed=7)
+    del eng._run
+    shapes = [(c[1][0].shape[0], c[1][-1].shape[1]) for c in calls]
+    print(f"bigvgan: engine calls (b, n) {shapes}; the short request's first hit {first:.2f} s; "
+          f"long request {len(wav) / sr:.2f} s of audio", flush=True)
+    if shapes[0][1] != 512 or max(b for b, _ in shapes) < 2 or max(n for _, n in shapes) != 2048:
+        fail(f"bigvgan: want a short request at bucket 512 and a chunked long one at 2048, "
+             f"got {shapes}")
+    for _, args, _, (mel, w) in calls:
+        if w.shape[1] != args[-1].shape[1] * 256 or not torch.isfinite(mel.float()).all():
+            fail("bigvgan: a wav is not n * 256 samples long or a mel is not finite")
+    _check_replays(torch, "F5TTS_Base + BigVGAN", eng, calls)
+    out["launches"] = _replay_launches(torch, "F5TTS_Base + BigVGAN", tts)
+    out["short"] = _eager_vs_graph(torch, "F5TTS_Base + BigVGAN", tts, modes=("graph",))
+    del calls
+    torch.cuda.empty_cache()
+
+    alone = {n: _bigvgan_alone(torch, voc, n, split=n == 512) for n in (512, 4096)}
+    out["alone"] = alone
+    g = out["short"]["graph"]
+    voc_ms = alone[512]["ms"]
+    share = voc_ms / g["device_ms"]
+    print(f"bigvgan: the short request replayed, {g['device_ms']:.1f} ms of device time: BigVGAN "
+          f"{voc_ms:.1f} ms ({share:.1%}; its activations {alone[512]['act_ms']:.1f} ms, the convs "
+          f"and the rest {voc_ms - alone[512]['act_ms']:.1f} ms), the DiT sampler, ref mel and "
+          f"the rest {g['device_ms'] - voc_ms:.1f} ms; busy {g['busy']:.1%} of "
+          f"{g['wall_ms']:.1f} ms wall", flush=True)
+    out["split"] = dict(bigvgan_ms=voc_ms, share=share, act_ms=alone[512]["act_ms"],
+                        rest_ms=g["device_ms"] - voc_ms)
+
+    before = set(eng.graphs)
+    t0 = time.perf_counter()
+    eng.warmup_all(buckets=(512, 2048), batch_sizes=(1, 4))
+    wall = time.perf_counter() - t0
+    hop, n_fft = eng.hop, eng.model_cfg.mel.n_fft
+    want = {(b, n, pick_bucket(n // 4 + 1) * hop + n_fft) for b in (1, 4) for n in (512, 2048)}
+    warm = [(k, gr) for k, gr in eng.graphs.items() if k[0] == "wav" and k[1:4] in want]
+    pool = eng.graph_pool_bytes()
+    for k, gr in warm:
+        print(f"bigvgan warmup_all: b={k[1]} n={k[2]} S={k[3]} captured in {gr.seconds:.2f} s"
+              + ("" if k not in before else " (at an earlier request's first hit)"), flush=True)
+    print(f"bigvgan warmup_all: {len(set(eng.graphs) - before)} graphs captured in {wall:.1f} s; "
+          f"the engine's {len(eng.graphs)} graphs hold {pool / 2**30:.2f} GiB in their pool",
+          flush=True)
+    if len(warm) != 4:
+        fail(f"bigvgan warmup_all: {len(warm)} graphs of its (bucket, batch) pairs, want 4")
+    out["warmup_all"] = dict(wall_s=wall, pool_bytes=pool, graphs=len(eng.graphs),
+                             capture_s={f"b{k[1]}_n{k[2]}": gr.seconds for k, gr in warm})
+    del tts, eng, voc
+    torch.cuda.empty_cache()
+
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE)
+    randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(4))
+    out["picard"] = _picard(torch, tts)
+    del tts
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -2509,6 +2818,9 @@ def main() -> int:
     graphs = phase_graphs(torch)  # counts set to 0 before the serving layers' requests
     lap("18 (CUDA graphs, serving layers)")
     print(f"summary: graphs {graphs}", flush=True)
+    bigvgan = phase_bigvgan(torch)  # counts set to 0 before the replays it counts
+    lap("19 (BigVGAN, bigvgan mel, Picard)")
+    print(f"summary: BigVGAN and Picard {bigvgan}", flush=True)
     print(f"summary: W8A8 serving {w8a8}; W8A8 full-width {w8a8_full}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "

@@ -6,8 +6,11 @@ JAX counterpart: ``f5_tts_tpu/infer/api.py:43-296`` (itself the reference
 
 ``model`` names any shipped architecture of the three backbones
 (``F5TTS_v1_Base``, ``E2TTS_Base``, ``F5TTS_MMDiT_Base`` ...), or, with
-``model_cfg`` (a reference-schema YAML path or a flat arch dict, as JAX
-takes it), a custom one.  The engine runs on the card: ``device=None``
+``model_cfg`` (a reference-schema YAML path, a flat arch dict or a
+``ModelConfig``, as JAX takes it), a custom one.  The vocoder follows the
+config's ``mel.mel_spec_type``: Vocos, or BigVGAN v2 for ``"bigvgan"``
+(JAX ``api.py:127-168``; the released ``F5TTS_Base_bigvgan`` is F5TTS_Base
+with that mel).  The engine runs on the card: ``device=None``
 means ``"cuda"`` and raises if CUDA is unavailable; only an explicit
 ``device="cpu"`` runs on the CPU (the backbone then runs in fp32, on the
 card in bf16).  Checkpoints load from ``ckpt_file`` / ``vocoder_local_path``
@@ -15,9 +18,10 @@ card in bf16).  Checkpoints load from ``ckpt_file`` / ``vocoder_local_path``
 URI; with neither, the model and vocoder names resolve through the local HF
 cache first, then a download where the network is reachable
 (``utils/hub.py``, JAX ``api.py:92-131``); ``init_random=True`` builds
-seeded random weights.  The Whisper fallback for an empty ``ref_text``, the
-spectrogram image and AOT artifacts are not ported yet and raise (see
-ROADMAP.md).
+seeded random weights.  An empty ``ref_text`` is transcribed by Whisper
+(``audio/asr.py``, on the ``F5TTS``'s device) when a model resolves, and
+``file_spec`` writes the generated mel as an image (JAX ``api.py:186-250``).
+AOT artifacts are not ported yet and raise (see ROADMAP.md).
 
 W8A8 serving is an ``EngineOptions`` field, not a keyword here, as in the
 JAX ``F5TTS``: build an ``InferenceEngine(..., options=EngineOptions(
@@ -37,7 +41,7 @@ import warnings
 import numpy as np
 import torch
 
-from f5_tts_tpu_torch.audio.io import save_wav
+from f5_tts_tpu_torch.audio.io import load_wav, save_wav
 from f5_tts_tpu_torch.audio.preprocess import preprocess_ref_audio_text
 from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
 from f5_tts_tpu_torch.infer.pipeline import (
@@ -50,6 +54,7 @@ from f5_tts_tpu_torch.infer.pipeline import (
     PipelineOptions,
     infer_process,
 )
+from f5_tts_tpu_torch.models.bigvgan import BigVGAN
 from f5_tts_tpu_torch.models.cfm import CFM
 from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, from_yaml_dict, with_vocab_size
 from f5_tts_tpu_torch.models.vocos import Vocos
@@ -111,8 +116,6 @@ class F5TTS:
         self.seed = -1
         self.mel_spec_type = model_cfg.mel.mel_spec_type
         self.target_sample_rate = model_cfg.mel.target_sample_rate
-        if self.mel_spec_type != "vocos":
-            raise NotImplementedError(f"the {self.mel_spec_type} vocoder {_NOT_PORTED}")
 
         if not ckpt_file and not init_random:  # reference api.py:78-81
             ckpt_file = hub.resolve_checkpoint(model, self.mel_spec_type, hf_cache_dir) or ""
@@ -136,16 +139,22 @@ class F5TTS:
 
         if not vocoder_local_path and not init_random:  # reference utils_infer.py:108-146
             vocoder_local_path = hub.resolve_vocoder(self.mel_spec_type, hf_cache_dir)
+        vocoder_cls = BigVGAN if self.mel_spec_type == "bigvgan" else Vocos
         if vocoder_local_path:
-            voc = Vocos()
-            ckpt_util.load_into(voc, ckpt_util.load_torch_state(vocoder_local_path, use_ema=False))
+            voc = vocoder_cls()
+            vstate = ckpt_util.load_torch_state(vocoder_local_path, use_ema=False)
+            if vocoder_cls is BigVGAN:
+                ckpt_util.load_bigvgan_state(voc, vstate)
+            else:
+                ckpt_util.load_into(voc, vstate)
         elif init_random:
-            voc = _seeded(Vocos, 1)
+            voc = _seeded(vocoder_cls, 1)
         else:
             voc = None
             warnings.warn(
                 "no vocoder weights (vocoder_local_path not set and init_random=False): the "
-                "engine runs mel-only and waveform calls will fail; pass vocoder_local_path",
+                "engine runs mel-only and waveform calls will fail; download Vocos/BigVGAN "
+                "weights and pass vocoder_local_path",
                 stacklevel=2)
 
         self.engine = InferenceEngine(
@@ -153,8 +162,31 @@ class F5TTS:
             dtype=dtype, options=EngineOptions(nfe_step=nfe_step, ode_method=ode_method),
         )
 
+    def transcribe(self, ref_audio, language=None):
+        """Whisper's transcript of a path or a (wav, sr) pair (reference
+        api.py:86-96)."""
+        from f5_tts_tpu_torch.audio.asr import make_whisper_transcriber
+
+        fn = make_whisper_transcriber(language=language, hf_cache_dir=self.hf_cache_dir,
+                                      device=str(self.device))
+        wav, sr = load_wav(ref_audio) if isinstance(ref_audio, str) else ref_audio
+        return fn(wav, sr)
+
     def export_wav(self, wav, file_wave, remove_silence=False):
         save_wav(file_wave, wav, self.target_sample_rate)
+
+    def export_spectrogram(self, spec, file_spec):
+        """The mel [n_mels, frames] as an image (matplotlib, imported here)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(12, 4))
+        plt.imshow(spec, origin="lower", aspect="auto")
+        plt.colorbar()
+        plt.savefig(file_spec)
+        plt.close()
 
     def infer(
         self,
@@ -178,12 +210,18 @@ class F5TTS:
         if seed is None:
             seed = random.randint(0, sys.maxsize) % (2**31 - 1)
         self.seed = seed
+        transcribe_fn = None
         if not ref_text.strip():
-            raise NotImplementedError(f"transcribing the reference audio (Whisper) {_NOT_PORTED}: "
-                                      "pass ref_text")
-        if file_spec is not None:
-            raise NotImplementedError(f"exporting the spectrogram image {_NOT_PORTED}")
-        (wav, sr), ref_text = preprocess_ref_audio_text(ref_file, ref_text, show_info=show_info)
+            # resolve once, against the constructor's HF cache, and hand the
+            # snapshot on (JAX api.py:230-243); nothing resolved: the
+            # preprocessing raises, as JAX's does
+            from f5_tts_tpu_torch.audio.asr import make_whisper_transcriber
+
+            wpath = hub.resolve_whisper(hf_cache_dir=self.hf_cache_dir)
+            if wpath:
+                transcribe_fn = make_whisper_transcriber(wpath, device=str(self.device))
+        (wav, sr), ref_text = preprocess_ref_audio_text(ref_file, ref_text, show_info=show_info,
+                                                        transcribe_fn=transcribe_fn)
         self.last_ref_text = ref_text
 
         eng = self.engine
@@ -202,4 +240,6 @@ class F5TTS:
             out_wav = remove_silence_edges(out_wav, out_sr)
         if file_wave is not None and out_wav is not None:
             self.export_wav(out_wav, file_wave)
+        if file_spec is not None and spec is not None:
+            self.export_spectrogram(spec, file_spec)
         return out_wav, out_sr, spec

@@ -6,7 +6,10 @@ defaults; asset paths resolve relative to the TOML; multi-voice ``[voice]``
 tags in gen_text with per-voice TOML tables).  Model names and ``hf://``
 paths resolve through the local HF cache (``utils/hub.py``); --ckpt_file /
 --vocoder_local_path load local weights.  It runs on the card unless
-``--device cpu``.  JAX's persistent compilation cache has no counterpart:
+``--device cpu``.  The vocoder follows the model config's
+``mel_spec_type``; a ``--vocoder_name`` that disagrees with it raises
+``ValueError`` (JAX parses the flag and never reads it).  JAX's persistent
+compilation cache has no counterpart:
 the engine's CUDA graphs live in their process and are captured again at
 each start.
 
@@ -100,6 +103,18 @@ def load_config(args) -> dict:
     return config
 
 
+def _mel_spec_type(model: str, model_cfg: str | None) -> str:
+    """The mel front end (and so the vocoder) of the model ``F5TTS`` builds."""
+    if model_cfg:
+        from f5_tts_tpu_torch.models.configs import from_yaml_dict
+        from f5_tts_tpu_torch.train.cli import parse_simple_yaml
+
+        return from_yaml_dict(parse_simple_yaml(model_cfg).get("model", {})).mel.mel_spec_type
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    return MODEL_CONFIGS[model].mel.mel_spec_type
+
+
 def main(argv=None) -> str | None:
     args = build_parser().parse_args(argv)
     config = load_config(args)
@@ -115,6 +130,12 @@ def main(argv=None) -> str | None:
     from f5_tts_tpu_torch.infer.api import F5TTS
 
     model = opt("model", "F5TTS_v1_Base")
+    vocoder_name = opt("vocoder_name")
+    if vocoder_name:
+        mel_type = _mel_spec_type(model, opt("model_cfg") or None)
+        if vocoder_name != mel_type:
+            raise ValueError(f"--vocoder_name {vocoder_name} disagrees with the model config's "
+                             f"mel_spec_type {mel_type!r}: the vocoder follows the config")
     tts = F5TTS(
         model=model,
         ckpt_file=opt("ckpt_file", "") or "",

@@ -3,11 +3,21 @@
 JAX counterpart: ``f5_tts_tpu/infer/engine.py``.  ``sample_and_decode_from_wav``
 is the counterpart of the fused ``_sample_and_decode_from_wav`` graph:
 ref-mel extraction, ``cfm.sample`` (the NFE Euler loop over the fused-CFG
-backbone: DiT, UNetT or MMDiT) and the Vocos decode, each on the engine's
+backbone: DiT, UNetT or MMDiT) and the vocoder decode, each on the engine's
 device.  It takes the noise
 as an explicit tensor; the engine's public methods draw it per row from
 ``torch.Generator(device).manual_seed(seed)``, so a row's noise depends only
 on its seed and the bucket, not on the batch it rides in.
+
+The vocoder is Vocos or BigVGAN, ``vocoder_type`` (by default the model's
+``mel.mel_spec_type``, as JAX ``engine.py:243``).  Both run in fp32 on the
+generated region rolled to the front of each row, the tail padded with the
+log-mel silence floor: Vocos masked to each row's length, BigVGAN over the
+whole bucket row with no mask (JAX :150-154).  On the card both run under
+PyTorch's default cuDNN setting, which lets fp32 convolutions use TF32
+products (``torch.backends.cudnn.allow_tf32``); the engine sets no global
+flag.  ``chip_smoke.py`` (phase 19) reports BigVGAN's int16 error and time
+against a decode with TF32 off.
 
 JAX runs one compiled XLA program per call; on the card the engine runs one
 CUDA graph per call.  Each graph is keyed on what is static in JAX's jit:
@@ -27,6 +37,15 @@ recorded to their counters (``cuda_build.add_launches``).  A failed
 capture raises: nothing runs eagerly in its place.  A CPU engine runs the
 module-level functions eagerly, which stay the reference for a replay.
 
+``EngineOptions(time_parallel_window=W)`` samples with the single-device
+Picard sampler (``cfm.picard_*``).  Its sweep count depends on the data,
+which a static graph cannot hold, so a key captures three graphs: the
+prelude (ref mel, text embeddings, AdaLN tables, y0, the window's tiled
+conditioning), one sweep, and the epilogue (the masks and the decode).  A
+call replays the prelude, then the sweep until the frozen count ``s``,
+read by the host after each sweep, reaches the step count, then the
+epilogue (``last_sweeps`` keeps the count).
+
 Target durations round up to frame buckets; every dynamic length is a mask.
 The text ids are padded to the bucket width, so MMDiT, whose text stream
 is capped at ``text_max_pos`` tokens, serves buckets up to that length and
@@ -37,8 +56,8 @@ the card): after the cast to the compute dtype and the qkv fusion, the
 engine quantizes the backbone's block linears in place from the
 dtype-rounded weights, as JAX ``engine.py:234-241`` does; DiT and MMDiT
 only (UNetT raises ``ValueError``: the JAX package cannot quantize it
-either).  The options that belong to later slices of the port (the
-time-parallel window, the einsum-tap convpos) raise if set.
+either).  The einsum-tap convpos of mesh serving belongs to a later slice
+of the port and raises if set.
 """
 
 from __future__ import annotations
@@ -53,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from f5_tts_tpu_torch.models import cfm, vocos
+from f5_tts_tpu_torch.models import bigvgan, cfm, vocos
 from f5_tts_tpu_torch.models.backbones import get_backbone
 from f5_tts_tpu_torch.models.configs import ModelConfig
 from f5_tts_tpu_torch.models.layers import ConvPositionEmbedding
@@ -74,7 +93,7 @@ def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
 
 @dataclass(frozen=True)
 class EngineOptions:
-    """Serving knobs (the JAX fields of later slices must stay unset)."""
+    """Serving knobs (``convpos_taps``, of a later slice, must stay unset)."""
 
     nfe_step: int = 32
     cfg_strength: float = 2.0
@@ -83,19 +102,21 @@ class EngineOptions:
     ode_method: str = "euler"  # "euler" | "midpoint"
     backend: str = "auto"  # attention backend
     quantize: bool = False  # W8A8 int8 block linears (ops/quant.py, kernel G)
-    time_parallel_window: int = 0  # Picard window: not ported yet
+    time_parallel_window: int = 0  # W > 0: the Picard sampler, W steps per sweep
+    picard_tol: float = 1e-3
     convpos_taps: bool = False  # mesh-serving convpos: not ported yet
 
     def __post_init__(self):
-        for name in ("time_parallel_window", "convpos_taps"):
-            if getattr(self, name):
-                raise NotImplementedError(f"EngineOptions.{name} is not ported yet; "
-                                          "see ROADMAP.md")
+        if self.convpos_taps:
+            raise NotImplementedError("EngineOptions.convpos_taps is not ported yet; "
+                                      "see ROADMAP.md")
 
     def sample_opts(self) -> cfm.SampleOptions:
         return cfm.SampleOptions(steps=self.nfe_step, cfg_strength=self.cfg_strength,
                                  sway_sampling_coef=self.sway_sampling_coef,
-                                 use_epss=self.use_epss, ode_method=self.ode_method)
+                                 use_epss=self.use_epss, ode_method=self.ode_method,
+                                 time_parallel_window=self.time_parallel_window,
+                                 picard_tol=self.picard_tol)
 
 
 def _clamp_duration(duration, text_ids, lens, n):
@@ -116,45 +137,59 @@ def draw_noise(seeds, n: int, d: int, device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def sample_and_decode(model, voc, model_cfg: ModelConfig, opts: EngineOptions, cond, text_ids,
-                      lens, duration, noise, decode: bool = True):
-    """cond [b, n, d] in the compute dtype -> (mel [b, n, d], int16 wav [b, T] or None)."""
-    mel_out = cfm.sample(model, model_cfg.arch, cond, text_ids, duration,
-                         noise.to(cond.dtype), lens=lens, opts=opts.sample_opts(),
-                         backend=opts.backend)
-    if not decode or voc is None:
-        return mel_out, None
+def decode_wav(voc, vocoder_type: str, mel_out, lens, duration):
+    """The int16 waveform [b, T] of each row's generated region: rolled to
+    the front of the row, the tail at the log-mel silence floor so the
+    vocoder's tail stays silent, decoded in fp32 (Vocos masked to each
+    row's length, BigVGAN over the whole row)."""
     b, n, _ = mel_out.shape
     dev = mel_out.device
-    # roll the generated region to the front of each row; the tail gets the
-    # log-mel silence floor so the vocoder's overlap-add tail stays silent
     gen_len = duration.to(dev) - lens.to(dev)
     idx = (torch.arange(n, device=dev)[None, :] + lens.to(dev).long()[:, None]) % n
     gen_mel = torch.gather(mel_out, 1, idx[..., None].expand(-1, -1, mel_out.shape[-1]))
     keep = torch.arange(n, device=dev)[None, :] < gen_len[:, None]
     floor = torch.full((), SILENCE_FLOOR, dtype=gen_mel.dtype, device=dev)
     gen_mel = torch.where(keep[..., None], gen_mel, floor).float()
-    wav = vocos.decode(voc, gen_mel, lens=gen_len)
-    wav_i16 = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)  # truncates like JAX
-    return mel_out, wav_i16
+    if vocoder_type == "bigvgan":
+        wav = bigvgan.decode(voc, gen_mel)
+    else:
+        wav = vocos.decode(voc, gen_mel, lens=gen_len)
+    return (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)  # truncates like JAX
 
 
 @torch.inference_mode()
-def sample_and_decode_from_wav(model, voc, model_cfg: ModelConfig, opts: EngineOptions, wav_i16,
-                               wav_scale, lens, text_ids, duration, noise, n: int,
-                               decode: bool = True):
-    """Ref-audio mel extraction + sampling + vocoder.  ``wav_i16`` [b, S] is
-    the host-reflect-padded ref wav at a ref-length bucket, ``wav_scale`` [b]
-    its dequantization scale; ``noise`` [b, n, d]."""
+def sample_and_decode(model, voc, model_cfg: ModelConfig, opts: EngineOptions, cond, text_ids,
+                      lens, duration, noise, decode: bool = True, vocoder_type: str = "vocos"):
+    """cond [b, n, d] in the compute dtype -> (mel [b, n, d], int16 wav [b, T] or None)."""
+    mel_out = cfm.sample(model, model_cfg.arch, cond, text_ids, duration,
+                         noise.to(cond.dtype), lens=lens, opts=opts.sample_opts(),
+                         backend=opts.backend)
+    if not decode or voc is None:
+        return mel_out, None
+    return mel_out, decode_wav(voc, vocoder_type, mel_out, lens, duration)
+
+
+def ref_cond(model_cfg: ModelConfig, wav_i16, wav_scale, lens, n: int, dtype):
+    """The reference mel of the host-padded int16 ref wav, cut or padded to
+    the bucket n and zeroed past ``lens``: ``cond`` [b, n, d] in ``dtype``."""
     wav = wav_i16.float() * (wav_scale[:, None] / 32767.0)
     mel = log_mel_prepadded(wav, model_cfg.mel)  # [b, m_ref, d]
     m_ref = mel.shape[1]
     mel = torch.nn.functional.pad(mel, (0, 0, 0, n - m_ref)) if m_ref < n else mel[:, :n]
     valid = torch.arange(n, device=mel.device)[None, :, None] < lens[:, None, None]
-    cond = torch.where(valid, mel, torch.zeros_like(mel))
-    compute_dtype = next(model.parameters()).dtype
-    return sample_and_decode(model, voc, model_cfg, opts, cond.to(compute_dtype), text_ids, lens,
-                             duration, noise, decode=decode)
+    return torch.where(valid, mel, torch.zeros_like(mel)).to(dtype)
+
+
+@torch.inference_mode()
+def sample_and_decode_from_wav(model, voc, model_cfg: ModelConfig, opts: EngineOptions, wav_i16,
+                               wav_scale, lens, text_ids, duration, noise, n: int,
+                               decode: bool = True, vocoder_type: str = "vocos"):
+    """Ref-audio mel extraction + sampling + vocoder.  ``wav_i16`` [b, S] is
+    the host-reflect-padded ref wav at a ref-length bucket, ``wav_scale`` [b]
+    its dequantization scale; ``noise`` [b, n, d]."""
+    cond = ref_cond(model_cfg, wav_i16, wav_scale, lens, n, next(model.parameters()).dtype)
+    return sample_and_decode(model, voc, model_cfg, opts, cond, text_ids, lens, duration, noise,
+                             decode=decode, vocoder_type=vocoder_type)
 
 
 _CAPTURES = itertools.count()  # workspace scope tokens, one per capture
@@ -174,6 +209,19 @@ class CapturedGraph:
     seconds: float
 
 
+@dataclass
+class CapturedPicard:
+    """One Picard engine call as three CUDA graphs on the same static
+    tensors: ``prelude`` (the inputs -> the ``cfm.PicardRun`` state),
+    ``sweep`` (one sweep, in place) and ``epilogue`` (-> mel, int16 wav)."""
+
+    inputs: tuple
+    prelude: CapturedGraph
+    sweep: CapturedGraph
+    epilogue: CapturedGraph
+    seconds: float
+
+
 def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarray:
     padded = np.pad(np.asarray(wav, np.float32), stft_pad_amount(mel_cfg), mode="reflect")
     return np.pad(padded, (0, max(0, S - len(padded))))[:S]
@@ -188,8 +236,10 @@ class InferenceEngine:
     never share this state)."""
 
     def __init__(self, model, model_cfg: ModelConfig, vocoder=None, dtype=torch.float32,
-                 buckets=DEFAULT_BUCKETS, options: EngineOptions = EngineOptions()):
+                 buckets=DEFAULT_BUCKETS, options: EngineOptions = EngineOptions(),
+                 vocoder_type: str | None = None):
         self.model_cfg = model_cfg
+        self.vocoder_type = vocoder_type or model_cfg.mel.mel_spec_type
         self.dtype = dtype
         self.buckets = buckets
         self.options = options
@@ -210,7 +260,8 @@ class InferenceEngine:
         self.hop = model_cfg.mel.hop_length
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)
         self._ref_dev_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
-        self.graphs: dict[tuple, CapturedGraph] = {}  # CUDA engines: one per call key
+        self.graphs: dict[tuple, CapturedGraph | CapturedPicard] = {}  # CUDA: one per call key
+        self.last_sweeps: int | None = None  # the sweeps of the last Picard call on the card
         self._graph_lock = threading.Lock()
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
@@ -224,17 +275,18 @@ class InferenceEngine:
         ``args`` of ``sample_and_decode`` (entry "mel": cond, text_ids, lens,
         duration, noise) or ``sample_and_decode_from_wav`` ("wav": wav_i16,
         wav_scale, lens, text_ids, duration, noise).  A CPU engine calls the
-        function; a CUDA engine replays the call's graph, capturing it first
-        if its key is new."""
+        function; a CUDA engine replays the call's graph(s), capturing them
+        first if the key is new."""
         opts = self.options
         n = args[-1].shape[1]  # the noise [b, n, d]
+        model, voc, vt = self.model.transformer, self.vocoder, self.vocoder_type
 
         def call(*xs):
             if entry == "mel":
-                return sample_and_decode(self.model.transformer, self.vocoder, self.model_cfg,
-                                         opts, *xs, decode=decode)
-            return sample_and_decode_from_wav(self.model.transformer, self.vocoder,
-                                              self.model_cfg, opts, *xs, n, decode=decode)
+                return sample_and_decode(model, voc, self.model_cfg, opts, *xs, decode=decode,
+                                         vocoder_type=vt)
+            return sample_and_decode_from_wav(model, voc, self.model_cfg, opts, *xs, n,
+                                              decode=decode, vocoder_type=vt)
 
         if self.device.type != "cuda":
             return call(*args)
@@ -244,50 +296,117 @@ class InferenceEngine:
         with self._graph_lock, torch.inference_mode():
             g = self.graphs.get(key)
             if g is None:
-                g = self.graphs[key] = self._capture(call, args)
+                g = self.graphs[key] = (self._capture_picard(call, entry, args, decode)
+                                        if opts.time_parallel_window else
+                                        self._capture(call, args))
             self._stream.wait_stream(cur)  # the request's inputs are ready
             with torch.cuda.stream(self._stream):
                 for dst, src in zip(g.inputs, args):
                     dst.copy_(src)
-                g.graph.replay()
-                out = tuple(None if o is None else o.clone() for o in g.outputs)
-            cuda_build.add_launches(g.launches)
+                if isinstance(g, CapturedPicard):
+                    outputs, launches = self._replay_picard(g)
+                else:
+                    g.graph.replay()
+                    outputs, launches = g.outputs, g.launches
+                out = tuple(None if o is None else o.clone() for o in outputs)
+            cuda_build.add_launches(launches)
             cur.wait_stream(self._stream)  # the caller's fetch waits for this replay only
             for o in out:
                 if o is not None:
                     o.record_stream(cur)
         return out
 
-    def _capture(self, call, args) -> CapturedGraph:
-        """Record ``call`` on copies of ``args`` as a CUDA graph on the
-        engine's capture stream: one eager call there first (lazily built
-        tables, library handles, kernel G's workspaces), then the capture,
-        both in a workspace scope of the graph's own.  The launches during
-        the capture are taken back off the counters and kept as the graph's
-        launches per replay."""
-        t0 = time.perf_counter()
+    def _record(self, fn, *args) -> CapturedGraph:
+        """``fn(*args)`` recorded as a CUDA graph on the capture stream, in
+        the engine's pool (nothing runs).  The launches during the capture
+        are taken back off the counters and kept as the graph's launches
+        per replay."""
+        graph = torch.cuda.CUDAGraph()
+        before = cuda_build.launch_counts()
+        try:
+            # thread_local: another thread may fetch its outputs meanwhile
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._capture_stream,
+                                  capture_error_mode="thread_local"):
+                outputs = fn(*args)
+        finally:
+            after = cuda_build.launch_counts()
+            for kern, c in zip(cuda_build.KERNELS, before):
+                kern.launches = c
+        return CapturedGraph(graph, args, outputs, [a - b for a, b in zip(after, before)], 0.0)
+
+    def _warm(self, call, args):
+        """Copies of ``args`` and a workspace scope of their own, after one
+        eager ``call`` on them on the capture stream (lazily built tables,
+        library handles, kernel G's workspaces)."""
         cur, stream = torch.cuda.current_stream(self.device), self._capture_stream
         inputs = tuple(a.clone() for a in args)
         stream.wait_stream(cur)
         token = ("engine graph", next(_CAPTURES))
         self._scopes.append(token)
-        graph = torch.cuda.CUDAGraph()
+        with workspace.scope(token), torch.cuda.stream(stream):
+            call(*inputs)
+        return inputs, token
+
+    def _capture(self, call, args) -> CapturedGraph:
+        """Record ``call`` on copies of ``args`` as one CUDA graph, in a
+        workspace scope of the graph's own, after one eager call."""
+        t0 = time.perf_counter()
+        inputs, token = self._warm(call, args)
         with workspace.scope(token):
-            with torch.cuda.stream(stream):
-                call(*inputs)
-            before = cuda_build.launch_counts()
-            try:
-                # thread_local: another thread may fetch its outputs meanwhile
-                with torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    outputs = call(*inputs)
-            finally:
-                after = cuda_build.launch_counts()
-                for kern, c in zip(cuda_build.KERNELS, before):
-                    kern.launches = c
-        cur.wait_stream(stream)
-        return CapturedGraph(graph, inputs, outputs, [a - b for a, b in zip(after, before)],
-                             time.perf_counter() - t0)
+            g = self._record(call, *inputs)
+        torch.cuda.current_stream(self.device).wait_stream(self._capture_stream)
+        g.seconds = time.perf_counter() - t0
+        return g
+
+    def _capture_picard(self, call, entry, args, decode) -> CapturedPicard:
+        """The Picard call's prelude, sweep and epilogue recorded as three
+        graphs over one set of static tensors, after one eager call."""
+        t0 = time.perf_counter()
+        model, cfg, opts = self.model.transformer, self.model_cfg, self.options
+        n = args[-1].shape[1]
+
+        def prelude(*xs):
+            if entry == "wav":
+                wav_i16, wav_scale, lens, text_ids, duration, noise = xs
+                cond = ref_cond(cfg, wav_i16, wav_scale, lens, n, self.dtype)
+            else:
+                cond, text_ids, lens, duration, noise = xs
+            return cfm.picard_begin(model, cfg.arch, cond, text_ids, duration,
+                                    noise.to(cond.dtype), lens, opts.sample_opts(),
+                                    backend=opts.backend)
+
+        def epilogue(run, *xs):
+            lens, duration = xs[2], xs[-2]
+            mel_out = cfm.picard_finish(run)
+            if not decode or self.vocoder is None:
+                return mel_out, None
+            return mel_out, decode_wav(self.vocoder, self.vocoder_type, mel_out, lens, duration)
+
+        inputs, token = self._warm(call, args)
+        with workspace.scope(token):
+            pre = self._record(prelude, *inputs)
+            sweep = self._record(lambda run: cfm.picard_sweep(model, cfg.arch, run), pre.outputs)
+            epi = self._record(epilogue, pre.outputs, *inputs)
+        torch.cuda.current_stream(self.device).wait_stream(self._capture_stream)
+        return CapturedPicard(inputs, pre, sweep, epi, time.perf_counter() - t0)
+
+    def _replay_picard(self, g: CapturedPicard):
+        """Prelude, then sweeps until the frozen count reaches the step count
+        (the host reads it after each sweep; at most T sweeps), then the
+        epilogue -> (outputs, launches of the whole call)."""
+        run = g.prelude.outputs
+        g.prelude.graph.replay()
+        sweeps = 0
+        while sweeps < run.T:
+            g.sweep.graph.replay()
+            sweeps += 1
+            if int(run.s) >= run.T:
+                break
+        g.epilogue.graph.replay()
+        self.last_sweeps = sweeps
+        launches = [p + sweeps * w + e for p, w, e in
+                    zip(g.prelude.launches, g.sweep.launches, g.epilogue.launches)]
+        return g.epilogue.outputs, launches
 
     def graph_pool_bytes(self) -> int:
         """Bytes the CUDA allocator holds in the engine's graph pool."""
@@ -313,7 +432,8 @@ class InferenceEngine:
 
     def _trim_wavs(self, wav, duration, lens):
         """Dequantize the int16 waveform and cut each row to its generated
-        length ((frames - 1) * hop samples for Vocos).  The generated region
+        length ((frames - 1) * hop samples for Vocos, frames * hop for
+        BigVGAN).  The generated region
         sits at the front of each row, so the device array is first cropped
         to the batch's longest row (rounded up to 128 frames) before the copy
         to the host."""
@@ -325,7 +445,8 @@ class InferenceEngine:
                 wav = wav[:, : min(crop_f * self.hop, wav.shape[1])]
             wav_np = wav.cpu().numpy().astype(np.float32) / 32767.0
             for i, gf in enumerate(gen_frames):
-                wavs.append(wav_np[i, : max(gf - 1, 0) * self.hop])
+                n_samp = max(gf - 1, 0) * self.hop if self.vocoder_type == "vocos" else gf * self.hop
+                wavs.append(wav_np[i, :n_samp])
         return wavs, gen_frames
 
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:

@@ -9,7 +9,7 @@ durations can be overridden with fix_durations (seconds), stretching or
 shrinking the edited regions like the reference.  The noise comes from
 numpy's ``default_rng(seed)``, as in JAX, so the two packages sample from
 the same noise.  It runs eagerly on the engine's device (``cfm.sample``,
-then ``vocos.decode``), not through the engine's CUDA graphs.
+then the engine's vocoder), not through the engine's CUDA graphs.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from f5_tts_tpu_torch.audio.io import load_wav, resample, rms
 from f5_tts_tpu_torch.infer.engine import pick_bucket
 from f5_tts_tpu_torch.infer.pipeline import text_to_ids
-from f5_tts_tpu_torch.models import cfm, vocos
+from f5_tts_tpu_torch.models import bigvgan, cfm, vocos
 
 
 def build_edit_masks(
@@ -124,7 +124,9 @@ def edit_speech(
         backend=engine.options.backend,
     )
     out_mel = out.float()[:, :total]
-    wav_out = vocos.decode(engine.vocoder, out_mel)[0].cpu().numpy()
+    # the engine's vocoder (JAX decodes with Vocos whatever the engine's type)
+    voc_decode = bigvgan.decode if engine.vocoder_type == "bigvgan" else vocos.decode
+    wav_out = voc_decode(engine.vocoder, out_mel)[0].cpu().numpy()
     if 0 < audio_rms < target_rms:
         wav_out = wav_out * (audio_rms / target_rms)
     return wav_out.astype(np.float32), sr_t

@@ -156,7 +156,8 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
     """DiT forward with the text embedding precomputed -> flow [b, n, mel_dim].
 
     ``adaln_mods``: optional (block_mods [depth, 6 dim], final_mod [2 dim])
-    from ``precompute_adaln`` for one shared timestep; ``time`` is then unused.
+    from ``precompute_adaln`` for one shared timestep, or per row
+    ([depth, b, 6 dim], [b, 2 dim]); ``time`` is then unused.
     """
     b, n, _ = x.shape
     if adaln_mods is None:
@@ -203,6 +204,11 @@ def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_em
         time = time.expand(b)
     t2 = torch.cat([time, time], dim=0)
     mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
+    if adaln_mods is not None and adaln_mods[0].ndim == 3:
+        # per-row mods ([depth, rows, 6 dim], [rows, 2 dim], the Picard
+        # window's) double with the rows; shared-time mods broadcast
+        adaln_mods = (torch.cat([adaln_mods[0], adaln_mods[0]], dim=1),
+                      torch.cat([adaln_mods[1], adaln_mods[1]], dim=0))
     out = forward(model, cfg, x2, cond2, te2, t2, mask=mask2, backend=backend,
                   adaln_mods=adaln_mods)
     return out[:b], out[b:]

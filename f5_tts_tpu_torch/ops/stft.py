@@ -42,11 +42,18 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class STFTConfig:
-    """Centered (torch ``center=True``) STFT geometry."""
+    """STFT geometry.  ``center``: torch's ``center=True`` (reflect pad
+    n_fft//2 a side, the Vocos mel), else BigVGAN's (n_fft - hop)//2 pad."""
 
     n_fft: int = 1024
     hop_length: int = 256
     win_length: int = 1024
+    center: bool = True
+
+    @property
+    def pad(self) -> int:
+        """Reflect-pad amount on each side of the waveform."""
+        return self.n_fft // 2 if self.center else (self.n_fft - self.hop_length) // 2
 
 
 def _padded_window(n_fft: int, win_length: int) -> np.ndarray:

@@ -5,19 +5,25 @@ JAX counterpart: ``f5_tts_tpu/utils/ckpt.py`` (``load_torch_state`` :31-64,
 ``dit_params_from_state`` :102-153, ``dit_params_to_state`` :156-210,
 ``unett_params_from_state`` :213-273, ``mmdit_params_from_state``
 :276-331, the dispatch ``params_from_state`` :334-344,
-``vocos_params_from_state`` :351-384; JAX trains into orbax checkpoints,
+``vocos_params_from_state`` :351-384, ``bigvgan_params_from_state``
+:396-437 with ``_fused_weight`` :385-393; JAX trains into orbax checkpoints,
 the port into the reference's ``.pt`` layout, ``save_train_checkpoint``).
 The port's modules carry the reference's own parameter names for all three
 backbones, so a released state dict loads into them directly:
 ``load_torch_state`` reads ``.pt`` / ``.safetensors`` files, strips the EMA
 prefix, picks the EMA or raw weights and drops bookkeeping keys;
-``load_into`` loads by key and raises on any missing one.
+``load_into`` loads by key and raises on any missing one.  BigVGAN's
+release file (``bigvgan_generator.pt``) keeps its state dict under a
+``"generator"`` key, which ``load_torch_state`` unwraps (JAX's does not, so
+the file its hub resolves would not load there); ``load_bigvgan_state``
+fuses weight-normed convs (``weight_g`` / ``weight_v``) as JAX does.
 
 ``state_from_jax_params`` (dispatching on the config's backbone to the
 DiT, UNetT and MMDiT converters) and ``vocos_state_from_jax_params`` turn
 the JAX package's canonical (unfused) parameter pytree, as nested dicts of
 numpy arrays, into the port's reference-named state dict (pure numpy; the
-tests use them to give both implementations the same weights).
+tests use them to give both implementations the same weights);
+``bigvgan_state_from_jax_params`` does the same for BigVGAN.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ def load_torch_state(path: str, use_ema: bool = True) -> dict[str, torch.Tensor]
             state = obj["ema_model_state_dict"]
         elif isinstance(obj, dict) and "model_state_dict" in obj:
             state = obj["model_state_dict"]
+        elif isinstance(obj, dict) and isinstance(obj.get("generator"), dict):
+            state = obj["generator"]  # BigVGAN's release (its from_pretrained reads this key)
         else:
             state = obj
     out = {}
@@ -80,6 +88,28 @@ def load_into(module: nn.Module, state: dict) -> nn.Module:
         picked[k] = v
     module.load_state_dict(picked, strict=True)
     return module
+
+
+def fuse_weight_norm(state: dict) -> dict:
+    """Replace every weight-normed pair ``{name}.weight_g`` / ``.weight_v``
+    (torch ``weight_norm``, dim 0) by ``{name}.weight = g v / |v|``, the norm
+    over every axis but the first (JAX ``_fused_weight``)."""
+    out = {k: v for k, v in state.items() if not k.endswith((".weight_g", ".weight_v"))}
+    for k in state:
+        if k.endswith(".weight_v"):
+            name = k[: -len(".weight_v")]
+            v = torch.as_tensor(state[k]).float()
+            g = torch.as_tensor(state[f"{name}.weight_g"]).float()
+            norm = v.square().sum(dim=tuple(range(1, v.ndim)), keepdim=True).sqrt()
+            out[f"{name}.weight"] = g * v / torch.clamp(norm, min=1e-12)
+    return out
+
+
+def load_bigvgan_state(voc: nn.Module, state: dict) -> nn.Module:
+    """Load a BigVGAN generator state dict (reference keys, weight-normed or
+    fused) into ``voc``; the release's resample filter buffers are ignored
+    (the port builds its own)."""
+    return load_into(voc, fuse_weight_norm(state))
 
 
 def load_dit_state(cfm: nn.Module, state: dict) -> nn.Module:
@@ -285,4 +315,36 @@ def vocos_state_from_jax_params(params: dict) -> dict[str, np.ndarray]:
         out[f"{name}.gamma"] = np.asarray(bp["gamma"])
     ln("backbone.final_layer_norm", params["final_norm"])
     lin("head.out", params["head"])
+    return out
+
+
+def bigvgan_state_from_jax_params(params: dict, cfg=None) -> dict[str, np.ndarray]:
+    """JAX ``models.bigvgan`` params -> the reference generator state dict
+    with fused weights (the inverse of ``bigvgan_params_from_state``)."""
+    from f5_tts_tpu_torch.models.bigvgan import BigVGANConfig
+
+    cfg = cfg or BigVGANConfig()
+    out: dict[str, np.ndarray] = {}
+
+    def conv(name, p):  # Conv1d [k, in, out] and ConvTranspose1d [k, out, in] alike
+        out[f"{name}.weight"] = np.ascontiguousarray(np.transpose(np.asarray(p["kernel"]),
+                                                                  (2, 1, 0)))
+        if "bias" in p:
+            out[f"{name}.bias"] = np.asarray(p["bias"])
+
+    n_res = len(cfg.resblock_kernel_sizes)
+    conv("conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        conv(f"ups.{i}.0", up)
+        for j, rb in enumerate(params["resblocks"][i]):
+            r = f"resblocks.{i * n_res + j}"
+            for m, (c1, c2) in enumerate(zip(rb["convs1"], rb["convs2"])):
+                conv(f"{r}.convs1.{m}", c1)
+                conv(f"{r}.convs2.{m}", c2)
+            for m in range(np.asarray(rb["alpha"]).shape[0]):
+                out[f"{r}.activations.{m}.act.alpha"] = np.asarray(rb["alpha"][m])
+                out[f"{r}.activations.{m}.act.beta"] = np.asarray(rb["beta"][m])
+    out["activation_post.act.alpha"] = np.asarray(params["post_alpha"])
+    out["activation_post.act.beta"] = np.asarray(params["post_beta"])
+    conv("conv_post", params["conv_post"])
     return out

@@ -11,7 +11,7 @@ and downloads them; this resolves the same names local cache first:
      message).
 
 Without ``huggingface_hub`` installed every lookup returns None.
-``resolve_whisper`` is kept for the ASR fallback, which is not ported yet.
+``resolve_whisper`` serves the ASR fallback (``audio/asr.py``).
 """
 
 from __future__ import annotations

@@ -62,11 +62,16 @@ def test_sample_matches_jax(case):
 
 
 def test_time_parallel_window_raises():
+    """The Picard window is Euler-only (JAX asserts it, cfm.py:290), and
+    duplicate_test needs a t_start (JAX :249); both raise ValueError."""
     _, model = carried(SMALL)
     z = torch.zeros((1, 8, SMALL.mel_dim))
-    with pytest.raises(NotImplementedError, match="Picard"):
-        TC.sample(model, port_cfg(SMALL), z, torch.zeros((1, 2), dtype=torch.int32),
-                  torch.tensor([8]), z, opts=TC.SampleOptions(time_parallel_window=4))
+    args = (model, port_cfg(SMALL), z, torch.zeros((1, 2), dtype=torch.int32),
+            torch.tensor([8]), z)
+    with pytest.raises(ValueError, match="Picard"):
+        TC.sample(*args, opts=TC.SampleOptions(time_parallel_window=4, ode_method="midpoint"))
+    with pytest.raises(ValueError, match="t_start"):
+        TC.sample(*args, duplicate_test=True)
 
 
 @pytest.mark.parametrize("with_lens", [False, True])

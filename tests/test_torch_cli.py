@@ -144,3 +144,24 @@ def test_socket_server_stream(ref_wav_path):
         th.join(timeout=30)
     assert not th.is_alive()
     assert len(wav) > 1000 and np.isfinite(wav).all()
+
+
+def test_vocoder_name_must_agree_with_the_config(ref_wav_path, tmp_path):
+    """The vocoder follows the model config's mel_spec_type, which JAX's CLI
+    parses --vocoder_name beside and never reads; the port refuses a flag
+    that disagrees before building anything, and takes one that agrees."""
+    args = ["--ref_audio", ref_wav_path, "--ref_text", "a tone.", "--gen_text", "hi.",
+            "--output_dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="disagrees"):
+        C.main(TINY + ["--vocoder_name", "bigvgan"] + args)
+    out = C.main(TINY + ["--vocoder_name", "vocos"] + args)
+    assert os.path.isfile(out)
+    yaml_path = tmp_path / "bigvgan.yaml"
+    yaml_path.write_text(
+        "model:\n  name: TinyBigVGAN\n  backbone: DiT\n  tokenizer: char\n"
+        "  arch:\n    dim: 64\n    depth: 2\n    heads: 4\n    dim_head: 16\n"
+        "    ff_mult: 2\n    text_dim: 32\n    conv_layers: 1\n    mel_dim: 100\n"
+        "  mel_spec:\n    mel_spec_type: bigvgan\n")
+    assert C._mel_spec_type("F5TTS_Tiny", str(yaml_path)) == "bigvgan"
+    with pytest.raises(ValueError, match="disagrees"):
+        C.main(["--model_cfg", str(yaml_path), "--vocoder_name", "vocos"] + TINY[2:] + args)

@@ -798,3 +798,100 @@ def test_engine_two_threads_replay_one_engine(gen):
     for (i, _), wavs in got.items():
         for a, b in zip(wavs, want[i]):
             np.testing.assert_array_equal(a, b)
+
+
+def _narrow_bigvgan(seed: int = 0):
+    """BigVGAN v2's structure (six upsample stages, three AMP blocks each) at
+    128 initial channels (2 at the end), seeded torch-default weights."""
+    from f5_tts_tpu_torch.models import bigvgan as BV
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return BV.BigVGAN(BV.BigVGANConfig(upsample_initial_channel=128)).eval()
+
+
+def test_bigvgan_decode_on_card_matches_cpu(gen):
+    """fp32 with TF32 off: cuDNN's convs against the CPU's, 1e-4 abs on a
+    waveform in [-1, 1]; with cuDNN's TF32 default (the engine's) within
+    1e-2.  The activations' filters are buffers: the decode copies nothing
+    from the host."""
+    import copy
+
+    from f5_tts_tpu_torch.models import bigvgan as BV
+
+    voc = _narrow_bigvgan()
+    mel = torch.randn((2, 37, 100), generator=torch.Generator().manual_seed(1)) - 5.0
+    want = BV.decode(voc, mel)
+    card = copy.deepcopy(voc).cuda()
+    assert all(b.is_cuda for b in card.buffers())
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = BV.decode(card, mel.cuda()).cpu()
+    assert got.shape == (2, 37 * 256) and 0.01 < want.abs().max() < 1.0
+    assert (got - want).abs().max() < 1e-4
+    assert (BV.decode(card, mel.cuda()).cpu() - want).abs().max() < 1e-2
+
+
+def test_bigvgan_mel_on_card_matches_cpu(gen):
+    """The bigvgan log-mel on the card against ``log_mel_np`` on the CPU:
+    1e-3 max abs in log units (chip_smoke's ``BIGVGAN_MEL_TOL``)."""
+    from f5_tts_tpu_torch.ops import mel as M
+
+    cfg = M.MelConfig(mel_spec_type="bigvgan")
+    wav = (0.3 * np.random.default_rng(2).standard_normal(31_000)).astype(np.float32)
+    pad = M.stft_pad_amount(cfg)
+    padded = np.pad(np.pad(wav, pad, mode="reflect"), (0, 2048))[None]
+    got = M.log_mel_prepadded(torch.from_numpy(padded).cuda(), cfg).cpu().numpy()
+    k = M.num_frames(len(wav), cfg)
+    np.testing.assert_allclose(got[:, :k], M.log_mel_np(wav, cfg), atol=1e-3)
+
+
+def _card_bigvgan_engine(window: int = 0):
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.bigvgan import BigVGAN
+    from f5_tts_tpu_torch.models.cfm import CFM
+    from f5_tts_tpu_torch.models.configs import DiTConfig, ModelConfig
+    from f5_tts_tpu_torch.ops.mel import MelConfig
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(name="narrow", arch=DiTConfig(depth=2, text_dim=64, conv_layers=1),
+                      tokenizer="char", mel=MelConfig(mel_spec_type="bigvgan"))
+    cfm = CFM(cfg.arch)
+    randomize_zero_init(cfm.transformer, torch.Generator().manual_seed(1))
+    with torch.random.fork_rng(devices=[]):  # BigVGAN v2 at its published widths
+        torch.manual_seed(2)
+        voc = BigVGAN()
+    return InferenceEngine(cfm.cuda(), cfg, vocoder=voc.cuda(), dtype=torch.bfloat16,
+                           options=EngineOptions(nfe_step=4, time_parallel_window=window,
+                                                 picard_tol=0.0))
+
+
+@pytest.mark.parametrize("window", [0, 2], ids=["sequential", "picard"])
+def test_engine_bigvgan_and_picard_replays_are_bitwise_eager(gen, window):
+    """A BigVGAN engine's replays (a narrow DiT and BigVGAN v2 at full
+    width; one graph, under Picard the prelude, the sweeps and the epilogue)
+    equal the module-level eager function bitwise, wavs of n * 256 samples; under Picard at tol 0 every call sweeps once
+    per step, and a call counts depth A and one B launch per sweep."""
+    from f5_tts_tpu_torch.infer import engine as TE
+
+    eng = _card_bigvgan_engine(window)
+    assert eng.vocoder_type == "bigvgan"
+    calls = _recorded_run(eng)
+    for b in (1, 2):
+        refs, ids, durs, seeds = _request(b, seed=b)
+        eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+        eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+    assert len(eng.graphs) == 2 and len(calls) == 4
+    if window:
+        assert all(isinstance(g, TE.CapturedPicard) for g in eng.graphs.values())
+        assert eng.last_sweeps == 4
+    for entry, args, decode, (mel, wav) in calls:
+        want = TE.sample_and_decode_from_wav(eng.model.transformer, eng.vocoder, eng.model_cfg,
+                                             eng.options, *args, args[-1].shape[1],
+                                             decode=decode, vocoder_type="bigvgan")
+        assert torch.equal(mel, want[0]) and torch.equal(wav, want[1])
+        assert wav.shape[1] == args[-1].shape[1] * 256
+    FA.KERNEL.launches = FC.KERNEL.launches = 0
+    eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+    forwards = eng.last_sweeps if window else 4
+    assert (FA.KERNEL.launches, FC.KERNEL.launches) == (2 * forwards, forwards)

@@ -75,10 +75,17 @@ def test_log_mel_prepadded_on_example_wav_matches_jax():
 
 
 def test_mel_filterbank_matches_jax_and_bigvgan_is_refused():
+    """Both filterbanks equal JAX's.  The bigvgan front end is ported, so a
+    bigvgan config is accepted now; a front end that neither package has is
+    what ``MelConfig`` refuses (JAX would give it bigvgan's filterbank)."""
     np.testing.assert_allclose(TM.mel_filterbank(24000, 1024, 100),
                                JM.mel_filterbank(24000, 1024, 100), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="bigvgan"):
-        TM.MelConfig(mel_spec_type="bigvgan")
+    np.testing.assert_allclose(
+        TM.mel_filterbank(24000, 1024, 100, mel_scale="slaney", norm="slaney"),
+        JM.mel_filterbank(24000, 1024, 100, mel_scale="slaney", norm="slaney"), atol=1e-7)
+    assert not TM.MelConfig(mel_spec_type="bigvgan").stft.center
+    with pytest.raises(ValueError, match="mel_spec_type"):
+        TM.MelConfig(mel_spec_type="hifigan")
 
 
 @pytest.mark.parametrize("with_lens", [False, True])

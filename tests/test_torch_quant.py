@@ -407,8 +407,11 @@ def test_w8a8_engine_matches_jax(family):
 
 
 def test_engine_options_take_quantize_and_still_refuse_later_fields():
+    """The time-parallel window is ported (it reaches the sampler's
+    options); the mesh-serving convpos taps still raise."""
     assert TE.EngineOptions(quantize=True).quantize
-    for field in ({"time_parallel_window": 2}, {"convpos_taps": True}):
-        with pytest.raises(NotImplementedError):
-            TE.EngineOptions(**field)
+    opts = TE.EngineOptions(time_parallel_window=2, picard_tol=0.0).sample_opts()
+    assert (opts.time_parallel_window, opts.picard_tol) == (2, 0.0)
+    with pytest.raises(NotImplementedError):
+        TE.EngineOptions(convpos_taps=True)
     assert dataclasses.replace(TE.EngineOptions(quantize=True), nfe_step=8).quantize
