@@ -83,7 +83,7 @@ def test_no_whisper_behaves_as_jax(tts, monkeypatch, tmp_path):
 def test_file_spec_writes_a_png(tts, tmp_path):
     path = tmp_path / "spec.png"
     wav_path = tmp_path / "out.wav"
-    _, _, spec = tts.infer(REF, "Some call me nature.", "Hi there.", seed=1,
+    _, _, spec = tts.infer(_clip(2.0), "Some call me nature.", "Hi there.", seed=1,
                            file_spec=str(path), file_wave=str(wav_path),
                            show_info=lambda *a: None)
     assert spec.shape[0] == 100 and wav_path.exists()

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from f5_tts_tpu.models import cfm as JC
+from f5_tts_tpu.utils.ckpt import params_from_state
 from f5_tts_tpu_torch.models import cfm as TC
+from f5_tts_tpu_torch.models.backbones import randomize_zero_init
 from tests.test_dit import SMALL
-from tests.test_torch_dit import carried, port_cfg
+from tests.test_torch_dit import port_cfg
 
 # Picard against the sequential sampler at tol 0 (tests/test_time_parallel.py)
 SEQ_ATOL = 3e-4
@@ -37,31 +39,54 @@ def _problem(cfg=SMALL, seed=7, b=2, n=48, nt=10):
     return cond, text, duration, noise, lens
 
 
+def carried(jcfg, tcfg, seed: int):
+    """(JAX params, port DiT) with the same weights: the port's seeded init,
+    its zero-initialized gates made random, carried into JAX by its own
+    loader (which compiles nothing, unlike JAX ``init``)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        dit = TC.CFM(tcfg).transformer.eval().requires_grad_(False)
+    randomize_zero_init(dit, torch.Generator().manual_seed(seed + 1))
+    return params_from_state({k: v.numpy() for k, v in dit.state_dict().items()}, jcfg), dit
+
+
+def _opts(mod, **opts):
+    """SampleOptions of ``mod`` (JAX's or the port's cfm), with
+    tests/test_time_parallel.py's defaults."""
+    return mod.SampleOptions(**dict(dict(steps=8, precompute_adaln=False), **opts))
+
+
+def _port(model, tcfg, args, duplicate_test=False, **opts):
+    """(port out, port sweeps) of ``sample``."""
+    cond, text, duration, noise, lens = args
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    out, info = TC.sample(model, tcfg, *(t(a) for a in (cond, text, duration, noise)),
+                          lens=t(lens), opts=_opts(TC, **opts), duplicate_test=duplicate_test,
+                          return_info=True)
+    return out.numpy(), info["sweeps"]
+
+
 def _run_both(params, jcfg, model, tcfg, args, duplicate_test=False, **opts):
     """(JAX out, JAX sweeps, port out, port sweeps) of ``sample`` with the
-    same SampleOptions fields (defaults as tests/test_time_parallel.py's)."""
-    opts = dict(dict(steps=8, precompute_adaln=False), **opts)
+    same SampleOptions fields."""
     cond, text, duration, noise, lens = args
     jout, jinfo = JC.sample(params, jcfg, *(jnp.asarray(a) for a in (cond, text, duration, noise)),
-                            lens=jnp.asarray(lens), opts=JC.SampleOptions(**opts),
-                            backend="sdpa", duplicate_test=duplicate_test, return_info=True)
-    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    tout, tinfo = TC.sample(model, tcfg, *(t(a) for a in (cond, text, duration, noise)),
-                            lens=t(lens), opts=TC.SampleOptions(**opts),
+                            lens=jnp.asarray(lens), opts=_opts(JC, **opts), backend="sdpa",
                             duplicate_test=duplicate_test, return_info=True)
-    return np.asarray(jout), int(jinfo["sweeps"]), tout.numpy(), tinfo["sweeps"]
+    return (np.asarray(jout), int(jinfo["sweeps"]),
+            *_port(model, tcfg, args, duplicate_test, **opts))
 
 
 @pytest.fixture(scope="module")
 def small():
-    params, model = carried(SMALL, seed=2)
+    params, model = carried(SMALL, port_cfg(SMALL), seed=2)
     return params, model, port_cfg(SMALL)
 
 
 def test_picard_tol_zero_is_exact_euler(small):
     params, model, tcfg = small
     args = _problem()
-    _, _, seq, seq_sweeps = _run_both(params, SMALL, model, tcfg, args)
+    seq, seq_sweeps = _port(model, tcfg, args)
     want, jsweeps, got, sweeps = _run_both(params, SMALL, model, tcfg, args,
                                            time_parallel_window=4, picard_tol=0.0)
     assert sweeps == jsweeps == seq_sweeps == 8  # one frozen step per sweep at tol 0
@@ -85,7 +110,7 @@ def test_picard_tolerance_bounds_drift(small):
     sequential trajectory, in the same number of sweeps as JAX."""
     params, model, tcfg = small
     args = _problem(seed=11)
-    _, _, seq, _ = _run_both(params, SMALL, model, tcfg, args, steps=16)
+    seq, _ = _port(model, tcfg, args, steps=16)
     want, jsweeps, got, sweeps = _run_both(params, SMALL, model, tcfg, args, steps=16,
                                            time_parallel_window=8, picard_tol=1e-3)
     assert sweeps == jsweeps <= 16
@@ -98,12 +123,11 @@ def test_picard_precomputed_adaln_tables_match(small):
     the window without them, the sequential sampler and JAX."""
     params, model, tcfg = small
     args = _problem(seed=23)
-    _, _, plain, _ = _run_both(params, SMALL, model, tcfg, args, time_parallel_window=4,
-                               picard_tol=0.0)
+    plain, _ = _port(model, tcfg, args, time_parallel_window=4, picard_tol=0.0)
     want, _, tabled, _ = _run_both(params, SMALL, model, tcfg, args, time_parallel_window=4,
                                    picard_tol=0.0, precompute_adaln=True)
     np.testing.assert_allclose(tabled, plain, atol=SEQ_ATOL)
-    _, _, seq, _ = _run_both(params, SMALL, model, tcfg, args, precompute_adaln=True)
+    seq, _ = _port(model, tcfg, args, precompute_adaln=True)
     np.testing.assert_allclose(tabled, seq, atol=5e-4)
     np.testing.assert_allclose(tabled, want, atol=PORT_ATOL)
 
@@ -111,7 +135,7 @@ def test_picard_precomputed_adaln_tables_match(small):
 def test_picard_no_cfg_path(small):
     params, model, tcfg = small
     args = _problem(seed=13)
-    _, _, seq, _ = _run_both(params, SMALL, model, tcfg, args, steps=6, cfg_strength=0.0)
+    seq, _ = _port(model, tcfg, args, steps=6, cfg_strength=0.0)
     want, _, got, _ = _run_both(params, SMALL, model, tcfg, args, steps=6, cfg_strength=0.0,
                                 time_parallel_window=3, picard_tol=0.0)
     np.testing.assert_allclose(got, seq, atol=SEQ_ATOL)
@@ -136,7 +160,7 @@ def test_picard_other_backbones(family):
         params, cfm = carry(JCFG, seed=5)
         model = cfm.transformer
     args = _problem(JCFG, seed=29)
-    _, _, seq, _ = _run_both(params, JCFG, model, pcfg(JCFG), args, steps=4)
+    seq, _ = _port(model, pcfg(JCFG), args, steps=4)
     want, _, got, sweeps = _run_both(params, JCFG, model, pcfg(JCFG), args, steps=4,
                                      time_parallel_window=4, picard_tol=0.0)
     assert sweeps == 4
@@ -183,7 +207,7 @@ def test_engine_time_parallel_option():
     from f5_tts_tpu_torch.utils.ckpt import load_into
 
     jcfg, tcfg = JCONFIGS["F5TTS_Tiny"], MODEL_CONFIGS["F5TTS_Tiny"]
-    params, dit = carried(jcfg.arch, seed=4)
+    params, dit = carried(jcfg.arch, tcfg.arch, seed=4)
     rng = np.random.default_rng(3)
     n, n_ref = 256, 40
     ref = rng.standard_normal((n_ref, 100)).astype(np.float32)
