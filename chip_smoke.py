@@ -2436,7 +2436,7 @@ def bigvgan_work(cfg, n_frames: int) -> dict:
 
 
 def _bigvgan_bound(voc, n_frames: int) -> dict:
-    """The least time of one decode, by the on-chip-measurement guide: the
+    """The least time of one decode on an H100 SXM: the
     bytes it must move (weights, the mel, the wav; fp32) over HBM, the dense
     convs over the fp32 (67 TFLOP/s) or the TF32 (495) tensor-core peak,
     and the activations' filters over the fp32 peak (no tensor-core path);
