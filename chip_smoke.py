@@ -141,7 +141,26 @@ Run from the repository root:  python3 chip_smoke.py
     bitwise the eager Picard call, depth A and one B launch per sweep; at
     tol 1e-3 and 1e-2 the sweeps, the wall and the mel against the
     sequential sampler.
-20. Prints the kernels' JSON line, then the result line.
+20. The rest of single-device training, F5TTS_v1_Base at full width in
+    mixed precision: the remat matrix (no remat at 38,400 frames per
+    update; ``nothing``, ``dots``, ``flash``, ``dots_flash`` at 38,400 and
+    153,600): the median update of 3 after a warm-up, valid frames/s, peak
+    memory, and the launches of C, D, E and B per micro-step (C depth
+    times under no remat, ``flash`` and ``dots_flash``, 2 x depth under
+    ``nothing`` and ``dots``, or the phase fails; a cell out of memory
+    prints ``OOM``), and the ``auto`` threshold that the matrix gives;
+    each policy's loss gradient against no remat (``REMAT_GRAD_REL_TOL``);
+    3 Adafactor updates and its state's bytes against AdamW's; one batch of
+    the same audio as host mels and as int16 wavs with the mel on the card
+    (loss within ``MEL_IN_GRAPH_LOSS_REL_TOL``, host collate ms of each),
+    and one update from the wavs; how long the step loop waits at a
+    full-width save, synchronous against the asynchronous writer (whose
+    files must load equal to the snapshot); ``SPREAD_UPDATES`` updates on
+    the sampler's batches with their wall and allocator counters.
+21. The same updates in a child process with the caching allocator's
+    expandable segments, against phase 20's: wall per update, allocator
+    retries, ``cudaMalloc`` and ``cudaFree``.
+22. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -2692,6 +2711,499 @@ def _phase_bigvgan(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the rest of single-device training: remat policies, Adafactor, in-graph
+# mel, asynchronous checkpoint writes, the spread of updates
+
+# per-update frame budgets of the remat matrix: configs/F5TTS_v1_Base.yaml's
+# 38,400 and four times it, where activations outgrow the card without remat;
+# between them only the two policies that decide "auto" run
+REMAT_BUDGETS = (38_400, 76_800, 153_600)
+REMAT_POLICIES = ("none", "nothing", "dots", "flash", "dots_flash")
+REMAT_MID_POLICIES = ("flash", "dots_flash")
+# gradients of a remat policy against no remat, full width, mixed precision:
+# relative L2 of the whole gradient (the recompute runs the same kernels on
+# the same inputs, so 0 is expected; the limit allows one bf16 rounding flip)
+REMAT_GRAD_REL_TOL = 1e-5
+# one update's loss from a wav batch (int16 wire format, mel on the card)
+# against the mel batch of the same audio (host mel, fp32): relative
+MEL_IN_GRAPH_LOSS_REL_TOL = 1e-3
+SPREAD_UPDATES = 20
+
+
+def _remat_batch(torch, np, frames: int, vocab_size: int, seed: int, n: int = 1024) -> dict:
+    """A mel batch of ``frames // n`` rows of n frames, ragged valid lengths."""
+    rng = np.random.default_rng(seed)
+    b = frames // n
+    lens = rng.integers(int(0.7 * n), n + 1, b).astype(np.int32)
+    lens[0] = n
+    nt = 256
+    ids = rng.integers(0, vocab_size, (b, nt)).astype(np.int32)
+    for i, t in enumerate(rng.integers(nt // 4, nt, b)):
+        ids[i, t:] = -1
+    mel = (rng.standard_normal((b, n, 100)) * 2.0 - 5.0).astype(np.float32)
+    return {"mel": torch.from_numpy(mel).cuda(), "text_ids": torch.from_numpy(ids).cuda(),
+            "lens": torch.from_numpy(lens).cuda()}
+
+
+def _remat_cell(torch, model, base_arch, opt_cfg, policy: str, batch: dict, micro0: int,
+                profile: bool = False) -> dict:
+    """Median update time of 3 after 1 warm-up, under one remat policy;
+    with ``profile``, a fifth update under the profiler (device time and
+    busy share)."""
+    import dataclasses
+
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import micro_step_seed
+
+    model.cfg = dataclasses.replace(base_arch, checkpoint_activations=policy != "none",
+                                    remat_policy="nothing" if policy == "none" else policy)
+    optim = S.make_optimizer(list(model.parameters()), opt_cfg)
+    ema = [p.detach().clone() for p in model.parameters()]
+    ema_model = type("Ema", (), {"parameters": lambda self: iter(ema)})()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, micro = [], micro0
+    alloc_keys = ("num_alloc_retries", "num_device_alloc")
+    stats0 = None
+    for i in range(4):
+        if i == 1:  # the allocator's work in the timed updates
+            stats0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        micro, m = S.train_step(model, optim, ema_model, micro, batch,
+                                micro_step_seed(7, micro), opt_cfg)
+        loss = m["loss"].item()  # the update's end
+        times.append(time.perf_counter() - t0)
+    c = counts()
+    stats1 = torch.cuda.memory_stats()
+    out = {"alloc": {k: stats1.get(k, 0) - stats0.get(k, 0) for k in alloc_keys}}
+    if profile:
+        def one_update():
+            nonlocal micro
+            micro, m = S.train_step(model, optim, ema_model, micro, batch,
+                                    micro_step_seed(7, micro), opt_cfg)
+            m["loss"].item()
+
+        prof = _profile_update(torch, one_update, f"one update, remat {policy}", host=False)
+        out["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "kernels")}
+    del optim, ema
+    valid = int(batch["lens"].sum().item())
+    med = sorted(times[1:])[1]
+    return {"update_s": med, "frames_per_s": valid / med, "loss": loss,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "per_micro": {k: c[k] / 4 for k in ("C", "D", "E", "B", "A")}, **out}
+
+
+def _remat_matrix(torch, np, model, arch, opt_cfg, vocab_size: int) -> dict:
+    depth = arch.depth
+    out = {}
+    for frames in REMAT_BUDGETS:
+        batch = _remat_batch(torch, np, frames, vocab_size, seed=frames)
+        for policy in REMAT_POLICIES:
+            if policy == "none" and frames != REMAT_BUDGETS[0]:
+                continue
+            if frames not in (REMAT_BUDGETS[0], REMAT_BUDGETS[-1]) \
+                    and policy not in REMAT_MID_POLICIES:
+                continue
+            key = f"{policy}@{frames}"
+            try:
+                r = _remat_cell(torch, model, arch, opt_cfg, policy, batch, 0,
+                                profile=frames == REMAT_BUDGETS[0])
+            except torch.cuda.OutOfMemoryError:
+                r = "OOM"
+            torch.cuda.empty_cache()
+            out[key] = r
+            if r == "OOM":
+                print(f"remat {key}: OOM", flush=True)
+                continue
+            want_c = 2 * depth if policy in ("nothing", "dots") else depth
+            print(f"remat {key}: {r['update_s'] * 1e3:.1f} ms per update (median of 3), "
+                  f"{r['frames_per_s']:.0f} valid frames/s, peak {r['peak_gib']:.2f} GiB, "
+                  f"per micro-step C {r['per_micro']['C']:g} D {r['per_micro']['D']:g} "
+                  f"E {r['per_micro']['E']:g} B {r['per_micro']['B']:g}; in the 3 timed updates "
+                  f"alloc retries {r['alloc']['num_alloc_retries']}, cudaMalloc "
+                  f"{r['alloc']['num_device_alloc']}", flush=True)
+            if r["per_micro"]["C"] != want_c or r["per_micro"]["D"] != depth \
+                    or r["per_micro"]["E"] != depth or r["per_micro"]["B"] != 1 \
+                    or r["per_micro"]["A"] != 0:
+                fail(f"remat {key}: launches per micro-step {r['per_micro']}, want C {want_c}, "
+                     f"D and E {depth}, B 1, A 0")
+        del batch
+        torch.cuda.empty_cache()
+    # the auto threshold: the largest budget at which dots_flash runs and is
+    # no slower than flash (above it, flash)
+    fits = [f for f in REMAT_BUDGETS
+            if out[f"dots_flash@{f}"] != "OOM" and (
+                out[f"flash@{f}"] == "OOM"
+                or out[f"dots_flash@{f}"]["update_s"] <= out[f"flash@{f}"]["update_s"])]
+    out["auto_threshold"] = max(fits) if fits else 0
+    from f5_tts_tpu_torch.models import remat
+
+    print(f"remat: the matrix gives an auto threshold of {out['auto_threshold']} tokens "
+          f"(models/remat.py AUTO_DOTS_FLASH_MAX_TOKENS = {remat.AUTO_DOTS_FLASH_MAX_TOKENS})",
+          flush=True)
+    return out
+
+
+def _remat_grads(torch, np, model, arch, vocab_size: int) -> dict:
+    """Loss gradients under each policy against no remat, one fixed batch
+    with fixed draws, mixed precision as the trainer runs."""
+    import dataclasses
+
+    from f5_tts_tpu_torch.models.cfm import mask_from_frac_lengths
+
+    batch = _remat_batch(torch, np, 8 * 1024, vocab_size, seed=3)
+    b, n, d = batch["mel"].shape
+    g = torch.Generator(device="cuda").manual_seed(4)
+    inject = {"x0": torch.randn((b, n, d), generator=g, device="cuda"),
+              "time": torch.rand((b,), generator=g, device="cuda"),
+              "span_mask": mask_from_frac_lengths(batch["lens"], n, g),
+              "drop_audio": False, "drop_both": False}
+    params = dict(model.named_parameters())
+
+    def grads(policy):
+        model.cfg = dataclasses.replace(arch, checkpoint_activations=policy != "none",
+                                        remat_policy="nothing" if policy == "none" else policy)
+        low = {k: p.to(torch.bfloat16) for k, p in params.items()}
+        loss = torch.func.functional_call(
+            model, low, (batch["mel"].to(torch.bfloat16), batch["text_ids"], batch["lens"]),
+            {"inject": inject})
+        return torch.cat([x.flatten() for x in torch.autograd.grad(loss, list(params.values()))])
+
+    ref = grads("none")
+    out = {}
+    for policy in REMAT_POLICIES[1:]:
+        got = grads(policy)
+        rel = ((got - ref).norm() / ref.norm()).item()
+        out[policy] = {"bitwise": bool(torch.equal(got, ref)), "rel_l2": rel,
+                       "max_abs": (got - ref).abs().max().item()}
+        print(f"remat gradient {policy} vs none: bitwise {out[policy]['bitwise']}, relative L2 "
+              f"{rel:.3e}, max abs {out[policy]['max_abs']:.3e} (limit {REMAT_GRAD_REL_TOL:g})",
+              flush=True)
+        if rel > REMAT_GRAD_REL_TOL:
+            fail(f"remat policy {policy}: gradient relative L2 {rel} > {REMAT_GRAD_REL_TOL}")
+    model.cfg = arch
+    return out
+
+
+def _adafactor(torch, np, model, opt_cfg, vocab_size: int) -> dict:
+    import dataclasses
+
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import micro_step_seed
+
+    batch = _remat_batch(torch, np, REMAT_BUDGETS[0], vocab_size, seed=5)
+    cfg = dataclasses.replace(opt_cfg, optimizer="adafactor")
+    optim = S.make_optimizer(list(model.parameters()), cfg)
+    ema = [p.detach().clone() for p in model.parameters()]
+    ema_model = type("Ema", (), {"parameters": lambda self: iter(ema)})()
+    losses, times = [], []
+    micro = 0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        micro, m = S.train_step(model, optim, ema_model, micro, batch,
+                                micro_step_seed(9, micro), cfg)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"losses": losses, "update_s": times, "state_bytes": optim.inner.state_bytes(),
+           "adamw_state_bytes": 2 * 4 * n_params}
+    print(f"adafactor: 3 updates, losses {[round(x, 5) for x in losses]}, "
+          f"{[round(t * 1e3, 1) for t in times]} ms; optimizer state {out['state_bytes']} bytes "
+          f"against AdamW's {out['adamw_state_bytes']} "
+          f"({out['state_bytes'] / out['adamw_state_bytes']:.4f}x)",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"adafactor: non-finite loss {losses}")
+    del optim, ema
+    return out
+
+
+def _mel_in_graph(torch, np, model, opt_cfg, workdir: str) -> dict:
+    """One batch of the same audio through both paths: host mel (collate_batch)
+    and wav (collate_wav_batch, mel on the card)."""
+    from f5_tts_tpu_torch.audio.io import save_wav
+    from f5_tts_tpu_torch.models.cfm import mask_from_frac_lengths
+    from f5_tts_tpu_torch.ops.mel import MelConfig
+    from f5_tts_tpu_torch.train import dataset as TD
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import micro_step_seed
+
+    rng = np.random.default_rng(11)
+    rows = []
+    for i in range(TRAIN_B):  # ~10 s each: one 38,400-frame update
+        secs = float(rng.uniform(8.0, 10.9))
+        t = np.arange(int(secs * 24_000))
+        wav = 0.3 * np.sin(t * rng.uniform(0.01, 0.08)) + 0.05 * rng.standard_normal(len(t))
+        path = os.path.join(workdir, f"w{i}.wav")
+        save_wav(path, wav.astype(np.float32))
+        rows.append({"audio_path": path, "text": "hello world " * 8, "duration": secs})
+    ds = TD.CustomDataset(rows)
+    idx = list(range(len(rows)))
+    from f5_tts_tpu_torch.audio.native_loader import native_available
+
+    native = native_available()  # its first call builds the native decoder
+    mel_ms, wav_ms = [], []
+    for _ in range(2):  # a cold and a warm pass over the files
+        t0 = time.perf_counter()
+        mel_b = TD.collate_batch([ds[i] for i in idx], None, "byte")
+        mel_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        wav_b = TD.collate_wav_batch(ds.wav_batch(idx), None, "byte", MelConfig())
+        wav_ms.append((time.perf_counter() - t0) * 1e3)
+    mel_t = {k: torch.from_numpy(v).cuda() for k, v in mel_b.items()}
+    wav_t = {k: torch.from_numpy(v).cuda() for k, v in wav_b.items()}
+    b, n, d = mel_t["mel"].shape
+    g = torch.Generator(device="cuda").manual_seed(12)
+    inject = {"x0": torch.randn((b, n, d), generator=g, device="cuda"),
+              "time": torch.rand((b,), generator=g, device="cuda"),
+              "span_mask": mask_from_frac_lengths(mel_t["lens"], n, g),
+              "drop_audio": False, "drop_both": False}
+    params = dict(model.named_parameters())
+    low = {k: p.to(torch.bfloat16) for k, p in params.items()}
+    with torch.no_grad():
+        card_mel = S.batch_mel(wav_t, MelConfig())
+        valid = torch.arange(n, device="cuda")[None] < mel_t["lens"][:, None]
+        mel_err = (card_mel - mel_t["mel"]).abs()[valid].max().item()
+        losses = [torch.func.functional_call(
+            model, low, (m.to(torch.bfloat16), mel_t["text_ids"], mel_t["lens"]),
+            {"inject": inject}).item() for m in (mel_t["mel"], card_mel)]
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    # one update through the trainer's step from the wav batch
+    optim = S.make_optimizer(list(model.parameters()), opt_cfg)
+    ema = [p.detach().clone() for p in model.parameters()]
+    ema_model = type("Ema", (), {"parameters": lambda self: iter(ema)})()
+    reset_counts()
+    _, m = S.train_step(model, optim, ema_model, 0, wav_t, micro_step_seed(13, 0), opt_cfg,
+                        mel_cfg=MelConfig())
+    step_loss = m["loss"].item()
+    c = counts()
+    out = {"host_collate_ms": {"mel": mel_ms, "wav": wav_ms}, "native_decoder": native,
+           "mel_max_abs": mel_err,
+           "loss_mel": losses[0], "loss_wav": losses[1], "loss_rel": rel,
+           "update_loss": step_loss, "shape": [b, n], "wav_bytes": wav_b["wav"].nbytes,
+           "mel_bytes": mel_b["mel"].nbytes, "launches": c}
+    print(f"mel_in_graph: [{b}, {n}] batch; host collate (cold, warm) "
+          f"{[round(x) for x in mel_ms]} ms (host mel) against {[round(x) for x in wav_ms]} ms "
+          f"(wav; native decoder {native}); wire bytes {out['mel_bytes']} against {out['wav_bytes']}; "
+          f"mel on the card vs host max |diff| {mel_err:.3e}; loss {losses[0]:.6f} (mel) vs "
+          f"{losses[1]:.6f} (wav), relative {rel:.2e} (limit {MEL_IN_GRAPH_LOSS_REL_TOL:g}); "
+          f"one update from the wav batch: loss {step_loss:.5f}, launches {c}", flush=True)
+    if rel > MEL_IN_GRAPH_LOSS_REL_TOL or not np.isfinite(step_loss):
+        fail(f"mel_in_graph: loss relative difference {rel} > {MEL_IN_GRAPH_LOSS_REL_TOL}")
+    del optim, ema
+    return out
+
+
+def _async_save(torch, np, model, opt_cfg, vocab_size: int, workdir: str) -> dict:
+    """How long the step loop waits at a full-width save: a synchronous
+    write against the asynchronous writer (its first save allocates the
+    pinned buffers, the second reuses them)."""
+    import copy
+
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import micro_step_seed
+    from f5_tts_tpu_torch.utils import ckpt as CK
+
+    batch = _remat_batch(torch, np, REMAT_BUDGETS[0], vocab_size, seed=15)
+    optim = S.make_optimizer(list(model.parameters()), opt_cfg)
+    ema_model = copy.deepcopy(model).requires_grad_(False)
+    micro = 0
+
+    def update():
+        nonlocal micro
+        t0 = time.perf_counter()
+        micro, m = S.train_step(model, optim, ema_model, micro, batch,
+                                micro_step_seed(17, micro), opt_cfg)
+        m["loss"].item()
+        return time.perf_counter() - t0
+
+    def obj():
+        return CK.train_checkpoint(model, ema_model, optim.inner.state_dict(),
+                                   optim.scheduler.state_dict(), micro, micro)
+
+    base = [update() for _ in range(3)][1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CK.save_train_checkpoint(os.path.join(workdir, "sync.pt"), model, ema_model,
+                             optim.inner.state_dict(), optim.scheduler.state_dict(), micro, micro)
+    sync_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(workdir, "sync.pt"))
+    os.remove(os.path.join(workdir, "sync.pt"))
+    writer = CK.CheckpointWriter()
+    out = {"bytes": nbytes, "sync_wait_s": sync_s, "update_s": base}
+    for tag in ("first", "reused"):
+        path = os.path.join(workdir, f"async_{tag}.pt")
+        if tag == "reused":  # the file written from reused buffers is the one checked
+            want = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.save(path, obj())
+        call_s = time.perf_counter() - t0
+        during = [update() for _ in range(2)]  # updates while the writer writes
+        t1 = time.perf_counter()
+        writer.wait()
+        out[tag] = {"save_call_s": call_s, "updates_during_s": during,
+                    "wait_after_s": time.perf_counter() - t1}
+        if tag == "reused":
+            got = torch.load(path, map_location="cpu", weights_only=True)["model_state_dict"]
+            bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
+            if bad:
+                fail(f"async save: the file's weights differ from the snapshot: {bad[:3]}")
+            del got
+        os.remove(path)
+    print(f"async save: {nbytes / 1e9:.2f} GB; the step loop waits {sync_s:.2f} s for a "
+          f"synchronous write, {out['first']['save_call_s']:.3f} s (first save, pinned buffers "
+          f"allocated) and {out['reused']['save_call_s']:.3f} s (buffers reused) for the "
+          f"asynchronous one; updates {[round(t * 1e3) for t in base]} ms before, "
+          f"{[round(t * 1e3) for t in out['first']['updates_during_s']]} and "
+          f"{[round(t * 1e3) for t in out['reused']['updates_during_s']]} ms while writing; the "
+          f"second file loads equal to the snapshot", flush=True)
+    del writer, optim, ema_model
+    return out
+
+
+def _spread(torch, np, model, opt_cfg, vocab, cfg) -> dict:
+    """SPREAD_UPDATES updates at 38,400 frames on the sampler's batches (the
+    trainer's varied shapes), each with its wall and allocator counters."""
+    import copy
+
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.dataset import DynamicBatchSampler, collate_batch
+    from f5_tts_tpu_torch.train.trainer import micro_step_seed
+
+    ds = _synthetic_dataset(np, vocab, 1000, seed=30)
+    sampler = DynamicBatchSampler(ds, TRAIN_FRAMES, max_samples=64, random_seed=31)
+    batches = []
+    for idx in list(sampler)[:SPREAD_UPDATES]:
+        bt = collate_batch([ds[i] for i in idx], vocab, cfg.tokenizer)
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in bt.items()})
+    optim = S.make_optimizer(list(model.parameters()), opt_cfg)
+    ema_model = copy.deepcopy(model).requires_grad_(False)
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free", "num_ooms")
+    rows = []
+    micro = 0
+    for bt in batches:
+        before = torch.cuda.memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        micro, m = S.train_step(model, optim, ema_model, micro, bt,
+                                micro_step_seed(33, micro), opt_cfg)
+        m["loss"].item()
+        wall = time.perf_counter() - t0
+        after = torch.cuda.memory_stats()
+        rows.append({"wall_s": wall, "shape": list(bt["mel"].shape[:2]),
+                     **{k: after.get(k, 0) - before.get(k, 0) for k in keys},
+                     "reserved_gib": after.get("reserved_bytes.all.current", 0) / 2**30})
+    for i, r in enumerate(rows):
+        print(f"spread update {i + 1}: {r['wall_s'] * 1e3:.1f} ms, batch {r['shape']}, "
+              f"alloc retries {r['num_alloc_retries']}, cudaMalloc {r['num_device_alloc']}, "
+              f"cudaFree {r['num_device_free']}, reserved {r['reserved_gib']:.2f} GiB", flush=True)
+    walls = [r["wall_s"] for r in rows[1:]]
+    print(f"spread: updates 2-{len(rows)} {min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f} ms; "
+          f"alloc retries {sum(r['num_alloc_retries'] for r in rows)}, cudaMalloc "
+          f"{sum(r['num_device_alloc'] for r in rows)} over {len(rows)} updates", flush=True)
+    del optim, ema_model, batches
+    return {"rows": rows}
+
+
+def spread_in_child(torch) -> dict:
+    """``_spread`` in a process of its own (the allocator's settings are read
+    when CUDA starts): a fresh F5TTS_v1_Base as phase 20 builds it."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+    from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+    from f5_tts_tpu_torch.train import step as S
+
+    vocab, vocab_size = get_tokenizer(None, "pinyin")
+    cfg = with_vocab_size(MODEL_CONFIGS["F5TTS_v1_Base"], vocab_size)
+    opt_cfg = S.OptimConfig(mixed_precision=True, num_warmup_updates=1, learning_rate=1e-5)
+    model = _fresh_cfm(torch, cfg.arch, 40, device="cuda")
+    return _spread(torch, np, model, opt_cfg, vocab, cfg)
+
+
+def phase_allocator(torch, default: dict) -> dict:
+    """Phase 21: phase 20's spread updates again, in a child process with
+    the caching allocator's expandable segments (``PYTORCH_CUDA_ALLOC_CONF``),
+    against ``default`` (phase 20's own, in this process)."""
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as C; "
+            "print('SPREAD_JSON ' + json.dumps(C.spread_in_child(torch)), flush=True)")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    print(f"spread: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+          "while the child runs", flush=True)
+    proc = subprocess.run([sys.executable, "-c", code, REPO], env=env, capture_output=True,
+                          text=True, timeout=600)
+    line = next((x for x in proc.stdout.splitlines() if x.startswith("SPREAD_JSON ")), None)
+    if proc.returncode != 0 or line is None:
+        fail(f"spread with expandable segments: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-2000:]}")
+    out = json.loads(line[len("SPREAD_JSON "):])
+    walls = {k: [r["wall_s"] for r in d["rows"][1:]] for k, d in
+             (("default", default), ("expandable", out))}
+    for k, d in (("default", default), ("expandable", out)):
+        rows = d["rows"]
+        print(f"spread ({k} allocator), ms per update: "
+              f"{[round(r['wall_s'] * 1e3, 1) for r in rows]}; alloc retries per update "
+              f"{[r['num_alloc_retries'] for r in rows]}", flush=True)
+        print(f"spread ({k} allocator): updates 2-{len(rows)} "
+              f"{min(walls[k]) * 1e3:.1f}-{max(walls[k]) * 1e3:.1f} ms, median "
+              f"{sorted(walls[k])[len(walls[k]) // 2] * 1e3:.1f} ms, sum {sum(walls[k]):.2f} s; "
+              f"alloc retries {sum(r['num_alloc_retries'] for r in rows)}, cudaMalloc "
+              f"{sum(r['num_device_alloc'] for r in rows)}, cudaFree "
+              f"{sum(r['num_device_free'] for r in rows)}", flush=True)
+    return out
+
+
+def phase_train_rest(torch):
+    """Phase 20: the remat matrix, remat gradients, Adafactor, in-graph mel,
+    asynchronous saves and the spread of updates, F5TTS_v1_Base at full
+    width on the card."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+    from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+    from f5_tts_tpu_torch.train import step as S
+
+    vocab, vocab_size = get_tokenizer(None, "pinyin")
+    cfg = with_vocab_size(MODEL_CONFIGS["F5TTS_v1_Base"], vocab_size)
+    arch = cfg.arch
+    opt_cfg = S.OptimConfig(mixed_precision=True, num_warmup_updates=1, learning_rate=1e-5)
+    model = _fresh_cfm(torch, arch, 40, device="cuda")
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)  # git-ignored scratch
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_rest_", dir=os.path.join(REPO, ".cache"))
+    clock = time.perf_counter()
+    out = {}
+    try:
+        out["matrix"] = _remat_matrix(torch, np, model, arch, opt_cfg, vocab_size)
+        out["seconds_matrix"] = time.perf_counter() - clock
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["grads"] = _remat_grads(torch, np, model, arch, vocab_size)
+        out["adafactor"] = _adafactor(torch, np, model, opt_cfg, vocab_size)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["mel_in_graph"] = _mel_in_graph(torch, np, model, opt_cfg, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["async_save"] = _async_save(torch, np, model, opt_cfg, vocab_size, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["spread"] = _spread(torch, np, model, opt_cfg, vocab, cfg)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - clock
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -2821,6 +3333,11 @@ def main() -> int:
     bigvgan = phase_bigvgan(torch)  # counts set to 0 before the replays it counts
     lap("19 (BigVGAN, bigvgan mel, Picard)")
     print(f"summary: BigVGAN and Picard {bigvgan}", flush=True)
+    train_rest = phase_train_rest(torch)  # counts set to 0 before each remat cell
+    lap("20 (remat matrix, Adafactor, in-graph mel, async saves, spread)")
+    print(f"summary: the rest of training {train_rest}", flush=True)
+    phase_allocator(torch, train_rest["spread"])
+    lap("21 (the spread with expandable segments)")
     print(f"summary: W8A8 serving {w8a8}; W8A8 full-width {w8a8_full}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
@@ -2864,6 +3381,9 @@ def main() -> int:
 
     from f5_tts_tpu_torch.ops import fused_convpos as FC
 
+    # phase 20: kernel C's launches per micro-step under each remat policy
+    remat_launches = {k: v["per_micro"]["C"] for k, v in train_rest["matrix"].items()
+                      if isinstance(v, dict)}
     fa = "f5_tts_tpu_torch/csrc/flash_attention.cu"
     fab = "f5_tts_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
@@ -2871,8 +3391,9 @@ def main() -> int:
               flash_err, flash_rows, FA.FWD_CONFIG),
         entry("fused_convpos_fwd", "f5_tts_tpu_torch/csrc/fused_convpos.cu",
               "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows, FC.CONFIG),
-        train_entry("flash_attention_fwd_stats", "C", "C_plain", "C_lib",
-                    "f5_tts_tpu/ops/flash_attention.py:45", train["launches"]["C"], fa),
+        dict(train_entry("flash_attention_fwd_stats", "C", "C_plain", "C_lib",
+                         "f5_tts_tpu/ops/flash_attention.py:45", train["launches"]["C"], fa),
+             launches_per_micro_step_by_remat_policy=remat_launches),
         train_entry("flash_attention_bwd_dq", "D", "DE_plain", "DE_lib",
                     "f5_tts_tpu/ops/flash_attention.py:81", train["launches"]["D"], fab),
         train_entry("flash_attention_bwd_dkv", "E", "DE_plain", "DE_lib",

@@ -14,7 +14,8 @@ with that mel).  The engine runs on the card: ``device=None``
 means ``"cuda"`` and raises if CUDA is unavailable; only an explicit
 ``device="cpu"`` runs on the CPU (the backbone then runs in fp32, on the
 card in bf16).  Checkpoints load from ``ckpt_file`` / ``vocoder_local_path``
-(reference-named ``.pt`` or ``.safetensors``) or an ``hf://org/repo/path``
+(reference-named ``.pt`` or ``.safetensors``, or a ``.npz`` snapshot in the
+JAX package's layout, ``utils/ckpt.save_pytree``) or an ``hf://org/repo/path``
 URI; with neither, the model and vocoder names resolve through the local HF
 cache first, then a download where the network is reachable
 (``utils/hub.py``, JAX ``api.py:92-131``); ``init_random=True`` builds
@@ -127,7 +128,11 @@ class F5TTS:
             ckpt_file = resolved
         if ckpt_file:
             cfm = CFM(model_cfg.arch)
-            ckpt_util.load_dit_state(cfm, ckpt_util.load_torch_state(ckpt_file, use_ema=use_ema))
+            if ckpt_file.endswith(".npz"):  # a JAX-layout backbone snapshot (JAX :111-113)
+                state = ckpt_util.backbone_state_from_npz(ckpt_file, model_cfg.arch)
+            else:
+                state = ckpt_util.load_torch_state(ckpt_file, use_ema=use_ema)
+            ckpt_util.load_dit_state(cfm, state)
         elif init_random:
             cfm = _seeded(lambda: CFM(model_cfg.arch), 0)
         else:
@@ -142,7 +147,12 @@ class F5TTS:
         vocoder_cls = BigVGAN if self.mel_spec_type == "bigvgan" else Vocos
         if vocoder_local_path:
             voc = vocoder_cls()
-            vstate = ckpt_util.load_torch_state(vocoder_local_path, use_ema=False)
+            if vocoder_local_path.endswith(".npz"):  # JAX layout (JAX :136-144)
+                tree = ckpt_util.load_pytree(vocoder_local_path)
+                vstate = (ckpt_util.bigvgan_state_from_jax_params(tree) if vocoder_cls is BigVGAN
+                          else ckpt_util.vocos_state_from_jax_params(tree))
+            else:
+                vstate = ckpt_util.load_torch_state(vocoder_local_path, use_ema=False)
             if vocoder_cls is BigVGAN:
                 ckpt_util.load_bigvgan_state(voc, vstate)
             else:

@@ -453,6 +453,8 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
         drop_both = bool(torch.rand((), generator=drop_generator) < cond_drop_prob)
     drop_audio = bool(drop_audio) or bool(drop_both)
 
+    # every draw above comes before the backbone: its checkpointed blocks
+    # (models/remat.py) draw none, so a recompute needs no RNG state
     # both text streams are computed and one is selected, as in JAX: every
     # text-encoder parameter then gets a gradient (zero or not) every step
     bb = get_backbone(cfg)

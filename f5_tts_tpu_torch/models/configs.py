@@ -35,8 +35,8 @@ class DiTConfig:
     conv_mult: int = 2
     pe_attn_head: int | None = None
     long_skip_connection: bool = False
-    # activation checkpointing: parsed so the reference YAML reads, not
-    # ported yet (the trainer raises when it is on; see ROADMAP.md)
+    # activation checkpointing of every block, under a remat policy
+    # (nothing | dots | flash | dots_flash | auto; models/remat.py)
     checkpoint_activations: bool = False
     remat_policy: str = "auto"
     backbone: str = "DiT"
@@ -62,7 +62,7 @@ class UNetTConfig:
     conv_mult: int = 2
     pe_attn_head: int | None = None
     skip_connect_type: str = "concat"  # "concat" | "add" | "none"
-    checkpoint_activations: bool = False  # parsed only, as DiTConfig's
+    checkpoint_activations: bool = False  # as DiTConfig's
     remat_policy: str = "auto"
     backbone: str = "UNetT"
     max_pos: int = 4096
@@ -81,7 +81,7 @@ class MMDiTConfig:
     text_num_embeds: int = 2545
     text_mask_padding: bool = True
     qk_norm: str | None = None
-    checkpoint_activations: bool = False  # parsed only, as DiTConfig's
+    checkpoint_activations: bool = False  # as DiTConfig's
     remat_policy: str = "auto"
     backbone: str = "MMDiT"
     max_pos: int = 4096

@@ -9,8 +9,9 @@ average upsampling), ``input_embedding``, ``precompute_adaln``, ``forward``
 the training forward ``forward_with_text`` and the fused-CFG ``forward_cfg``
 (cond and uncond packed as one 2B batch).  ``forward`` is differentiable end
 to end; with ``backend="train_auto"`` its attention runs the training
-kernels.  ``fuse_for_inference`` is the serving qkv fusion.  No activation
-checkpointing yet (see ROADMAP.md).
+kernels.  ``fuse_for_inference`` is the serving qkv fusion.  With
+``checkpoint_activations`` each block runs under activation checkpointing
+with the config's ``remat_policy`` (``models/remat.py``; JAX :258-278).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.models import layers as L
+from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import DiTConfig
 from f5_tts_tpu_torch.ops.rope import device_table
 
@@ -169,10 +171,15 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
     h = input_embedding(model, x, cond, text_emb, drop_audio_cond=drop_audio_cond, mask=mask)
     rope = device_table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
     residual = h if cfg.long_skip_connection else None
+
+    def block(blk, h, t_emb, mod):
+        return L.dit_block(blk, h, t_emb, cfg.heads, mask=mask, rope_freqs=rope,
+                           pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod)
+
+    run = remat.block_runner(cfg, b * n)  # checkpointed under checkpoint_activations
     for i, blk in enumerate(model.transformer_blocks):
         mod = None if adaln_mods is None else adaln_mods[0][i].to(h.dtype)
-        h = L.dit_block(blk, h, t_emb, cfg.heads, mask=mask, rope_freqs=rope,
-                        pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod)
+        h = run(blk, block, h, t_emb, mod)
     if residual is not None:
         h = L.linear(model.long_skip_connection, torch.cat([h, residual], dim=-1))
     if adaln_mods is not None:

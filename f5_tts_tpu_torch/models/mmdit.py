@@ -26,8 +26,9 @@ attention goes through ``ops/attention.attention`` with ``mask=None``
 The text stream keeps its own length and adds the ``text_max_pos`` absolute
 table; a longer text raises ``ValueError``, where the JAX function fails on
 a broadcast (the serving engine pads the text to the bucket width, so MMDiT
-serves buckets of at most ``text_max_pos`` frames).  No activation
-checkpointing yet (the trainer raises when it is on).
+serves buckets of at most ``text_max_pos`` frames).  With
+``checkpoint_activations`` each block runs under activation checkpointing
+with the config's ``remat_policy`` (``models/remat.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from f5_tts_tpu_torch.models import layers as L
+from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import MMDiTConfig
 from f5_tts_tpu_torch.ops.attention import attention, sdpa
 from f5_tts_tpu_torch.ops.flash_attention import (flash_attention_two_segment,
@@ -226,9 +228,15 @@ def forward(model: MMDiT, cfg: MMDiTConfig, x, cond, text_emb, time, mask=None, 
     table = device_table("rope", cfg.max_pos, cfg.dim_head, x.device)
     rope_a, rope_t = table[:n], table[:nt]
     c = text_emb
-    for blk in model.transformer_blocks:
-        h, c = _block(blk, h, c, t_emb, cfg, rope_a, rope_t, mask, c_mask, attn_mask_enabled,
+
+    def block(blk, h, c, t_emb):
+        return _block(blk, h, c, t_emb, cfg, rope_a, rope_t, mask, c_mask, attn_mask_enabled,
                       backend)
+
+    # each block checkpointed under checkpoint_activations (JAX :228-234)
+    run = remat.block_runner(cfg, h.shape[0] * h.shape[1])
+    for blk in model.transformer_blocks:
+        h, c = run(blk, block, h, c, t_emb)
     h = L.adaln_final(model.norm_out, h, t_emb)
     return L.linear(model.proj_out, h)
 

@@ -17,7 +17,9 @@ The JAX forward pads the n + 1 tokens to a 256-multiple so its Pallas
 kernel stays eligible (:140-157), the padded rows masked out; the port's
 kernels take any length, so it does not pad, which gives the same output.
 The rotary table covers the n + 1 tokens even past ``max_pos`` (:155-157).
-No activation checkpointing yet (the trainer raises when it is on).
+With ``checkpoint_activations`` each layer, its skip merge included, runs
+under activation checkpointing with the config's ``remat_policy``
+(``models/remat.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.models import layers as L
+from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import UNetTConfig
 from f5_tts_tpu_torch.ops.rope import device_table
 
@@ -152,18 +155,26 @@ def forward(model: UNetT, cfg: UNetTConfig, x, cond, text_emb, time, mask=None,
         mask = F.pad(mask, (1, 0), value=True)
     rope = device_table("rope", max(cfg.max_pos + 1, n + 1), cfg.dim_head, x.device)[:n + 1]
 
+    def first(layer, h):
+        return _block(layer, h, mask, rope, cfg, backend)
+
+    def second(layer, h, skip):
+        if cfg.skip_connect_type == "concat":
+            h = L.linear(layer[0], torch.cat([h, skip], dim=-1))
+        elif cfg.skip_connect_type == "add":
+            h = h + skip
+        return _block(layer, h, mask, rope, cfg, backend)
+
+    # each layer (with its skip merge) checkpointed under checkpoint_activations (JAX :172-179)
+    run = remat.block_runner(cfg, h.shape[0] * h.shape[1])
     half = cfg.depth // 2
     skips = []
     for i, layer in enumerate(model.layers):
         if i < half:
             skips.append(h)  # the PRE-block input: the reference appends before the block
+            h = run(layer, first, h)
         else:
-            skip = skips.pop()  # LIFO
-            if cfg.skip_connect_type == "concat":
-                h = L.linear(layer[0], torch.cat([h, skip], dim=-1))
-            elif cfg.skip_connect_type == "add":
-                h = h + skip
-        h = _block(layer, h, mask, rope, cfg, backend)
+            h = run(layer, second, h, skips.pop())  # LIFO
     h = rms_norm_xt(model.norm_out, h)[:, 1:n + 1]
     return L.linear(model.proj_out, h)
 

@@ -55,6 +55,7 @@ instance's ``CudaKernel`` counts its launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -330,6 +331,20 @@ def flash_attention_fwd_stats(q, k, v, lens, seg: int | None = None):
                      flash_attention_fwd_stats_cuda, q, k, v, lens, seg=seg)
 
 
+@torch.library.custom_op("f5_tts_tpu_torch::flash_fwd_stats", mutates_args=())
+def fwd_stats_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                 seg: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd_stats`` as a dispatcher op, so that a selective
+    activation-checkpoint policy can keep its outputs (``models/remat.py``):
+    the training forward launches kernel C through it."""
+    return flash_attention_fwd_stats(q, k, v, lens, seg=seg)
+
+
+@fwd_stats_op.register_fake
+def _(q, k, v, lens, seg=None):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
 def _bwd_cuda(q, k, v, do, L, D, lens, seg=None):
     return (flash_attention_bwd_dq_cuda(q, k, v, do, L, D, lens, seg),
             *flash_attention_bwd_dkv_cuda(q, k, v, do, L, D, lens, seg))
@@ -370,7 +385,7 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lens, seg=None):
-        o, L = flash_attention_fwd_stats(q, k, v, lens, seg=seg)
+        o, L = fwd_stats_op(q, k, v, lens, seg)
         ctx.save_for_backward(q, k, v, lens, o, L)
         ctx.seg = seg
         ctx.set_materialize_grads(False)

@@ -6,8 +6,9 @@ builtin config, applies hydra-style dotted overrides and runs the
 ``Trainer`` on the card (``--device cuda``, the default).  Parallel layouts
 (``--tensor_parallel``, ``--pipeline_parallel``, ``--sequence_parallel``,
 ``--zero1``) are not ported and raise above 1.  ``--pretrain`` loads a
-reference ``.pt`` / ``.safetensors`` checkpoint.  The dataset comes from
-``data/<name>_<tokenizer>/`` (``train/dataset.load_dataset``).
+reference ``.pt`` / ``.safetensors`` checkpoint or a JAX-layout ``.npz``.
+The dataset comes from ``data/<name>_<tokenizer>/``
+(``train/dataset.load_dataset``).
 
     python -m f5_tts_tpu_torch.train.cli --config configs/F5TTS_v1_Base.yaml
     python -m f5_tts_tpu_torch.train.cli --config configs/E2TTS_Base.yaml
@@ -83,6 +84,17 @@ def apply_overrides(cfg: dict, overrides: list[str]) -> dict:
     return cfg
 
 
+def load_pretrained(path: str, arch_cfg) -> dict:
+    """The state dict of a ``--pretrain`` file: a reference ``.pt`` /
+    ``.safetensors`` checkpoint (its EMA weights) or a JAX-layout backbone
+    ``.npz`` snapshot (JAX ``cli.py:194-196``)."""
+    from f5_tts_tpu_torch.utils import ckpt as ckpt_util
+
+    if path.endswith(".npz"):
+        return ckpt_util.backbone_state_from_npz(path, arch_cfg)
+    return ckpt_util.load_torch_state(path)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="f5-tts_train (PyTorch)")
     p.add_argument("--config", type=str, help="YAML config (reference schema)")
@@ -100,7 +112,8 @@ def main(argv=None):
     p.add_argument("--pipeline_microbatches", type=int, default=0)
     p.add_argument("--sequence_parallel", type=int, default=1)
     p.add_argument("--zero1", action="store_true")
-    p.add_argument("--pretrain", type=str, default=None, help="init weights (.pt / .safetensors)")
+    p.add_argument("--pretrain", type=str, default=None,
+                   help="init weights (.pt / .safetensors / .npz)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*", metavar="[++]section.key=value",
                    help="hydra-style dotted overrides over the YAML / builtin config")
@@ -163,7 +176,7 @@ def main(argv=None):
         torch.manual_seed(0)
         model = CFM(model_cfg.arch)
     if args.pretrain:
-        ckpt_util.load_dit_state(model, ckpt_util.load_torch_state(args.pretrain))
+        ckpt_util.load_dit_state(model, load_pretrained(args.pretrain, model_cfg.arch))
     trainer.train(model, dataset, epochs=epochs, resume=True)
 
 

@@ -1,14 +1,17 @@
 """Training datasets and frame-budget dynamic batching.
 
-JAX counterpart: ``f5_tts_tpu/train/dataset.py`` (``CustomDataset`` :24-83,
+JAX counterpart: ``f5_tts_tpu/train/dataset.py`` (``CustomDataset`` :24-130
+with ``wav_batch`` :85-130, ``HFDataset`` :132-159,
 ``DynamicBatchSampler`` :162-211, ``SampleBatchSampler`` :214-237,
-``pad_frames_to`` and ``collate_batch`` :240-269, ``load_dataset``
-:315-343).  Rows are {audio_path, text, duration [s]} (mel computed on the
-host by ``ops/mel.log_mel_np``) or {mel_spec, text} (``preprocessed_mel``).
-The sampler sorts by frame length, packs greedily under the frame budget and
-shuffles the batch list with seed + epoch.  Every batch is padded to a
-multiple of 256 frames.  ``HFDataset`` and the wav-in batches of
-``mel_in_graph`` are not ported yet (see ROADMAP.md).
+``pad_frames_to`` and ``collate_batch`` :240-269, ``collate_wav_batch``
+:272-312, ``load_dataset`` :315-343).  Rows are {audio_path, text,
+duration [s]} (mel computed on the host by ``ops/mel.log_mel_np``) or
+{mel_spec, text} (``preprocessed_mel``); ``HFDataset`` takes any row source
+with in-row audio.  The sampler sorts by frame length, packs greedily under
+the frame budget and shuffles the batch list with seed + epoch.  Every
+batch is padded to a multiple of 256 frames.  For ``mel_in_graph`` the host
+only decodes and pads (``wav_batch``, ``collate_wav_batch``) and the train
+step takes the mel on the device.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import os
 import numpy as np
 
 from f5_tts_tpu_torch.audio.io import load_wav, resample
-from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_np
+from f5_tts_tpu_torch.audio.native_loader import load_batch, native_available
+from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_np, num_frames, stft_pad_amount
 
 
 class CustomDataset:
@@ -63,6 +67,64 @@ class CustomDataset:
                 wav = resample(wav, sr, self.mel_cfg.target_sample_rate)
             mel = log_mel_np(wav, self.mel_cfg)[0]  # [n, d]
         return {"mel": mel, "text": row["text"]}
+
+    def wav_batch(self, indices) -> list[dict]:
+        """The raw audio of a batch for the in-graph mel path:
+        ``[{"wav": float32 [S_i], "text": str}, ...]`` at the target rate,
+        through the native threaded batch decoder when it is built, else row
+        by row (JAX ``wav_batch``)."""
+        if self.preprocessed_mel:
+            raise ValueError("wav_batch (Trainer(mel_in_graph=True)) needs raw-audio rows with "
+                             "'audio_path'; this dataset has preprocessed 'mel_spec' rows: use "
+                             "the default host-mel pipeline instead")
+        rows = [self.data[self._probe(i)] for i in indices]
+        sr_t = self.mel_cfg.target_sample_rate
+        if native_available():
+            # the decode cap follows the duration filter (a widened filter is not truncated)
+            cap = float(self.duration_filter[1]) + 5.0
+            max_s = min(max(float(r["duration"]) for r in rows) + 0.5, cap)
+            wavs, lens = load_batch([r["audio_path"] for r in rows], sr_t, max_seconds=max_s)
+            if all(int(n) >= 0 for n in lens):
+                return [{"wav": wavs[i, :int(lens[i])], "text": r["text"]}
+                        for i, r in enumerate(rows)]
+        out = []
+        for r in rows:
+            wav, sr = load_wav(r["audio_path"])
+            if sr != sr_t:
+                wav = resample(wav, sr, sr_t)
+            out.append({"wav": np.asarray(wav, np.float32), "text": r["text"]})
+        return out
+
+
+class HFDataset:
+    """Rows with in-row audio (reference dataset.py:17-79, JAX ``HFDataset``):
+    ``{"audio": {"array", "sampling_rate"}, "text"}`` (or ``"transcript"``),
+    from any indexable row source (a HuggingFace dataset, a list of dicts);
+    the mel is computed on the host per item."""
+
+    def __init__(self, hf_dataset, mel_cfg: MelConfig = MelConfig()):
+        self.data = hf_dataset
+        self.mel_cfg = mel_cfg
+
+    def get_frame_len(self, index: int) -> float:
+        audio = self.data[index]["audio"]
+        return (len(audio["array"]) / audio["sampling_rate"] * self.mel_cfg.target_sample_rate
+                / self.mel_cfg.hop_length)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index: int) -> dict:
+        row = self.data[index]
+        audio = row["audio"]
+        wav = np.asarray(audio["array"], dtype=np.float32)
+        sr = int(audio["sampling_rate"])
+        if wav.ndim > 1:
+            wav = wav.mean(axis=-1)
+        if sr != self.mel_cfg.target_sample_rate:
+            wav = resample(wav, sr, self.mel_cfg.target_sample_rate)
+        mel = log_mel_np(wav, self.mel_cfg)[0]
+        return {"mel": mel, "text": row.get("text") or row.get("transcript", "")}
 
 
 class DynamicBatchSampler:
@@ -142,12 +204,48 @@ def collate_batch(items: list[dict], vocab, tokenizer: str, frame_multiple: int 
         mel[i, :len(m)] = m
     lens = np.minimum(lens, n)
     ids = text_to_ids([it["text"] for it in items], vocab, tokenizer)
+    return {"mel": mel, "text_ids": _pad_ids(ids, text_len), "lens": lens}
+
+
+def _pad_ids(ids: np.ndarray, text_len: int | None) -> np.ndarray:
+    """-1 pad (or cut) the token ids to ``text_len``, default a 64-multiple."""
     nt = text_len if text_len is not None else pad_frames_to(ids.shape[1], 64)
     if ids.shape[1] < nt:
-        ids = np.pad(ids, ((0, 0), (0, nt - ids.shape[1])), constant_values=-1)
-    else:
-        ids = ids[:, :nt]
-    return {"mel": mel, "text_ids": ids, "lens": lens}
+        return np.pad(ids, ((0, 0), (0, nt - ids.shape[1])), constant_values=-1)
+    return ids[:, :nt]
+
+
+def collate_wav_batch(items: list[dict], vocab, tokenizer: str, mel_cfg: MelConfig,
+                      frame_multiple: int = 256, mel_len: int | None = None,
+                      text_len: int | None = None) -> dict:
+    """Wav-in collate for the in-graph mel path: the host only reflect-pads
+    and buckets the waveforms; the train step takes the log-mel on the
+    device.  Returns numpy {"wav" [b, S] int16, "wav_scale" [b] fp32,
+    "text_ids" [b, nt], "lens" [b]}, with S = (n - 1) * hop + n_fft so that
+    ``log_mel_prepadded`` yields exactly n frames, and ``lens`` as the mel
+    collate gives them.  Each row ships as int16 with its scale (half the
+    bytes of an fp32 waveform, 1.28x those of the fp32 100-bin mel;
+    requantization error ~3e-5 of full scale)."""
+    from f5_tts_tpu_torch.infer.pipeline import text_to_ids
+
+    hop = mel_cfg.hop_length
+    frames = np.asarray([num_frames(len(it["wav"]), mel_cfg) for it in items], np.int32)
+    n = mel_len if mel_len is not None else pad_frames_to(int(frames.max()), frame_multiple)
+    pad = stft_pad_amount(mel_cfg)
+    S = (n - 1) * hop + mel_cfg.n_fft
+    wav = np.zeros((len(items), S), np.int16)
+    scale = np.ones((len(items),), np.float32)
+    for i, it in enumerate(items):
+        w = np.asarray(it["wav"], np.float32)
+        if len(w) <= pad:  # a reflect pad needs len > pad
+            w = np.pad(w, (0, pad + 1 - len(w)))
+        p = np.pad(w, pad, mode="reflect")[:S]
+        sc = max(float(np.abs(p).max()), 1.0)  # normalize only a row that would clip
+        scale[i] = sc
+        wav[i, :len(p)] = np.round(p / sc * 32767.0).astype(np.int16)
+    ids = text_to_ids([it["text"] for it in items], vocab, tokenizer)
+    return {"wav": wav, "wav_scale": scale, "text_ids": _pad_ids(ids, text_len),
+            "lens": np.minimum(frames, n)}
 
 
 def load_dataset(dataset_name: str, tokenizer: str = "pinyin",

@@ -3,6 +3,8 @@
 CPU.  No Whisper weights exist here: a fake ``transformers`` module in
 ``sys.modules`` records what its ``pipeline`` is asked for."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import sys
 import types
 

@@ -3,6 +3,8 @@ package, piece by piece and as a whole decode on a narrow config, fp32 on
 the CPU.  The weights are made in numpy as a reference-keyed, weight-normed
 state dict and carried into JAX with its own ``bigvgan_params_from_state``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

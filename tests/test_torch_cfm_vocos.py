@@ -2,6 +2,8 @@
 JAX package, with carried-over weights and injected noise (the two RNGs
 differ by design), fp32 on the CPU."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ flags and defaults, its TOML handling end to end on the bundled examples,
 the speech-edit CLI, and a socket server / client round trip, all on
 F5TTS_Tiny with random weights at NFE 2 (``--device cpu``)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import argparse
 import os
 import socket

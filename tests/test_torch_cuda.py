@@ -46,6 +46,8 @@ calls' launches of A, B and G, and two threads replaying one engine get
 each request's own rows, bitwise.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import numpy as np
 import pytest
 import torch

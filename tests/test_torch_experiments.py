@@ -23,6 +23,8 @@ The timing-only variants of kernel H that
 card must each apply to the committed kernel source.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import importlib.util
 import os
 

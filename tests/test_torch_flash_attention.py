@@ -6,6 +6,8 @@ one a CPU tensor dispatches to; the CUDA kernel is checked against it on
 the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

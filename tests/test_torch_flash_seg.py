@@ -17,6 +17,8 @@ autograd: atol 1e-5.  ``seg`` = 200 puts the segment boundary inside a
 both segments empty is where the TPU kernel gives the mean of v, the port 0.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

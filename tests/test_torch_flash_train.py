@@ -25,6 +25,8 @@ forward (outputs within OUT_TOL, logsumexp within LSE_TOL) and backward
 same 2e-2 max and 4e-3 mean relative error as below).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ x, the intermediate and the weights split into bf16 high and low parts); a
 torch emulation of that arithmetic is held to the same 1e-4.  Then the
 kernel's weight layout, and the serving engine's one-time copy into it."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

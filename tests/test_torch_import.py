@@ -1,6 +1,8 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its entry
 point refuses to fall back to the CPU silently."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import ast
 import os
 import pkgutil

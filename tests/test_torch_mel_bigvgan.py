@@ -4,6 +4,8 @@ magnitude) against the JAX package, over several clip lengths, fp32 on the
 CPU; then the consumers that take a ``MelConfig``: the engine's ref mel
 and the training dataset."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

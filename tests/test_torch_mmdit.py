@@ -18,6 +18,8 @@ tests/test_flash_attention.py's tolerances: loss rtol 1e-3, each gradient
 leaf's mean error below 5e-2 of its mean magnitude.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import dataclasses
 
 import jax

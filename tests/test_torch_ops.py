@@ -5,6 +5,8 @@ fp32 on the CPU.  Tolerance atol 1e-5: the same fp32 formulas, differing
 only in summation order.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

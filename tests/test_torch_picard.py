@@ -6,6 +6,8 @@ the CPU.  Picard at tol 0 freezes one exact Euler step per sweep, so it is
 the sequential trajectory up to the window's reassociation (JAX's own
 bound there: 3e-4)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

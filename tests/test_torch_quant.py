@@ -33,6 +33,8 @@ Inputs come from numpy seeds, fp32 unless a test says bf16; the JAX Pallas
   (``test_w8a8_engine_matches_jax`` says how far).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import dataclasses
 
 import jax

@@ -12,6 +12,8 @@ round differently); speech edit against JAX, 2 int16 steps on the wav
 (``test_sample_and_decode_from_wav_matches_jax_engine``'s).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import dataclasses
 import sys
 import threading

@@ -8,6 +8,8 @@ port.  fp32 on the CPU.  Then the host-side helpers, and the public
 ``F5TTS(...).infer`` on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

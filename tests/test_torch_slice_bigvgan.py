@@ -8,6 +8,8 @@ the noise JAX draws for each row; then the trimmed wav (``gf * hop``
 samples for BigVGAN) and the port's engine and ``F5TTS`` end to end.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import dataclasses
 import functools
 

@@ -13,6 +13,8 @@ versions of its kernels (``backend="auto"``).  Tolerance atol 1e-4: the
 same fp32 math summed in another order across a few layers.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
+
 import dataclasses
 import os
 
