@@ -142,9 +142,9 @@ Run from the repository root:  python3 chip_smoke.py
     tol 1e-3 and 1e-2 the sweeps, the wall and the mel against the
     sequential sampler.
 20. The rest of single-device training, F5TTS_v1_Base at full width in
-    mixed precision: the remat matrix (no remat at 38,400 frames per
-    update; ``nothing``, ``dots``, ``flash``, ``dots_flash`` at 38,400 and
-    153,600): the median update of 3 after a warm-up, valid frames/s, peak
+    mixed precision: the remat matrix (no remat, ``nothing``, ``dots``,
+    ``flash``, ``dots_flash`` at 38,400 frames per update; ``flash`` and
+    ``dots_flash`` at 76,800): the median update of 3 after a warm-up, valid frames/s, peak
     memory, and the launches of C, D, E and B per micro-step (C depth
     times under no remat, ``flash`` and ``dots_flash``, 2 x depth under
     ``nothing`` and ``dots``, or the phase fails; a cell out of memory
@@ -160,7 +160,21 @@ Run from the repository root:  python3 chip_smoke.py
 21. The same updates in a child process with the caching allocator's
     expandable segments, against phase 20's: wall per update, allocator
     retries, ``cudaMalloc`` and ``cudaFree``.
-22. Prints the kernels' JSON line, then the result line.
+22. The runtime layer, F5TTS_v1_Base with seeded weights, bf16, NFE 32:
+    ``runtime.benchmark`` through the batch server (kernel A, 10 prompts at
+    batch 1, then SDPA, 3 prompts; A's and B's launches per engine call,
+    the timed pass's MFU against the H100 bf16 peak); ``bench_train`` at
+    ``TRAIN_B`` x 1024 frames, bf16, no remat (frames/s, MFU); AOT bundles
+    (``runtime/aot.py``) exported with weights W1 (dense wav and mel entry,
+    W8A8 wav) and their kernels packaged, loaded with other weights W2: mel
+    and int16 wav against the live engine on W2 (``AOT_MEL_TOL``,
+    ``AOT_WAV_STEPS``; bitwise or not), the mel against W1's, and A's, B's
+    and G's launches per call equal to the live engine's; then the cold
+    start (``scripts/aot_coldstart_ab.py``): time to first audio of the
+    bundle in a child process with no nvcc and an empty build directory
+    (which must build no kernel and run no backbone ``forward``) against a
+    cold live engine with the build cache.
+23. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -178,12 +192,15 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM3
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
+# the H100 SXM's dense peaks, stated once in the package (utils/flops.py):
+# bf16 and int8 on the tensor cores, TF32 tensor cores, fp32 outside them;
+# and its HBM3 rate
+from f5_tts_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS as PEAK_BF16  # noqa: E402
+from f5_tts_tpu_torch.utils.flops import H100_FP32_PEAK_FLOPS as PEAK_FP32  # noqa: E402
+from f5_tts_tpu_torch.utils.flops import H100_INT8_PEAK_OPS as PEAK_INT8  # noqa: E402
+from f5_tts_tpu_torch.utils.flops import H100_TF32_PEAK_FLOPS as PEAK_TF32  # noqa: E402
+
 HBM_BPS = 3.35e12
-PEAK_TF32 = 495e12  # dense TF32 tensor cores
-PEAK_FP32 = 67e12  # fp32 outside the tensor cores
 
 REF_WAV = os.path.join(REPO, "examples", "assets", "basic_ref_en.wav")
 REF_TEXT = "Some call me nature, others call me mother nature."
@@ -2716,9 +2733,10 @@ def _phase_bigvgan(torch):
 # mel, asynchronous checkpoint writes, the spread of updates
 
 # per-update frame budgets of the remat matrix: configs/F5TTS_v1_Base.yaml's
-# 38,400 and four times it, where activations outgrow the card without remat;
-# between them only the two policies that decide "auto" run
-REMAT_BUDGETS = (38_400, 76_800, 153_600)
+# 38,400 (every policy) and twice it, where only the two policies that decide
+# "auto" run.  Four times it (153,600, where only nothing and flash fit,
+# PERF.md) is left out to keep the script's time down
+REMAT_BUDGETS = (38_400, 76_800)
 REMAT_POLICIES = ("none", "nothing", "dots", "flash", "dots_flash")
 REMAT_MID_POLICIES = ("flash", "dots_flash")
 # gradients of a remat policy against no remat, full width, mixed precision:
@@ -2801,10 +2819,7 @@ def _remat_matrix(torch, np, model, arch, opt_cfg, vocab_size: int) -> dict:
     for frames in REMAT_BUDGETS:
         batch = _remat_batch(torch, np, frames, vocab_size, seed=frames)
         for policy in REMAT_POLICIES:
-            if policy == "none" and frames != REMAT_BUDGETS[0]:
-                continue
-            if frames not in (REMAT_BUDGETS[0], REMAT_BUDGETS[-1]) \
-                    and policy not in REMAT_MID_POLICIES:
+            if frames != REMAT_BUDGETS[0] and policy not in REMAT_MID_POLICIES:
                 continue
             key = f"{policy}@{frames}"
             try:
@@ -3204,6 +3219,232 @@ def phase_train_rest(torch):
     return out
 
 
+RUNTIME_PROMPTS = 10  # the benchmark's timed prompts with kernel A (3 with SDPA)
+AOT_MEL_TOL = 1e-5  # JAX's AOT-vs-live tolerance (tests/test_aot.py), on the mel
+AOT_WAV_STEPS = 1  # int16 steps the AOT wav may differ from the live one by
+
+
+def _w(torch, cfg, seed: int):
+    """Seeded F5TTS_v1_Base weights on the CPU (fp32) with the
+    zero-initialized projections filled, so the output depends on them."""
+    from f5_tts_tpu_torch.infer.api import _seeded
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.cfm import CFM
+
+    m = _seeded(lambda: CFM(cfg.arch), seed)
+    randomize_zero_init(m.transformer, torch.Generator().manual_seed(seed))
+    return m
+
+
+def _aot_requests(np):
+    """The seeded wav request (ref bucket 512, bucket 1024) and mel request
+    (bucket 1024) that phase 22 serves through each engine."""
+    from f5_tts_tpu_torch.audio.io import load_wav
+
+    wav, _ = load_wav(REF_WAV)
+    wav = np.tile(wav, -(-511 * 256 // len(wav)))[: 511 * 256]  # 511 frames: ref bucket 512
+    rng = np.random.default_rng(22)
+    ids = rng.integers(0, 2545, 160).astype(np.int32)
+    mel_ref = rng.standard_normal((300, 100)).astype(np.float32)
+    return (lambda eng: eng.generate_batch_from_wav(wav, [ids], [1000], seeds=[3]),
+            lambda eng: eng.generate_batch([mel_ref], [ids], [1000], seeds=[3]))
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> list:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_runtime(torch, build_s: float | None) -> dict:
+    """Phase 22, the runtime layer: the offline benchmark (kernel A, then
+    SDPA), bench_train at 38,400 frames, AOT bundles built with weights W1
+    and served with W2 against the live engine on W2 (dense mel and wav
+    entries, W8A8 wav), and the cold start of a bundle in a process with no
+    nvcc against a cold live engine."""
+    import copy
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import _seeded
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+    from f5_tts_tpu_torch.models.vocos import Vocos
+    from f5_tts_tpu_torch.ops.cuda_build import LIBRARY
+    from f5_tts_tpu_torch.runtime import aot
+    from f5_tts_tpu_torch.runtime import benchmark as RB
+    from f5_tts_tpu_torch.scripts import aot_coldstart_ab as CS
+    from f5_tts_tpu_torch.scripts import bench_train
+    from f5_tts_tpu_torch.utils import flops
+
+    out = {}
+    cfg = MODEL_CONFIGS["F5TTS_v1_Base"]
+    depth = cfg.arch.depth
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the offline benchmark through the batch server, NFE 32, batch 1
+    reset_counts()
+    rep = RB.main(["--backend-type", "flash", "--nfe", str(NFE), "--num-prompts",
+                   str(RUNTIME_PROMPTS), "--batch-size", "1"])
+    got = counts()
+    calls = sum(rep["engine_calls"].values())
+    per_call = {k: v / calls for k, v in rep["kernel_launches"].items()}
+    if per_call.get("flash_attention_fwd") != depth * NFE or \
+            per_call.get("fused_convpos_fwd") != NFE or not got["A"] or not got["B"]:
+        fail(f"runtime benchmark: launches per engine call {per_call}, want A {depth * NFE}, "
+             f"B {NFE}")
+    per_bucket = {k: flops.sampling_flops(cfg, NFE, int(k.split("_n")[1])) / 1e12
+                  for k in rep["engine_calls"]}
+    print(f"phase 22 benchmark (flash, {RUNTIME_PROMPTS} prompts, batch 1, NFE {NFE}): RTF "
+          f"{rep['rtf']:.5f}, wall RTF {rep['wall_rtf']:.5f}, latency p50 "
+          f"{rep['latency_ms_p50']:.1f} ms, p99 {rep['latency_ms_p99']:.1f} ms, wall "
+          f"{rep['wall_s']:.3f} s for {rep['total_audio_s']:.2f} s of audio; engine calls "
+          f"{rep['engine_calls']}; launches per call {per_call}; MFU {rep['mfu_pct']:.2f}% of "
+          f"the H100 bf16 peak ({PEAK_BF16 / 1e12:.0f} TFLOP/s) over the timed wall, "
+          f"{rep['model_tflop']:.2f} TFLOP ({', '.join(f'{k}: {v:.2f}' for k, v in per_bucket.items())}"
+          f" TFLOP per call)", flush=True)
+    out["benchmark_flash"] = rep
+    free()
+    rep = RB.main(["--backend-type", "sdpa", "--nfe", str(NFE), "--num-prompts", "3",
+                   "--batch-size", "1"])
+    if rep["kernel_launches"].get("flash_attention_fwd"):
+        fail(f"runtime benchmark: sdpa launched kernel A: {rep['kernel_launches']}")
+    print(f"phase 22 benchmark (sdpa, 3 prompts): RTF {rep['rtf']:.5f}, wall RTF "
+          f"{rep['wall_rtf']:.5f}, p50 {rep['latency_ms_p50']:.1f} ms, p99 "
+          f"{rep['latency_ms_p99']:.1f} ms, MFU {rep['mfu_pct']:.2f}%, launches "
+          f"{rep['kernel_launches']}", flush=True)
+    out["benchmark_sdpa"] = rep
+    free()
+
+    # (b) training throughput: TRAIN_B x 1024 frames, bf16, no remat
+    reset_counts()
+    rec = bench_train.main([str(TRAIN_B), "bf16", "train_auto", "none", "1024", "1",
+                            "F5TTS_v1_Base", "cuda", "5"])
+    got = counts()
+    if not (got["C"] and got["D"] and got["E"] and got["B"]):
+        fail(f"bench_train: a training kernel did not launch: {got}")
+    print(f"phase 22 bench_train ({TRAIN_B} x 1024 frames, bf16, no remat): {rec['value']} "
+          f"frames/s, {rec['model_tflops_per_s']} TFLOP/s, MFU {rec['mfu_pct']}% of the H100 "
+          f"bf16 peak; launches {got}", flush=True)
+    out["bench_train"] = rec
+    free()
+
+    # (c) AOT bundles: built with W1, served with W2
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="aot_", dir=os.path.join(REPO, ".cache"))
+    dense_dir, q_dir = os.path.join(root, "dense"), os.path.join(root, "w8a8")
+    w1, w2 = _w(torch, cfg, 0), _w(torch, cfg, 5)
+    voc = _seeded(Vocos, 1).cuda()
+
+    def live(w, quantize):
+        return InferenceEngine(copy.deepcopy(w).cuda(), cfg, vocoder=voc, dtype=torch.bfloat16,
+                               options=EngineOptions(nfe_step=NFE, quantize=quantize))
+
+    try:
+        e1 = live(w1, False)
+        t0 = time.perf_counter()
+        aot.export_engine(e1, dense_dir, [("wav", 1, 1024, 512), ("mel", 1, 1024, None)])
+        export_s = time.perf_counter() - t0
+        e1q = live(w1, True)
+        t0 = time.perf_counter()
+        aot.export_engine(e1q, q_dir, [("wav", 1, 1024, 512)])
+        export_q_s = time.perf_counter() - t0
+        n_libs = aot.warm_artifacts(dense_dir)
+        aot.warm_artifacts(q_dir)
+        meta = aot.read_meta(dense_dir)
+        print(f"phase 22 AOT export: dense (wav b1 n1024 r512, mel b1 n1024) {export_s:.1f} s, "
+              f"per program {({k: round(v, 1) for k, v in meta['export_seconds'].items()})}, "
+              f"{aot.bundle_bytes(dense_dir)} bytes with {n_libs} kernel libraries; W8A8 wav "
+              f"{export_q_s:.1f} s, {aot.bundle_bytes(q_dir)} bytes", flush=True)
+        wav_req, mel_req = _aot_requests(np)
+        w1_mel = wav_req(e1)[0]
+        del e1, e1q
+        free()
+        e2, e2q = live(w2, False), live(w2, True)
+        t0 = time.perf_counter()
+        a2 = aot.AotEngine(dense_dir, copy.deepcopy(w2).cuda(), cfg, vocoder=voc)
+        load_s = time.perf_counter() - t0
+        a2q = aot.AotEngine(q_dir, copy.deepcopy(w2).cuda(), cfg, vocoder=voc)
+        if LIBRARY.prebuilt != os.path.join(q_dir, "kernels", LIBRARY.digest()):
+            fail(f"AOT: the kernels did not come from the bundle ({LIBRARY.prebuilt})")
+        res = {"export_s": export_s, "export_w8a8_s": export_q_s, "load_s": load_s,
+               "bundle_bytes": aot.bundle_bytes(dense_dir),
+               "bundle_w8a8_bytes": aot.bundle_bytes(q_dir), "kernel_libraries": n_libs,
+               "export_seconds": meta["export_seconds"],
+               "program_bytes": {k: v["bytes"] for k, v in meta["programs"].items()}}
+        for tag, ref_eng, aot_eng, reqs in (("dense", e2, a2, (wav_req, mel_req)),
+                                            ("w8a8", e2q, a2q, (wav_req,))):
+            for req in reqs:
+                want, got_ = req(ref_eng), req(aot_eng)
+                entry = "wav" if req is wav_req else "mel"
+                mel_err = float(np.abs(got_[0] - want[0]).max())
+                wav_steps = float(np.abs(got_[1][0] - want[1][0]).max() * 32767.0)
+                bitwise = bool(np.array_equal(got_[0], want[0])
+                               and np.array_equal(got_[1][0], want[1][0]))
+                print(f"phase 22 AOT {tag} {entry}: W2 bundle vs live W2: mel max abs "
+                      f"{mel_err:.3e}, wav {wav_steps:.1f} int16 steps, bitwise {bitwise}",
+                      flush=True)
+                if mel_err > AOT_MEL_TOL or wav_steps > AOT_WAV_STEPS + 0.5 \
+                        or not np.isfinite(got_[0]).all():
+                    fail(f"AOT {tag} {entry}: mel {mel_err}, wav {wav_steps} steps off live W2")
+                res[f"{tag}_{entry}"] = {"mel_max_abs": mel_err, "wav_int16_steps": wav_steps,
+                                         "bitwise": bitwise}
+        diff_w1 = float(np.abs(wav_req(a2)[0] - w1_mel).mean())
+        print(f"phase 22 AOT: W2 bundle mel vs live W1 mel: mean abs {diff_w1:.4f}", flush=True)
+        if diff_w1 < 1e-2:
+            fail(f"AOT: the W2 bundle served W1's mel (mean abs diff {diff_w1})")
+        res["w1_mean_abs_diff"] = diff_w1
+        launches = {}
+        for tag, eng in (("live", e2), ("aot", a2), ("live_w8a8", e2q), ("aot_w8a8", a2q)):
+            reset_counts()
+            wav_req(eng)  # a replay: its key was captured above
+            launches[tag] = {k: v for k, v in counts().items() if v}
+        print(f"phase 22 AOT launches per wav call: {launches}", flush=True)
+        if launches["aot"] != launches["live"] or launches["aot_w8a8"] != launches["live_w8a8"] \
+                or launches["aot"].get("A") != depth * NFE or launches["aot"].get("B") != NFE \
+                or launches["aot_w8a8"].get("G") != 4 * depth * NFE:
+            fail(f"AOT: launches differ from the live engine's: {launches}")
+        res["launches"] = launches
+        walls = {tag: _wall_ms(torch, lambda e=eng: wav_req(e))
+                 for tag, eng in (("live", e2), ("aot", a2))}
+        print(f"phase 22 AOT wav request wall (ms, 3 replays): {walls}", flush=True)
+        res["wall_ms"] = walls
+        out["aot"] = res
+        del e2, e2q, a2, a2q
+        free()
+
+        # (d) cold start in child processes
+        cold = CS.run(dense_dir, nfe=NFE, skip_build=True)
+        print(f"phase 22 cold start: {json.dumps(cold)}", flush=True)
+        if cold["aot_built_kernels"] or cold["aot_nvcc_found"] or cold["aot_backbone_forwards"] \
+                or not cold["aot_kernels_from"] or not cold["aot_finite"]:
+            fail(f"AOT cold start: built a kernel, found nvcc, ran the backbone's forward or "
+                 f"took no bundle kernels: {cold}")
+        print(f"phase 22 time to first audio: AOT bundle {cold['cold_first_audio_s']:.2f} s "
+              f"(load {cold['cold_load_s']:.2f} s, first call {cold['cold_first_call_s']:.2f} s; "
+              f"no nvcc, no build cache) against a cold live engine "
+              f"{cold['live_first_audio_s']:.2f} s (load {cold['live_load_s']:.2f} s, first call "
+              f"{cold['live_first_call_s']:.2f} s; build cache present); export {export_s:.1f} s, "
+              f"bundle {res['bundle_bytes']} bytes, phase 1 build "
+              f"{build_s if build_s is not None else 'reused'} s", flush=True)
+        out["cold_start"] = cold
+    finally:
+        LIBRARY.prebuilt = None
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -3339,17 +3580,23 @@ def main() -> int:
     phase_allocator(torch, train_rest["spread"])
     lap("21 (the spread with expandable segments)")
     print(f"summary: W8A8 serving {w8a8}; W8A8 full-width {w8a8_full}", flush=True)
+    runtime = phase_runtime(torch, LIBRARY.build_seconds)  # counts set to 0 before each path
+    lap("22 (runtime: benchmark, bench_train, AOT bundles, cold start)")
+    print(f"summary: runtime {json.dumps(runtime)}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
 
-    def entry(name, source, replaces, launches, err, rows, config):
+    aot_launches = runtime["aot"]["launches"]
+
+    def entry(name, source, replaces, launches, err, rows, config, key):
         r = next(r for r in rows if r["n"] == 1024)  # the 1024-frame bucket
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape_n": 1024, "config": list(config),
-                "over_library": r["over_library"], "configs_ms": r["configs_ms"]}
+                "over_library": r["over_library"], "configs_ms": r["configs_ms"],
+                "aot_launches_per_call": aot_launches["aot"][key]}
 
     def train_entry(name, key, plain, lib, replaces, launches, source):
         r = next(r for r in train_rows if r["n"] == 1024 and r["b"] == 2)
@@ -3388,9 +3635,10 @@ def main() -> int:
     fab = "f5_tts_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
         entry("flash_attention_fwd", fa, "f5_tts_tpu/ops/flash_attention.py:150", launches_a,
-              flash_err, flash_rows, FA.FWD_CONFIG),
+              flash_err, flash_rows, FA.FWD_CONFIG, "A"),
         entry("fused_convpos_fwd", "f5_tts_tpu_torch/csrc/fused_convpos.cu",
-              "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows, FC.CONFIG),
+              "f5_tts_tpu/ops/fused_convpos.py:37", launches_b, conv_err, conv_rows, FC.CONFIG,
+              "B"),
         dict(train_entry("flash_attention_fwd_stats", "C", "C_plain", "C_lib",
                          "f5_tts_tpu/ops/flash_attention.py:45", train["launches"]["C"], fa),
              launches_per_micro_step_by_remat_policy=remat_launches),
@@ -3449,7 +3697,8 @@ def main() -> int:
          "two_launch_ms": g["two_launch_ms"], "dense_bf16_linear_ms": g["dense_bf16_ms"],
          "serving_shapes": g_shapes,
          "ms_kind": "device time (CUDA-graph replay), as every time in this line",
-         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32"},
+         "launches_from": "one W8A8 F5TTS_v1_Base engine call, NFE 32",
+         "aot_launches_per_call": aot_launches["aot_w8a8"]["G"]},
         {"name": "int8_matmul", "route": "cuda", "source": g8,
          "replaces": "f5_tts_tpu/ops/quant.py:35", "launches": w8a8["launches_per_call"]["G_tpu"],
          "on_serving_path": False,

@@ -22,7 +22,10 @@ cache first, then a download where the network is reachable
 seeded random weights.  An empty ``ref_text`` is transcribed by Whisper
 (``audio/asr.py``, on the ``F5TTS``'s device) when a model resolves, and
 ``file_spec`` writes the generated mel as an image (JAX ``api.py:186-250``).
-AOT artifacts are not ported yet and raise (see ROADMAP.md).
+``artifacts=`` serves an AOT bundle (``runtime/aot.py`` ``AotEngine``, JAX
+``api.py:167-176``): its options, dtype and buckets come from the bundle,
+and ``artifacts_fallback=True`` runs the live engine for a key or options
+the bundle does not hold, where by default they raise.
 
 W8A8 serving is an ``EngineOptions`` field, not a keyword here, as in the
 JAX ``F5TTS``: build an ``InferenceEngine(..., options=EngineOptions(
@@ -64,7 +67,6 @@ from f5_tts_tpu_torch.utils import ckpt as ckpt_util
 from f5_tts_tpu_torch.utils import hub
 from f5_tts_tpu_torch.utils.device import resolve_device
 
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 
 def _seeded(build, seed: int):
@@ -90,12 +92,11 @@ class F5TTS:
         nfe_step: int = NFE_STEP,
         init_random: bool = False,
         model_cfg: str | dict | None = None,
-        artifacts: str | None = None,
+        artifacts: str | None = None,  # AOT bundle dir (runtime/aot.py)
+        artifacts_fallback: bool = False,  # unexported keys run the live engine
     ):
         if ode_method not in ("euler", "midpoint"):
             raise ValueError("fixed-step solvers only: euler or midpoint")
-        if artifacts:
-            raise NotImplementedError(f"serving AOT artifacts {_NOT_PORTED}")
         self.device = resolve_device(device)
         self.hf_cache_dir = hf_cache_dir
         if isinstance(model_cfg, str):  # a reference configs/*.yaml (infer_cli.py:268-272)
@@ -167,10 +168,20 @@ class F5TTS:
                 "weights and pass vocoder_local_path",
                 stacklevel=2)
 
-        self.engine = InferenceEngine(
-            cfm.to(self.device), model_cfg, vocoder=None if voc is None else voc.to(self.device),
-            dtype=dtype, options=EngineOptions(nfe_step=nfe_step, ode_method=ode_method),
-        )
+        voc = None if voc is None else voc.to(self.device)
+        if artifacts:
+            # exported programs (runtime/aot.py): options, dtype and buckets
+            # come from the bundle's engine_meta.json, the weights are the
+            # ones loaded above, so a finetune serves through the same bundle
+            from f5_tts_tpu_torch.runtime.aot import AotEngine
+
+            self.engine = AotEngine(artifacts, cfm.to(self.device), model_cfg, vocoder=voc,
+                                    fallback=artifacts_fallback)
+        else:
+            self.engine = InferenceEngine(
+                cfm.to(self.device), model_cfg, vocoder=voc, dtype=dtype,
+                options=EngineOptions(nfe_step=nfe_step, ode_method=ode_method),
+            )
 
     def transcribe(self, ref_audio, language=None):
         """Whisper's transcript of a path or a (wav, sr) pair (reference

@@ -279,15 +279,7 @@ class InferenceEngine:
         first if the key is new."""
         opts = self.options
         n = args[-1].shape[1]  # the noise [b, n, d]
-        model, voc, vt = self.model.transformer, self.vocoder, self.vocoder_type
-
-        def call(*xs):
-            if entry == "mel":
-                return sample_and_decode(model, voc, self.model_cfg, opts, *xs, decode=decode,
-                                         vocoder_type=vt)
-            return sample_and_decode_from_wav(model, voc, self.model_cfg, opts, *xs, n,
-                                              decode=decode, vocoder_type=vt)
-
+        call = self._call(entry, args, decode)
         if self.device.type != "cuda":
             return call(*args)
         key = (entry, args[0].shape[0], n, args[0].shape[1] if entry == "wav" else None, decode,
@@ -315,6 +307,23 @@ class InferenceEngine:
                 if o is not None:
                     o.record_stream(cur)
         return out
+
+    def _call(self, entry: str, args: tuple, decode: bool):
+        """The function of one engine call on the request tensors ``args``
+        (see ``_run``): the module-level ``sample_and_decode`` or
+        ``sample_and_decode_from_wav`` on the engine's model (``AotEngine``
+        returns its exported programs' instead)."""
+        opts, n = self.options, args[-1].shape[1]
+        model, voc, vt = self.model.transformer, self.vocoder, self.vocoder_type
+
+        def call(*xs):
+            if entry == "mel":
+                return sample_and_decode(model, voc, self.model_cfg, opts, *xs, decode=decode,
+                                         vocoder_type=vt)
+            return sample_and_decode_from_wav(model, voc, self.model_cfg, opts, *xs, n,
+                                              decode=decode, vocoder_type=vt)
+
+        return call
 
     def _record(self, fn, *args) -> CapturedGraph:
         """``fn(*args)`` recorded as a CUDA graph on the capture stream, in

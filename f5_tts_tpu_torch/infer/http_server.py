@@ -8,8 +8,9 @@ stats.  stdlib ``http.server`` (threaded); generation goes through the
 engine's CUDA graphs, as the CLI and socket paths do.  ``serve(...,
 ready=fn)`` hands the server to ``fn`` before it serves, so a caller can
 read its port and ``shutdown()`` it; the batcher is then closed and the
-``F5TTS`` gets its engine back.  AOT artifacts are not ported yet (no
-``--artifacts``).
+``F5TTS`` gets its engine back.  ``--artifacts`` serves an AOT bundle
+(``runtime/aot.py``), with the live engine for any key or options it does
+not hold (``artifacts_fallback=True``, as JAX).
 
     python -m f5_tts_tpu_torch.infer.http_server --init_random \
         --ref_audio examples/assets/basic_ref_en.wav --ref_text "..."
@@ -171,12 +172,15 @@ def main(argv=None):
                    help="online dynamic-batching max batch (1 disables)")
     p.add_argument("--queue_delay_ms", type=float, default=4.0,
                    help="batch window opened by the first queued request")
+    p.add_argument("--artifacts", default=None,
+                   help="AOT bundle dir (f5-tts_build-engine output)")
     args = p.parse_args(argv)
     from f5_tts_tpu_torch.infer.api import F5TTS
 
     tts = F5TTS(model=args.model, ckpt_file=args.ckpt_file,
                 vocoder_local_path=args.vocoder_local_path,
-                nfe_step=args.nfe_step, init_random=args.init_random, device=args.device)
+                nfe_step=args.nfe_step, init_random=args.init_random, device=args.device,
+                artifacts=args.artifacts, artifacts_fallback=True)
     serve(tts, args.ref_audio, args.ref_text, args.host, args.port,
           max_batch=args.max_batch, queue_delay_ms=args.queue_delay_ms)
 

@@ -6,7 +6,9 @@ ends the stream with b"END".  The first text package is chunked smaller for
 time to first byte (reference :138-143).  Generation runs through the
 engine's CUDA graphs, one per (bucket, batch) key, captured at first use;
 with ``--max_batch`` > 1 concurrent connections' chunks merge in a
-``DynamicBatcher``.  AOT artifacts are not ported yet (no ``--artifacts``).
+``DynamicBatcher``.  ``--artifacts`` serves an AOT bundle
+(``runtime/aot.py``), with the live engine for any key or options it does
+not hold (``artifacts_fallback=True``, as JAX).
 
     python -m f5_tts_tpu_torch.infer.socket_server --init_random \
         --ref_audio examples/assets/basic_ref_en.wav --ref_text "..."
@@ -153,13 +155,16 @@ def main(argv=None):
     p.add_argument("--max_batch", type=int, default=4,
                    help="online dynamic-batching max batch (1 disables)")
     p.add_argument("--queue_delay_ms", type=float, default=4.0)
+    p.add_argument("--artifacts", default=None,
+                   help="AOT bundle dir (f5-tts_build-engine output)")
     args = p.parse_args(argv)
 
     from f5_tts_tpu_torch.infer.api import F5TTS
 
     tts = F5TTS(model=args.model, ckpt_file=args.ckpt_file, vocab_file=args.vocab_file,
                 vocoder_local_path=args.vocoder_local_path, device=args.device,
-                init_random=args.init_random)
+                init_random=args.init_random, artifacts=args.artifacts,
+                artifacts_fallback=True)
     if args.max_batch > 1:
         # concurrent connections' chunks merge into shared device batches
         from f5_tts_tpu_torch.infer.batcher import wrap_engine

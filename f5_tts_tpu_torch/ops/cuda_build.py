@@ -4,8 +4,15 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  All
 sources build at once (one ``nvcc`` process each, started together) on the
 first launch of any kernel, into ``_build/<hash of the sources and flags>/``
-inside the package; a later process with the same sources reuses the
-libraries.  Nothing is built when the module is imported.
+inside the package (or the directory ``F5TTS_KERNEL_BUILD_DIR`` names); a
+later process with the same sources reuses the libraries.  Nothing is built
+when the module is imported.
+
+``KernelLibrary.use_prebuilt`` loads the libraries from another directory
+instead, as an AOT bundle carries them (``runtime/aot.py`` ``kernels/``):
+it checks that the directory holds a library of every source built from
+sources with this package's digest, raises if not, and from then on never
+starts ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,15 +28,18 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+BUILD_DIR = os.environ.get("F5TTS_KERNEL_BUILD_DIR") or os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 
 def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc`` where ``CUDA_HOME`` is set (and only there),
+    else ``nvcc`` on the ``PATH`` or under ``/usr/local/cuda``."""
     home = os.environ.get("CUDA_HOME")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+    cands = ((os.path.join(home, "bin", "nvcc"),) if home else
+             (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"))
+    for cand in cands:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
@@ -43,6 +53,7 @@ class KernelLibrary:
         self.build_dir = build_dir
         self.build_seconds: float | None = None  # wall time of the last build, None if reused
         self.build_log = ""  # nvcc / ptxas output of the last build
+        self.prebuilt: str | None = None  # set by use_prebuilt: load from here, never build
         self._libs: dict[str, ctypes.CDLL] = {}
         self._lock = threading.Lock()
 
@@ -61,8 +72,26 @@ class KernelLibrary:
     def _out_dir(self) -> str:
         return os.path.join(self.build_dir, self.digest())
 
+    def use_prebuilt(self, root: str) -> str:
+        """Load the libraries from ``<root>/<digest>/`` from now on, with no
+        ``nvcc``: raises if that directory lacks the library of a source
+        (a bundle built from other sources has another digest).  Returns
+        the directory."""
+        digest = self.digest()
+        path = os.path.join(root, digest)
+        found = sorted(os.listdir(root)) if os.path.isdir(root) else []
+        missing = [s for s in self.sources() if not os.path.isfile(os.path.join(path, _lib_name(s)))]
+        if missing:
+            raise RuntimeError(f"prebuilt kernels in {root} do not match these sources (digest "
+                               f"{digest}; found {found}): no library for {missing}")
+        self.prebuilt = path
+        return path
+
     def build(self) -> str:
-        """Compile every source that has no library yet; returns the output dir."""
+        """Compile every source that has no library yet; returns the output
+        dir (the prebuilt one, untouched, after ``use_prebuilt``)."""
+        if self.prebuilt is not None:
+            return self.prebuilt
         out_dir = self._out_dir()
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(self.build_dir, ".lock"), "w") as lock:
@@ -99,6 +128,15 @@ class KernelLibrary:
                 path = os.path.join(self.build(), _lib_name(source))
                 self._libs[source] = ctypes.CDLL(path)
             return self._libs[source]
+
+
+def no_meta(who: str, x) -> None:
+    """Raise for a plain meta tensor: a kernel's dispatcher op has a CPU
+    and a CUDA implementation only.  Its fake implementation serves
+    tracing (``torch.export``), whose fake tensors carry their real device;
+    a call on the meta device has no implementation, as on any other."""
+    if x.device.type == "meta":
+        raise ValueError(f"{who}: no implementation for device {x.device}")
 
 
 def _lib_name(source: str) -> str:

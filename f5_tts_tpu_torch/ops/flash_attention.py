@@ -47,7 +47,11 @@ and the backward's tolerances).  The logsumexp ``L`` is natural-log, fp32
 gradients are 0.  ``lens`` gets no gradient.
 
 Dispatch is by device: a CPU tensor runs the plain version; a CUDA tensor
-launches the kernel, and anything the kernel does not take raises.  There
+launches the kernel, and anything the kernel does not take raises.  A and F
+(``flash_attention_op``) and C (``fwd_stats_op``) are ``torch.library``
+custom ops, whose CPU implementation is the plain version and whose CUDA
+implementation launches the kernel; ``torch.export`` and activation
+checkpoint policies see each as one op.  There
 is no length gate: any n and any 0 <= seg <= n work.  Each kernel
 instance's ``CudaKernel`` counts its launches.
 """
@@ -60,6 +64,7 @@ from typing import Optional
 import torch
 
 from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.cuda_build import no_meta as _no_meta
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the kernel's head width (every F5-TTS config)
@@ -356,10 +361,32 @@ def flash_attention_bwd(q, k, v, do, L, D, lens, seg: int | None = None):
                      q, k, v, do, L, D, lens, seg=seg)
 
 
+@torch.library.custom_op("f5_tts_tpu_torch::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                       seg: Optional[int] = None) -> torch.Tensor:
+    """Kernel A (kernel F with ``seg``) as a dispatcher op: the plain version
+    is its CPU implementation, the kernel its CUDA one, and any other device
+    has none and raises.  ``torch.export`` keeps the op as one opaque node
+    (``runtime/aot.py``)."""
+    return flash_attention_plain(q, k, v, lens, seg)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _(q, k, v, lens, seg=None):
+    return flash_attention_cuda(q, k, v, lens, seg)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, lens, seg=None):
+    _no_meta("flash_attention", q)
+    return torch.empty_like(q)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lens: torch.Tensor) -> torch.Tensor:
-    """Device dispatch of kernel A: the plain version for CPU tensors."""
-    return _dispatch("flash_attention", flash_attention_plain, flash_attention_cuda, q, k, v, lens)
+    """Device dispatch of kernel A (``flash_attention_op``): the plain
+    version for CPU tensors."""
+    return flash_attention_op(q, k, v, lens)
 
 
 def _lens2(lens_a: torch.Tensor, lens_t: torch.Tensor) -> torch.Tensor:
@@ -373,9 +400,8 @@ def flash_attention_two_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     [seg, seg + lens_t[i]) are valid for batch row i (JAX
     ``flash_attention_two_segment``).  Device dispatch of kernel F: the
     plain version for CPU tensors."""
-    return _dispatch("flash_attention_two_segment", flash_attention_two_segment_plain,
-                     flash_attention_cuda, q.contiguous(), k.contiguous(), v.contiguous(),
-                     _lens2(lens_a, lens_t), int(seg))
+    return flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                              _lens2(lens_a, lens_t), int(seg))
 
 
 class _FlashAttentionFn(torch.autograd.Function):

@@ -12,7 +12,8 @@ conv1d(k=31, bias) -> Mish -> mask``.  Weights arrive in torch's
 [out, in/groups, k] layout.  The plain version is the unfused composition
 (``f5_tts_tpu/models/layers.py`` ``conv_pos_embed_xla``, :197-209).
 
-Dispatch is by device: a CPU tensor runs ``conv_pos_plain``; a CUDA tensor
+Dispatch is by device, through the ``torch.library`` custom op
+``conv_pos_op``: a CPU tensor runs ``conv_pos_plain``; a CUDA tensor
 launches the kernel, and a shape or dtype it does not take raises (the
 kernel takes 64-channel groups, the F5-TTS width of 1024 / 16).
 
@@ -36,11 +37,13 @@ gradients for x, both weights and both biases.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.cuda_build import no_meta as _no_meta
 
 KSIZE = 31
 GROUP_WIDTH = 64  # channels per group the kernel takes
@@ -148,13 +151,37 @@ def conv_pos_cuda(x, w1, b1, w2, b2, lens, groups: int, taps=None,
     return out
 
 
+@torch.library.custom_op("f5_tts_tpu_torch::conv_pos_fused", mutates_args=(), device_types="cpu")
+def conv_pos_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor, lens: torch.Tensor, groups: int,
+                taps1: Optional[torch.Tensor] = None,
+                taps2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward as a dispatcher op: the plain version is its CPU
+    implementation (which needs no taps), the kernel its CUDA one, and any
+    other device has none and raises.  ``taps1`` / ``taps2``: the two
+    convolutions' ``kernel_taps``, or None to make them per call.  Taking
+    them as inputs keeps them out of a ``torch.export`` program's constants
+    (``runtime/aot.py``).  The output is contiguous, as the kernel's."""
+    return conv_pos_plain(x, w1, b1, w2, b2, lens, groups).contiguous()
+
+
+@conv_pos_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, lens, groups, taps1=None, taps2=None):
+    taps = None if taps1 is None else (taps1, taps2)
+    return conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps)
+
+
+@conv_pos_op.register_fake
+def _(x, w1, b1, w2, b2, lens, groups, taps1=None, taps2=None):
+    _no_meta("conv_pos_fused", x)
+    return torch.empty_like(x)
+
+
 def _conv_pos_forward(x, w1, b1, w2, b2, lens, groups: int, taps=None) -> torch.Tensor:
-    """Device dispatch: plain version for CPU tensors, the kernel for CUDA."""
-    if x.device.type == "cpu":
-        return conv_pos_plain(x, w1, b1, w2, b2, lens, groups)
-    if x.device.type == "cuda":
-        return conv_pos_cuda(x, w1, b1, w2, b2, lens, groups, taps)
-    raise ValueError(f"conv_pos_fused: no implementation for device {x.device}")
+    """Device dispatch (``conv_pos_op``): plain version for CPU tensors, the
+    kernel for CUDA."""
+    t1, t2 = (None, None) if taps is None else taps
+    return conv_pos_op(x, w1, b1, w2, b2, lens, groups, t1, t2)
 
 
 class _ConvPosFn(torch.autograd.Function):
@@ -178,5 +205,8 @@ def conv_pos_fused(x, w1, b1, w2, b2, lens, groups: int = 16, taps=None) -> torc
     """Differentiable fused ConvPositionEmbedding: the kernel (CUDA) or the
     plain version (CPU) forward, the plain composition's gradients backward.
     ``taps``: the weights' ``kernel_taps`` pair, made once where the weights
-    stay fixed (serving), or None."""
-    return _ConvPosFn.apply(x, w1, b1, w2, b2, lens, groups, taps)
+    stay fixed (serving), or None.  Where no input needs a gradient
+    (serving, an export) the op runs without the autograd Function."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _ConvPosFn.apply(x, w1, b1, w2, b2, lens, groups, taps)
+    return _conv_pos_forward(x, w1, b1, w2, b2, lens, groups, taps)

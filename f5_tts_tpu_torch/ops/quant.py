@@ -27,7 +27,8 @@ casts it to x's dtype and only then adds the bias.
 
 Kernel G (``csrc/int8_matmul.cu``) has two instances, dispatched by device
 (a CPU tensor runs the plain version; a CUDA tensor launches the kernel,
-and anything it does not take raises):
+and anything it does not take raises; the serving instance is the
+``torch.library`` custom op ``linear_w8a8``):
 
 - ``int8_matmul``: the TPU kernel's function, int8 in, fp32 out;
   ``KERNEL.launches`` counts it.  Only ``quantized_linear`` (a test form)
@@ -49,11 +50,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
+from f5_tts_tpu_torch.ops.cuda_build import no_meta as _no_meta
 from f5_tts_tpu_torch.ops.workspace import workspace
 
 _P = ctypes.c_void_p
@@ -293,16 +296,26 @@ def quantize_rows_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return x_q, x_scale
 
 
+@torch.library.custom_op("f5_tts_tpu_torch::linear_w8a8", mutates_args=(), device_types="cpu")
 def linear_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """JAX ``layers.linear``'s ``kernel_q`` branch.  Device dispatch of
-    kernel G's serving instance: the plain composition for CPU tensors,
-    one launch for CUDA tensors."""
-    if x.device.type == "cpu":
-        return linear_w8a8_plain(x, w_q, w_scale, bias)
-    if x.device.type == "cuda":
-        return linear_w8a8_cuda(x, w_q, w_scale, bias)
-    raise ValueError(f"linear_w8a8: no implementation for device {x.device}")
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX ``layers.linear``'s ``kernel_q`` branch.  A dispatcher op of
+    kernel G's serving instance: the plain composition is its CPU
+    implementation, one launch its CUDA one, and any other device has none
+    and raises.  ``torch.export`` keeps it as one opaque node
+    (``runtime/aot.py``)."""
+    return linear_w8a8_plain(x, w_q, w_scale, bias)
+
+
+@linear_w8a8.register_kernel("cuda")
+def _(x, w_q, w_scale, bias=None):
+    return linear_w8a8_cuda(x, w_q, w_scale, bias)
+
+
+@linear_w8a8.register_fake
+def _(x, w_q, w_scale, bias=None):
+    _no_meta("linear_w8a8", x)
+    return x.new_empty((*x.shape[:-1], w_q.shape[0]))
 
 
 def quantized_linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None

@@ -43,7 +43,9 @@ version, TF32 off, to 1e-4 relative to the largest reference value.
 The serving engine's CUDA graphs (a narrow DiT, dense and W8A8): a replay
 equals the module-level eager function bitwise, N replays count N eager
 calls' launches of A, B and G, and two threads replaying one engine get
-each request's own rows, bitwise.
+each request's own rows, bitwise.  An AOT bundle exported on the card, its
+kernels packaged, serves in a fresh process with no nvcc what the live
+engine serves.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
@@ -897,3 +899,84 @@ def test_engine_bigvgan_and_picard_replays_are_bitwise_eager(gen, window):
     eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
     forwards = eng.last_sweeps if window else 4
     assert (FA.KERNEL.launches, FC.KERNEL.launches) == (2 * forwards, forwards)
+
+
+_AOT_CHILD = r"""
+import json, os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.environ["AOT_REPO"])
+from f5_tts_tpu_torch.infer.engine import InferenceEngine
+from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+from f5_tts_tpu_torch.models.cfm import CFM
+from f5_tts_tpu_torch.models.configs import DiTConfig, ModelConfig
+from f5_tts_tpu_torch.models.vocos import Vocos
+from f5_tts_tpu_torch.ops import cuda_build
+from f5_tts_tpu_torch.ops import flash_attention as FA
+from f5_tts_tpu_torch.ops import fused_convpos as FC
+from f5_tts_tpu_torch.runtime.aot import AotEngine
+
+torch.manual_seed(0)  # the weights of _card_engine
+cfg = ModelConfig(name="narrow", arch=DiTConfig(depth=2, text_dim=64, conv_layers=1),
+                  tokenizer="char")
+cfm = CFM(cfg.arch)
+randomize_zero_init(cfm.transformer, torch.Generator().manual_seed(1))
+voc = Vocos()
+eng = AotEngine(os.environ["AOT_OUT"], cfm.cuda(), cfg, vocoder=voc.cuda())
+req = np.load(os.environ["AOT_REQ"])
+call = lambda: eng.generate_batch_from_wavs([req["ref"]], [req["ids"]], [int(req["dur"])],
+                                            seeds=[int(req["seed"])])
+call()  # the key was captured at load (warm-up): this replays
+FA.KERNEL.launches = FC.KERNEL.launches = 0
+mel, wavs, _ = call()
+print(json.dumps({"mel_err": float(np.abs(mel - req["mel"]).max()),
+                  "mel_bitwise": bool(np.array_equal(mel, req["mel"])),
+                  "wav_err": float(np.abs(wavs[0] - req["wav"]).max()),
+                  "launches": [FA.KERNEL.launches, FC.KERNEL.launches],
+                  "prebuilt": cuda_build.LIBRARY.prebuilt,
+                  "built": cuda_build.LIBRARY.build_seconds is not None,
+                  "graphs": len(eng.graphs)}))
+"""
+
+
+def test_aot_bundle_on_the_card_loads_its_kernels_and_matches_live(gen, tmp_path):
+    """Export a narrow engine's wav programs on the card and package the
+    kernels; a fresh process with no nvcc (``PATH`` without it, an empty
+    ``CUDA_HOME``) and an empty build directory loads the bundle, takes the
+    kernels from it, and serves what the live engine serves (mel within
+    JAX's AOT tolerance 1e-5, wav within one int16 step), with A's and B's
+    launches of the live engine's call."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from f5_tts_tpu_torch.ops import cuda_build
+    from f5_tts_tpu_torch.runtime import aot
+
+    eng = _card_engine(False)
+    refs, ids, durs, seeds = _request(1)
+    out = str(tmp_path / "bundle")
+    aot.export_engine(eng, out, [("wav", 1, 512, 256)])
+    assert aot.warm_artifacts(out) == len(cuda_build.LIBRARY.sources())
+    eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)  # captures the key
+    FA.KERNEL.launches = FC.KERNEL.launches = 0
+    mel, wavs, _ = eng.generate_batch_from_wavs(refs, ids, durs, seeds=seeds)
+    live = [FA.KERNEL.launches, FC.KERNEL.launches]
+    req = str(tmp_path / "req.npz")
+    np.savez(req, ref=refs[0], ids=ids[0], dur=durs[0], seed=seeds[0], mel=mel, wav=wavs[0])
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    os.makedirs(tmp_path / "cuda_home")
+    env = dict(os.environ, PATH=os.pathsep.join(path), CUDA_HOME=str(tmp_path / "cuda_home"),
+               F5TTS_KERNEL_BUILD_DIR=str(tmp_path / "empty_build"), AOT_OUT=out, AOT_REQ=req,
+               AOT_REPO=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    r = subprocess.run([sys.executable, "-c", _AOT_CHILD], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    print(got)
+    assert got["prebuilt"] == os.path.join(out, "kernels", cuda_build.LIBRARY.digest())
+    assert not got["built"] and got["graphs"] == 1
+    assert got["mel_err"] <= 1e-5 and got["wav_err"] <= 1.5 / 32767
+    assert got["launches"] == live == [2 * 4, 4]
