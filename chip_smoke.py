@@ -174,7 +174,26 @@ Run from the repository root:  python3 chip_smoke.py
     bundle in a child process with no nvcc and an empty build directory
     (which must build no kernel and run no backbone ``forward``) against a
     cold live engine with the build cache.
-23. Prints the kernels' JSON line, then the result line.
+23. Parallelism over the data, F5TTS_v1_Base at full width (the Trainer
+    and BatchServer parts with ``PAR_DEPTH`` of its 22 blocks): ring
+    attention's per-shard body at sp 2 and 4 on [2, 16, 4096, 64] bf16 with
+    lengths {4096, 1500} (the rotation an index in one process), o and L
+    against kernel C over all n and dq, dk, dv of a loss reading both
+    against C + D + E (``RING_O_TOL``, ``RING_GRAD_TOL``), C, D and E sp^2
+    times each; one process's Trainer update on a global batch of
+    ``PAR_ROWS`` ragged rows, the same update through NCCL at world size 1
+    (``Trainer(mesh=make_train_mesh(data=1), zero1=True)``, which resolves
+    ZeRO-1 off at data size 1; within 1e-6), then two gloo ranks spawned on
+    the one card: a data-parallel and a ZeRO-1 update against the one
+    process (loss within ``PAR_LOSS_REL_TOL``, gradient norm within
+    ``PAR_GNORM_REL_TOL``, AdamW's first moment, i.e. the summed clipped
+    gradients, within ``PAR_GRAD_TOL`` per tensor, every parameter within
+    ``PAR_PARAM_TOL``, the AdamW state's share per rank, B, C, D and E
+    launches per rank) and
+    ``BatchServer`` over data = 2 on 4 prompts against ``mesh=None`` (int16
+    steps, A and B launches per rank).  Two ranks on one card share it:
+    their wall is no scaling figure.
+24. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -2197,7 +2216,8 @@ def _eager_vs_graph(torch, tag, tts, reps: int = 3, modes=("eager", "graph")) ->
     del eng._run
     entry, args, decode, _ = calls[0]
     key = (entry, args[0].shape[0], args[-1].shape[1],
-           args[0].shape[1] if entry == "wav" else None, decode, eng.dtype, eng.options)
+           args[0].shape[1] if entry == "wav" else None, decode, eng.dtype, eng.options,
+           eng.parallel_hooks)
     graph = eng.graphs[key].graph
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2603,7 +2623,7 @@ def _picard(torch, tts) -> dict:
             (torch.arange(mel.shape[1], device=mel.device)[None, :] < dur[:, None])
         mae = ((mel.float() - seq_mel).abs() * gen[..., None]).sum().item() / \
             (gen.sum().item() * mel.shape[-1])
-        key = next(k for k in eng.graphs if k[-1] == opts)
+        key = next(k for k in eng.graphs if k[-2] == opts)
         g = eng.graphs[key]
         r = dict(sweeps=sweeps, wall_ms=wall, seq_wall_ms=seq_wall, mel_mae_vs_seq=mae,
                  capture_s=g.seconds)
@@ -3445,6 +3465,379 @@ def phase_runtime(torch, build_s: float | None) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------- phase 23
+# parallelism over the data: one AdamW step at lr PAR_LR moves each element
+# by at most lr, so two runs whose summed gradients differ only in rounding
+# (other GEMM shapes per rank, bf16 mixed precision) differ by at most 2 lr
+# where a near-zero gradient element flips sign, and the parameters alone
+# would pass a wrong sum.  So the gate reads what a wrong sum or denominator
+# moves: the loss within PAR_LOSS_REL_TOL and the gradient norm within
+# PAR_GNORM_REL_TOL, each about 7x its reading on the card at PAR_DEPTH
+# (1.3e-7 and 1.46e-5; a per-rank mean averaged over the two ranks moves the
+# loss by about (L0 - L1) / 30), and AdamW's first moment after the step,
+# (1 - b1) times the summed clipped gradients, per tensor within
+# PAR_GRAD_TOL of its largest one-process value (ROADMAP C.2's gradient
+# rounding limits)
+PAR_LR = 1e-4
+# F5TTS_v1_Base at full width with 4 of its 22 blocks: every path of the
+# phase runs per block, so depth adds time (each Trainer run ends with a
+# model_last.pt write), not coverage
+PAR_DEPTH = 4
+PAR_PARAM_TOL = 2.5 * PAR_LR
+PAR_LOSS_REL_TOL = 1e-6
+PAR_GNORM_REL_TOL = 1e-4
+PAR_GRAD_TOL = (2e-2, 4e-3)  # max, mean abs over the tensor's largest reference value
+PAR_ROWS = 15  # an odd global batch: the second rank's last row is a valid = 0 pad
+PAR_FRAMES = 19_200  # the global batch's frame budget: 15 rows of 900-1250 frames
+PAR_SERVE_WAV_STEPS = 3  # int16 steps a DP-served wav may differ from mesh=None's
+RING_SHAPE = (2, 16, 4096, 64)
+RING_LENS = (4096, 1500)
+# the ring against kernel C (+ D, E) over all n.  o: absolute, 3-4x the
+# readings of its first card runs (max 3.91e-3, mean 5.19e-5 at sp 4), since
+# a typical |o| of random q, k, v at these n is only sqrt(e / n), 0.026-0.043;
+# the gradients: ROADMAP C.2's rounding limits
+RING_O_TOL = (1.2e-2, 2e-4)  # max, mean abs over valid query rows
+RING_GRAD_TOL = (2e-2, 4e-3)  # max, mean abs over the largest reference value
+
+
+def _par_dataset(np, vocab):
+    """PAR_ROWS seeded mel rows of 900-1250 frames: one sampler batch."""
+    from f5_tts_tpu_torch.train.dataset import CustomDataset
+
+    rng = np.random.default_rng(23)
+    chars = sorted(c for c in vocab if len(c) == 1 and c.isalpha() and c.isascii())
+    rows = []
+    for frames in rng.integers(900, 1251, PAR_ROWS):
+        mel = (rng.standard_normal((int(frames), 100)) * 2.0 - 5.0).astype(np.float32)
+        words = ["".join(rng.choice(chars, int(rng.integers(2, 8)))) for _ in range(30)]
+        rows.append({"mel_spec": mel, "text": " ".join(words),
+                     "duration": int(frames) * 256 / 24_000})
+    return CustomDataset(rows, preprocessed_mel=True)
+
+
+def _par_cfg(vocab_size: int | None = None):
+    """F5TTS_v1_Base at full width, ``PAR_DEPTH`` blocks."""
+    import dataclasses
+
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS, with_vocab_size
+
+    cfg = MODEL_CONFIGS["F5TTS_v1_Base"]
+    if vocab_size is not None:
+        cfg = with_vocab_size(cfg, vocab_size)
+    return dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, depth=PAR_DEPTH))
+
+
+def _par_train(torch, workdir: str, mesh=None, zero1: bool = False) -> dict:
+    """One Trainer update of ``_par_cfg`` (mixed precision, the
+    zero-initialized projections filled) on ``_par_dataset``'s one batch."""
+    import json as _json
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+    from f5_tts_tpu_torch.train import step as S
+    from f5_tts_tpu_torch.train.trainer import Trainer
+
+    vocab, vocab_size = get_tokenizer(None, "pinyin")
+    cfg = _par_cfg(vocab_size)
+    opt = S.OptimConfig(mixed_precision=True, num_warmup_updates=0, learning_rate=PAR_LR,
+                        total_updates=10)
+    tr = Trainer(cfg, vocab, opt, ckpt_dir=workdir, batch_size_per_device=PAR_FRAMES,
+                 max_samples=64, save_per_updates=10**9, last_per_updates=10**9,
+                 log_every_updates=1, device="cuda", seed=23, mesh=mesh, zero1=zero1)
+    model = _fresh_cfm(torch, cfg.arch, 23, device="cuda")
+    randomize_zero_init(model.transformer, torch.Generator().manual_seed(23))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, _, update = tr.train(model, _par_dataset(np, vocab), epochs=1, resume=False)
+    torch.cuda.synchronize()
+    state = tr.optimizer.state_dict()["state"]  # under ZeRO-1 a gather: every rank calls it
+    out = dict(wall_s=time.perf_counter() - t0, update=update, launches=counts(),
+               state_bytes=tr.optimizer.state_bytes(), model=model, zero1=tr.zero1,
+               exp_avg=[state[i]["exp_avg"].cpu() for i in sorted(state)])
+    log = os.path.join(workdir, "train_log.jsonl")
+    if tr.is_main:
+        out["log"] = [_json.loads(x) for x in open(log)][-1]
+    return out
+
+
+def _par_requests(np):
+    from f5_tts_tpu_torch.infer.serve import Request
+
+    rng = np.random.default_rng(24)
+    return [Request(ref_mel=rng.standard_normal((int(rng.integers(150, 300)), 100))
+                    .astype(np.float32),
+                    text_ids=rng.integers(0, 2545, int(rng.integers(60, 120))).astype(np.int32),
+                    duration=int(rng.integers(600, 1000)), seed=i) for i in range(4)]
+
+
+def _par_serve(torch, mesh) -> dict:
+    """``_par_cfg`` (bf16, NFE 32) serving 4 prompts through BatchServer:
+    with ``mesh`` at batch 4 (2 rows per data rank), else at batch 2 (the
+    same rows per engine call as a data rank's); the second pass, on the
+    captured graphs, is counted."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import _seeded
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.infer.serve import BatchServer
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    cfg = _par_cfg()
+    eng = InferenceEngine(_w(torch, cfg, 7).cuda(), cfg, vocoder=_seeded(Vocos, 1).cuda(),
+                          dtype=torch.bfloat16, options=EngineOptions(nfe_step=NFE))
+    srv = BatchServer(eng, mesh=mesh, batch_size=2 if mesh is None else 4)
+    reqs = _par_requests(np)
+    srv.run(reqs, overlap=1)  # each key's first hit captures its graph
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs, _ = srv.run(reqs, overlap=1)
+    torch.cuda.synchronize()
+    return dict(wavs=[np.round(w * 32767.0).astype(np.int32) for w in wavs], launches=counts(),
+                wall_s=time.perf_counter() - t0, calls=len(eng.graphs))
+
+
+def _param_diff(torch, model, ref: dict) -> tuple[float, float]:
+    """(max, mean) |p - ref| over every parameter of ``model``."""
+    mx, total, count = 0.0, 0.0, 0
+    for k, p in model.named_parameters():
+        d = (p.detach().float() - ref[k].to(p.device).float()).abs()
+        mx = max(mx, d.max().item())
+        total += d.sum().item()
+        count += d.numel()
+    return mx, total / count
+
+
+def _moment_diff(torch, got: list, ref: list) -> tuple[float, float]:
+    """The worst tensor's (max, mean) |m - m_ref| / max |m_ref| over AdamW's
+    first moments ``got`` against ``ref``, in parameter order."""
+    mx, mean = 0.0, 0.0
+    for a, r in zip(got, ref, strict=True):
+        scale = max(r.abs().max().item(), 1e-30)
+        e = (a.float() - r.float()).abs() / scale
+        mx, mean = max(mx, e.max().item()), max(mean, e.mean().item())
+    return mx, mean
+
+
+def _par_rank(rank: int, root: str) -> None:
+    """One of the two gloo ranks on the one card: the DP and the ZeRO-1
+    update, then BatchServer over data = 2."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from f5_tts_tpu_torch.parallel.distributed import init_distributed
+    from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
+
+    init_distributed(f"file://{root}/pg", num_processes=2, process_id=rank, device="cuda:0",
+                     backend="gloo")
+    try:
+        mesh = make_train_mesh(data=2)
+        ref = torch.load(os.path.join(root, "ref.pt"), weights_only=True)
+        ref_m = torch.load(os.path.join(root, "ref_m.pt"), weights_only=True)
+        res = {}
+        for name, zero1 in (("dp", False), ("zero1", True)):
+            r = _par_train(torch, os.path.join(root, name), mesh=mesh, zero1=zero1)
+            res[name] = {k: v for k, v in r.items() if k not in ("model", "exp_avg")}
+            res[name]["max_diff"], res[name]["mean_diff"] = _param_diff(torch, r["model"], ref)
+            res[name]["m_max"], res[name]["m_mean"] = _moment_diff(torch, r["exp_avg"], ref_m)
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["serve"] = _par_serve(torch, mesh)
+        torch.save(res, os.path.join(root, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ring_on_card(torch) -> dict:
+    """Ring attention's per-shard body on the card at sp 2 and 4, the
+    rotation in process (shard r's step s reads chunk (r - s) % sp): o and
+    L against kernel C over all n, and dq, dk, dv of a loss that reads both
+    against C + D + E over all n; C, D and E launch sp^2 times each."""
+    from f5_tts_tpu_torch.ops import flash_attention as FA
+    from f5_tts_tpu_torch.parallel.ring import ring_attention_in_process
+    from f5_tts_tpu_torch.utils.device import device_ms
+
+    b, h, n, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor(RING_LENS, dtype=torch.int32, device="cuda")
+    valid = torch.arange(n, device="cuda")[None] < lens[:, None]
+    w = torch.randn((b, h, n, d), generator=gen, device="cuda") * valid[:, None, :, None]
+    wl = torch.randn((b, h, n), generator=gen, device="cuda") * valid[:, None, :]
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o, L = fn(qq, kk, vv)
+        loss = (o.float() * w).sum() + (L * wl).sum()
+        return o.detach().float(), L.detach(), torch.autograd.grad(loss, (qq, kk, vv))
+
+    o_ref, L_ref, g_ref = run(lambda q, k, v: FA.flash_attention_with_stats(q, k, v, lens))
+    with torch.no_grad():
+        c_ms = device_ms(lambda: FA.flash_attention_with_stats(q, k, v, lens), 10)
+    keep = valid[:, None, :, None]
+    out = {"shape": list(RING_SHAPE), "lens": list(RING_LENS), "C_over_n_ms": c_ms}
+    for sp in (2, 4):
+        reset_counts()
+        o, L, g = run(lambda q, k, v: ring_attention_in_process(q, k, v, lens, sp, "flash",
+                                                                return_lse=True))
+        torch.cuda.synchronize()
+        got = counts()
+        launches = {x: got[x] for x in ("C", "D", "E")}
+        err = (o - o_ref).abs()[keep.expand_as(o)]
+        l_err = (L - L_ref).abs()[valid[:, None, :].expand_as(L)].max().item()
+        g_err = {}
+        for name, a, r in zip(("dq", "dk", "dv"), g, g_ref):
+            scale = r.float().abs().max().item()
+            e = (a.float() - r.float()).abs() / scale
+            g_err[name] = (e.max().item(), e.mean().item())
+        with torch.no_grad():
+            ring_ms = device_ms(lambda: ring_attention_in_process(q, k, v, lens, sp, "flash"), 10)
+        o_scale = o_ref.abs()[keep.expand_as(o_ref)].max().item()
+        row = dict(launches=launches, o_max=err.max().item(), o_mean=err.mean().item(),
+                   o_ref_max=o_scale, o_rel=(err.max().item() / o_scale,
+                                             err.mean().item() / o_scale),
+                   L_max=l_err, grads=g_err, fwd_ms=ring_ms)
+        print(f"phase 23 ring sp {sp} {list(RING_SHAPE)} bf16 lens {list(RING_LENS)}: launches "
+              f"{launches}; o vs C over n max {row['o_max']:.3e} mean {row['o_mean']:.3e} (over max "
+              f"|o_ref| {o_scale:.3e}: {row['o_rel'][0]:.3e}, {row['o_rel'][1]:.3e}); L max "
+              f"{l_err:.3e}; grads (max, mean over max |ref|) "
+              + ", ".join(f"{k} ({a:.3e}, {m:.3e})" for k, (a, m) in g_err.items())
+              + f"; forward {ring_ms:.4f} ms against C over n {c_ms:.4f} ms", flush=True)
+        if launches != {"C": sp * sp, "D": sp * sp, "E": sp * sp}:
+            fail(f"ring sp {sp}: launches {launches}, want {sp * sp} of C, D and E")
+        if row["o_max"] > RING_O_TOL[0] or row["o_mean"] > RING_O_TOL[1] or l_err > LSE_TOL:
+            fail(f"ring sp {sp}: o / L against kernel C over n: {row}")
+        if any(a > RING_GRAD_TOL[0] or m > RING_GRAD_TOL[1] for a, m in g_err.values()):
+            fail(f"ring sp {sp}: gradients against C + D + E over n: {g_err}")
+        out[sp] = row
+    return out
+
+
+def phase_parallel(torch) -> dict:
+    """Phase 23: the ring's per-shard body on the card; one process's update
+    of ``_par_cfg`` on a global batch, the same through NCCL at world size
+    1 (Trainer(mesh=make_train_mesh(data=1), zero1=True)); two gloo ranks on
+    the one card (a DP and a ZeRO-1 update, then BatchServer over data = 2)
+    against the one process.  Two ranks on one card share it: their wall is
+    no scaling figure."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from f5_tts_tpu_torch.parallel.distributed import init_distributed
+    from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"ring": _ring_on_card(torch)}
+    free()
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_par_", dir=os.path.join(REPO, ".cache"))
+    try:
+        one = _par_train(torch, os.path.join(root, "one"))
+        ref = {k: p.detach().cpu() for k, p in one.pop("model").named_parameters()}
+        torch.save(ref, os.path.join(root, "ref.pt"))
+        torch.save(one.pop("exp_avg"), os.path.join(root, "ref_m.pt"))
+        print(f"phase 23 one process: 1 update of {PAR_ROWS} rows ({PAR_FRAMES} frames budget), "
+              f"loss {one['log']['loss']:.6f}, grad norm {one['log']['grad_norm']:.6f}, "
+              f"{one['wall_s']:.2f} s, launches {one['launches']}, AdamW state "
+              f"{one['state_bytes']} bytes", flush=True)
+        free()
+
+        # NCCL at world size 1: the mesh path's collectives on one rank
+        init_distributed(f"file://{root}/nccl_pg", num_processes=1, process_id=0, device="cuda:0")
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"world size 1 on the card: backend {dist.get_backend()}, want nccl")
+            r = _par_train(torch, os.path.join(root, "nccl"), mesh=make_train_mesh(data=1),
+                           zero1=True)
+        finally:
+            dist.destroy_process_group()
+        del r["exp_avg"]
+        mx, mean = _param_diff(torch, r.pop("model"), ref)
+        out["nccl"] = dict(max_diff=mx, mean_diff=mean, bitwise=mx == 0.0, loss=r["log"]["loss"],
+                           grad_norm=r["log"]["grad_norm"], launches=r["launches"],
+                           zero1=r["zero1"])
+        print(f"phase 23 NCCL world 1 (data 1: the Trainer resolves zero1=True off, as ZeRO-1 "
+              f"needs data > 1): max |p - one process| {mx:.3e}, mean {mean:.3e}, bitwise "
+              f"{mx == 0.0}; loss {r['log']['loss']:.6f}", flush=True)
+        if mx > 1e-6 or r["log"]["loss"] != one["log"]["loss"] or r["zero1"]:
+            fail(f"NCCL world size 1 against one process: {out['nccl']}")
+        free()
+
+        serve_ref = _par_serve(torch, None)
+        free()
+
+        t0 = time.perf_counter()
+        mp.start_processes(_par_rank, args=(root,), nprocs=2, start_method="spawn", join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        depth = PAR_DEPTH
+        for name in ("dp", "zero1"):
+            log = ranks[0][name]["log"]
+            lrel = abs(log["loss"] - one["log"]["loss"]) / abs(one["log"]["loss"])
+            grel = abs(log["grad_norm"] - one["log"]["grad_norm"]) / one["log"]["grad_norm"]
+            rows = [dict(max_diff=x[name]["max_diff"], mean_diff=x[name]["mean_diff"],
+                         m_max=x[name]["m_max"], m_mean=x[name]["m_mean"], state_bytes=x[name]["state_bytes"], wall_s=x[name]["wall_s"],
+                         launches={k: x[name]["launches"][k] for k in ("B", "C", "D", "E")})
+                    for x in ranks]
+            share = [x["state_bytes"] / one["state_bytes"] for x in rows]
+            out[name] = dict(loss=log["loss"], loss_rel=lrel, grad_norm=log["grad_norm"],
+                             grad_norm_rel=grel, ranks=rows, state_share=share)
+            print(f"phase 23 gloo x2 {name}: loss {log['loss']:.6f} (rel {lrel:.2e} against one "
+                  f"process), grad norm {log['grad_norm']:.6f} (rel {grel:.2e}); per rank "
+                  f"{rows}; AdamW state share of one process's {share}", flush=True)
+            if lrel > PAR_LOSS_REL_TOL or grel > PAR_GNORM_REL_TOL or \
+                    any(x["max_diff"] > PAR_PARAM_TOL or x["m_max"] > PAR_GRAD_TOL[0]
+                        or x["m_mean"] > PAR_GRAD_TOL[1] for x in rows):
+                fail(f"{name} at data 2 against one process: {out[name]}")
+            if any(x["launches"]["C"] != depth or x["launches"]["D"] != depth or
+                   x["launches"]["E"] != depth or x["launches"]["B"] != 1 for x in rows):
+                fail(f"{name}: launches per rank {[x['launches'] for x in rows]}, want C, D, E "
+                     f"{depth} and B 1")
+            if name == "zero1" and not all(0.5 <= s < 0.55 for s in share):
+                fail(f"ZeRO-1: AdamW state share per rank {share}, want about 1/2")
+        steps = []
+        for x in ranks:
+            sv = x["serve"]
+            steps.append(max(int(np.abs(a - b).max()) if len(a) else 0
+                             for a, b in zip(sv["wavs"], serve_ref["wavs"])))
+        out["serve"] = dict(max_int16_steps=steps, launches=[x["serve"]["launches"] for x in ranks],
+                            reference_launches=serve_ref["launches"],
+                            wall_s=[x["serve"]["wall_s"] for x in ranks],
+                            reference_wall_s=serve_ref["wall_s"], spawn_s=spawn_s)
+        print(f"phase 23 BatchServer data 2 (two gloo ranks, batch 4) against mesh=None (batch "
+              f"2): max int16 steps per rank {steps}; launches per rank "
+              f"{[{k: v for k, v in la.items() if v} for la in out['serve']['launches']]}, "
+              f"mesh=None {({k: v for k, v in serve_ref['launches'].items() if v})}; spawn "
+              f"{spawn_s:.1f} s", flush=True)
+        if any(s > PAR_SERVE_WAV_STEPS for s in steps):
+            fail(f"BatchServer over data 2 against mesh=None: {out['serve']}")
+        for la in out["serve"]["launches"]:
+            if la["A"] != depth * NFE or la["B"] != NFE:
+                fail(f"BatchServer data 2: launches per rank {la}, want A {depth * NFE}, "
+                     f"B {NFE}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -3583,6 +3976,9 @@ def main() -> int:
     runtime = phase_runtime(torch, LIBRARY.build_seconds)  # counts set to 0 before each path
     lap("22 (runtime: benchmark, bench_train, AOT bundles, cold start)")
     print(f"summary: runtime {json.dumps(runtime)}", flush=True)
+    par = phase_parallel(torch)  # counts set to 0 before each update, ring and served pass
+    lap("23 (ring on the card, NCCL at world 1, DP / ZeRO-1 / DP serving on two gloo ranks)")
+    print(f"summary: parallel {json.dumps(par, default=str)}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
@@ -3739,6 +4135,24 @@ def main() -> int:
          "by_k": {str(kk): {key: r[key] for key in ("ms", "library_ms", "bound_ms")}
                   for kk, r in i_row["by_k"].items()}},
     ]
+    # phase 23: the ring's launches (the per-shard body at sp 2 and 4) and
+    # each data rank's in the two-rank DP runs
+    ring = {f"sp{sp}": par["ring"][sp]["launches"] for sp in (2, 4)}
+    dp_rank = {name: [r["launches"] for r in par[name]["ranks"]] for name in ("dp", "zero1")}
+    for entry_ in kernels:
+        key = {"flash_attention_fwd_stats": "C", "flash_attention_bwd_dq": "D",
+               "flash_attention_bwd_dkv": "E"}.get(entry_["name"])
+        if key:
+            entry_["ring_launches"] = {sp: la[key] for sp, la in ring.items()}
+            entry_["data_parallel_launches_per_rank"] = {n: [la[key] for la in v]
+                                                         for n, v in dp_rank.items()}
+        elif entry_["name"] in ("flash_attention_fwd", "fused_convpos_fwd"):
+            k = "A" if entry_["name"] == "flash_attention_fwd" else "B"
+            entry_["data_parallel_serving_launches_per_rank"] = [
+                la[k] for la in par["serve"]["launches"]]
+            if k == "B":
+                entry_["data_parallel_launches_per_rank"] = {n: [la["B"] for la in v]
+                                                             for n, v in dp_rank.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -56,8 +56,20 @@ the card): after the cast to the compute dtype and the qkv fusion, the
 engine quantizes the backbone's block linears in place from the
 dtype-rounded weights, as JAX ``engine.py:234-241`` does; DiT and MMDiT
 only (UNetT raises ``ValueError``: the JAX package cannot quantize it
-either).  The einsum-tap convpos of mesh serving belongs to a later slice
-of the port and raises if set.
+either).
+
+Mesh serving (``infer/serve.BatchServer``; JAX :61-66, 106-134, 246-249):
+``EngineOptions.convpos_taps`` is accepted for JAX's signature and routes
+nothing: JAX's per-tap ConvPositionEmbedding is the function that kernel B
+and its plain version already compute (``models/layers.conv_pos_embed_taps``).
+``engine.parallel_hooks`` holds (block_scan, activation_constraint): the
+sequence-parallel hook (``parallel/sequence.py``) goes to the sampler, and
+the hooks are in a graph's key.  A data-parallel rank replays its own rows'
+graph and needs no collective inside it.  Under the sequence-parallel hook
+every step's ring attention sends and receives, and the call runs eagerly
+on the card, never captured; ``BatchServer`` then runs one batch at a time
+(``infer/serve.py``), since two threads' collectives on one group could
+interleave in another order on each rank.
 """
 
 from __future__ import annotations
@@ -93,23 +105,19 @@ def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
 
 @dataclass(frozen=True)
 class EngineOptions:
-    """Serving knobs (``convpos_taps``, of a later slice, must stay unset)."""
+    """Serving knobs (JAX ``EngineOptions``).  ``backend``: an attention
+    backend name or callable (the ring's, set by ``BatchServer``)."""
 
     nfe_step: int = 32
     cfg_strength: float = 2.0
     sway_sampling_coef: float | None = -1.0
     use_epss: bool = True
     ode_method: str = "euler"  # "euler" | "midpoint"
-    backend: str = "auto"  # attention backend
+    backend: object = "auto"  # attention backend: a name or a callable
     quantize: bool = False  # W8A8 int8 block linears (ops/quant.py, kernel G)
     time_parallel_window: int = 0  # W > 0: the Picard sampler, W steps per sweep
     picard_tol: float = 1e-3
-    convpos_taps: bool = False  # mesh-serving convpos: not ported yet
-
-    def __post_init__(self):
-        if self.convpos_taps:
-            raise NotImplementedError("EngineOptions.convpos_taps is not ported yet; "
-                                      "see ROADMAP.md")
+    convpos_taps: bool = False  # JAX's; the port's convpos is one function (docstring)
 
     def sample_opts(self) -> cfm.SampleOptions:
         return cfm.SampleOptions(steps=self.nfe_step, cfg_strength=self.cfg_strength,
@@ -159,11 +167,16 @@ def decode_wav(voc, vocoder_type: str, mel_out, lens, duration):
 
 @torch.inference_mode()
 def sample_and_decode(model, voc, model_cfg: ModelConfig, opts: EngineOptions, cond, text_ids,
-                      lens, duration, noise, decode: bool = True, vocoder_type: str = "vocos"):
-    """cond [b, n, d] in the compute dtype -> (mel [b, n, d], int16 wav [b, T] or None)."""
+                      lens, duration, noise, decode: bool = True, vocoder_type: str = "vocos",
+                      hooks=(None, None)):
+    """cond [b, n, d] in the compute dtype -> (mel [b, n, d], int16 wav [b, T] or None).
+    ``hooks``: (block_scan, activation_constraint), the engine's ``parallel_hooks``."""
+    if hooks[0] is not None:
+        raise NotImplementedError("the pipeline's block scan is the next slice of the port "
+                                  "(see ROADMAP.md)")
     mel_out = cfm.sample(model, model_cfg.arch, cond, text_ids, duration,
                          noise.to(cond.dtype), lens=lens, opts=opts.sample_opts(),
-                         backend=opts.backend)
+                         backend=opts.backend, activation_constraint=hooks[1])
     if not decode or voc is None:
         return mel_out, None
     return mel_out, decode_wav(voc, vocoder_type, mel_out, lens, duration)
@@ -183,13 +196,14 @@ def ref_cond(model_cfg: ModelConfig, wav_i16, wav_scale, lens, n: int, dtype):
 @torch.inference_mode()
 def sample_and_decode_from_wav(model, voc, model_cfg: ModelConfig, opts: EngineOptions, wav_i16,
                                wav_scale, lens, text_ids, duration, noise, n: int,
-                               decode: bool = True, vocoder_type: str = "vocos"):
+                               decode: bool = True, vocoder_type: str = "vocos",
+                               hooks=(None, None)):
     """Ref-audio mel extraction + sampling + vocoder.  ``wav_i16`` [b, S] is
     the host-reflect-padded ref wav at a ref-length bucket, ``wav_scale`` [b]
     its dequantization scale; ``noise`` [b, n, d]."""
     cond = ref_cond(model_cfg, wav_i16, wav_scale, lens, n, next(model.parameters()).dtype)
     return sample_and_decode(model, voc, model_cfg, opts, cond, text_ids, lens, duration, noise,
-                             decode=decode, vocoder_type=vocoder_type)
+                             decode=decode, vocoder_type=vocoder_type, hooks=hooks)
 
 
 _CAPTURES = itertools.count()  # workspace scope tokens, one per capture
@@ -263,12 +277,22 @@ class InferenceEngine:
         self.graphs: dict[tuple, CapturedGraph | CapturedPicard] = {}  # CUDA: one per call key
         self.last_sweeps: int | None = None  # the sweeps of the last Picard call on the card
         self._graph_lock = threading.Lock()
+        # (block_scan, activation_constraint) for mesh serving, set by
+        # BatchServer; in every graph's key (JAX :246-249)
+        self.parallel_hooks = (None, None)
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(self.device)
             self._stream = torch.cuda.Stream(self.device)  # every replay runs here
             self._scopes: list = []  # the graphs' kernel workspaces, dropped with the engine
             weakref.finalize(self, workspace.release_scopes, self._scopes)
+
+    def enable_time_parallel(self, mesh) -> None:
+        """JAX's Picard over a mesh (the window's rows over ``data``): the
+        next slice of the port; the single-device Picard sampler is
+        ``EngineOptions(time_parallel_window=W)``."""
+        raise NotImplementedError("Picard over a mesh is the next slice of the port (tensor "
+                                  "parallel, the pipeline and Picard over a mesh; see ROADMAP.md)")
 
     def _run(self, entry: str, args: tuple, decode: bool):
         """(mel, int16 wav | None) on the device for the request tensors
@@ -280,10 +304,10 @@ class InferenceEngine:
         opts = self.options
         n = args[-1].shape[1]  # the noise [b, n, d]
         call = self._call(entry, args, decode)
-        if self.device.type != "cuda":
-            return call(*args)
+        if self.device.type != "cuda" or self.parallel_hooks[1] is not None:
+            return call(*args)  # the sequence-parallel ring runs eagerly (module docstring)
         key = (entry, args[0].shape[0], n, args[0].shape[1] if entry == "wav" else None, decode,
-               self.dtype, opts)
+               self.dtype, opts, self.parallel_hooks)
         cur = torch.cuda.current_stream(self.device)
         with self._graph_lock, torch.inference_mode():
             g = self.graphs.get(key)
@@ -315,13 +339,14 @@ class InferenceEngine:
         returns its exported programs' instead)."""
         opts, n = self.options, args[-1].shape[1]
         model, voc, vt = self.model.transformer, self.vocoder, self.vocoder_type
+        hooks = self.parallel_hooks
 
         def call(*xs):
             if entry == "mel":
                 return sample_and_decode(model, voc, self.model_cfg, opts, *xs, decode=decode,
-                                         vocoder_type=vt)
+                                         vocoder_type=vt, hooks=hooks)
             return sample_and_decode_from_wav(model, voc, self.model_cfg, opts, *xs, n,
-                                              decode=decode, vocoder_type=vt)
+                                              decode=decode, vocoder_type=vt, hooks=hooks)
 
         return call
 

@@ -22,7 +22,16 @@ capturable (the engine captures the three parts as CUDA graphs).  The one
 departure from JAX, whose ``lax.while_loop`` keeps the loop on the device:
 the host reads the frozen count ``s`` once per sweep (a 4-byte copy) to
 decide whether to sweep again.  Picard over a mesh (JAX's
-``time_parallel_mesh``) is not ported.
+``time_parallel_mesh``) is the next slice (ROADMAP.md).
+
+``activation_constraint`` (``sample`` and ``loss``, JAX :189, 263-264,
+490, 565) is sequence parallelism's hook, handed to the backbone; DiT alone
+takes it, as in JAX.  Under data parallelism each rank's ``loss`` draws
+what the one-process run draws for its rows (``rows``: the draws are made
+for the whole batch and this rank's rows taken), and divides its sum by the
+count of selected elements over the whole batch (``count_group``: the
+count is summed over the data ranks, JAX :571-574), so the data ranks'
+gradients add up to the one-process gradient.
 
 The loss draws its randomness from explicit ``torch.Generator``s: the noise,
 times and span masks from one on the mel's device, the two CFG drop
@@ -205,10 +214,12 @@ def _setup(model, cfg, cond, text_ids, duration, noise, lens, opts, edit_mask, n
 
 
 def _velocity(model, cfg, opts, backend, x, step_cond, te_cond, te_uncond, time, mask, extra,
-              adaln_mods=None):
+              adaln_mods=None, activation_constraint=None):
     """The (guided) flow at ``x`` and per-row ``time``."""
     bb = get_backbone(cfg)
     kw = dict(extra) if adaln_mods is None else dict(extra, adaln_mods=adaln_mods)
+    if activation_constraint is not None:
+        kw["activation_constraint"] = activation_constraint
     if te_uncond is not None:
         pred, null = bb.forward_cfg(model, cfg, x, step_cond, te_cond, te_uncond, time,
                                     mask=mask, backend=backend, **kw)
@@ -225,8 +236,8 @@ def _finish(su: _Setup, y: torch.Tensor) -> torch.Tensor:
 def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torch.Tensor,
            duration: torch.Tensor, noise: torch.Tensor, lens: torch.Tensor | None = None,
            opts: SampleOptions = SampleOptions(), edit_mask: torch.Tensor | None = None,
-           no_ref_audio: bool = False, backend: str = "auto", duplicate_test: bool = False,
-           return_info: bool = False):
+           no_ref_audio: bool = False, backend="auto", duplicate_test: bool = False,
+           return_info: bool = False, activation_constraint=None):
     """CFM.sample (reference cfm.py:83-229) -> generated mel [b, n, d].
 
     cond [b, n, d]: reference mel zero-padded to the bucket length n;
@@ -240,6 +251,9 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
     if opts.ode_method not in ("euler", "midpoint"):
         raise ValueError(f"ode_method must be euler or midpoint, got {opts.ode_method!r}")
     if opts.time_parallel_window > 0:
+        if activation_constraint is not None:
+            raise ValueError("the Picard sampler runs on one device (JAX asserts the same, "
+                             "cfm.py:292)")
         run = picard_begin(model, cfg, cond, text_ids, duration, noise, lens, opts, edit_mask,
                            no_ref_audio, backend, duplicate_test)
         while int(run.s) < run.T:  # the host's stop test: one 4-byte read per sweep
@@ -259,7 +273,7 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
     def velocity(x, t_k, adaln_mods=None):
         time = torch.full((b,), float(t_k), dtype=torch.float32, device=dev).to(compute_dtype)
         return _velocity(model, cfg, opts, backend, x, su.step_cond, su.te_cond, su.te_uncond,
-                         time, su.mask, su.extra, adaln_mods)
+                         time, su.mask, su.extra, adaln_mods, activation_constraint)
 
     # the schedule is known ahead: every Euler step's AdaLN modulations in one
     # go, where the backbone has them as tables (DiT)
@@ -391,16 +405,31 @@ def picard_finish(run: PicardRun) -> torch.Tensor:
 
 
 
+def _draw(fn, shape, rows, dev):
+    """``fn(shape)`` for this rank's rows: drawn for the whole batch
+    (``rows`` = (first row, batch rows)) and this rank's rows taken, the
+    rows past the batch (the data-parallel padding) wrapping round."""
+    if rows is None:
+        return fn(shape)
+    start, total = rows
+    idx = (start + torch.arange(shape[0], device=dev)) % total
+    return fn((total, *shape[1:])).index_select(0, idx)
+
+
 def mask_from_frac_lengths(lens: torch.Tensor, length: int, generator: torch.Generator | None = None,
-                           frac_range=(0.7, 1.0)) -> torch.Tensor:
+                           frac_range=(0.7, 1.0), rows=None) -> torch.Tensor:
     """Random contiguous span covering a fraction in ``frac_range`` of each
-    row's length (reference model/utils.py:61-77) -> bool [b, length]."""
+    row's length (reference model/utils.py:61-77) -> bool [b, length].
+    ``rows``: as ``loss``'s."""
     b, dev = lens.shape[0], lens.device
-    frac = torch.rand((b,), generator=generator, device=dev) * (frac_range[1] - frac_range[0]) \
-        + frac_range[0]
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    frac = _draw(rand, (b,), rows, dev) * (frac_range[1] - frac_range[0]) + frac_range[0]
     span = (frac * lens).to(torch.int32)
     max_start = lens - span
-    start = (max_start * torch.rand((b,), generator=generator, device=dev)).to(torch.int32)
+    start = (max_start * _draw(rand, (b,), rows, dev)).to(torch.int32)
     start = start.clamp(min=0)
     pos = torch.arange(length, device=dev)[None, :]
     return (pos >= start[:, None]) & (pos < (start + span)[:, None])
@@ -410,8 +439,9 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
          lens: torch.Tensor, generator: torch.Generator | None = None,
          drop_generator: torch.Generator | None = None, audio_drop_prob: float = 0.3,
          cond_drop_prob: float = 0.2, frac_lengths_mask=(0.7, 1.0),
-         backend: str = "train_auto", valid: torch.Tensor | None = None,
-         inject: dict | None = None) -> torch.Tensor:
+         backend="train_auto", valid: torch.Tensor | None = None,
+         inject: dict | None = None, activation_constraint=None, rows=None,
+         count_group=None) -> torch.Tensor:
     """CFM training loss (reference cfm.py:231-302): flow-matching MSE over a
     random infilling span, with CFG condition drops.
 
@@ -420,6 +450,13 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
     overrides the draws: "x0" [b, n, d], "time" [b], "span_mask" [b, n] bool,
     "drop_audio" / "drop_both" bool.  ``valid`` [b] zeroes padded rows'
     contribution.  Returns the fp32 masked mean.
+
+    Data parallelism: ``rows`` = (this rank's first row in the padded global
+    batch, the global batch's real rows) makes the draws those of the
+    one-process run for these rows; ``count_group`` sums the count of
+    selected elements over the data ranks, so the return value is this
+    rank's share of the global mean.  ``activation_constraint``: the
+    sequence-parallel hook.
     """
     b, n, d = mel.shape
     dev = mel.device
@@ -427,17 +464,17 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
     mask = lens_to_mask(lens, n)
     span = inject.get("span_mask")
     if span is None:
-        span = mask_from_frac_lengths(lens, n, generator, frac_lengths_mask)
+        span = mask_from_frac_lengths(lens, n, generator, frac_lengths_mask, rows)
     span = span.to(dev) & mask
 
     x1 = mel
     x0 = inject.get("x0")
     if x0 is None:
-        x0 = torch.randn(x1.shape, generator=generator, device=dev)
+        x0 = _draw(lambda s: torch.randn(s, generator=generator, device=dev), x1.shape, rows, dev)
     x0 = x0.to(device=dev, dtype=x1.dtype)
     time = inject.get("time")
     if time is None:
-        time = torch.rand((b,), generator=generator, device=dev)
+        time = _draw(lambda s: torch.rand(s, generator=generator, device=dev), (b,), rows, dev)
     time = time.to(device=dev, dtype=x1.dtype)
 
     t = time[:, None, None]
@@ -463,13 +500,19 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
     te = torch.where(torch.tensor(drop_both, device=dev), te_uncond, te)
     cond_in = torch.zeros_like(cond) if drop_audio else cond
 
-    pred = bb.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend,
-                      **_stream_kwargs(cfg, text_ids))
+    kw = _stream_kwargs(cfg, text_ids)
+    if activation_constraint is not None:
+        kw["activation_constraint"] = activation_constraint
+    pred = bb.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend, **kw)
 
     sq = (pred - flow).square()
     w = span[..., None].float()
     if valid is not None:
         w = w * valid.to(dev).float()[:, None, None]
     total = (sq.float() * w).sum()
-    count = torch.clamp(w.sum() * d, min=1.0)
-    return total / count
+    count = w.sum() * d
+    if count_group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(count, group=count_group)
+    return total / torch.clamp(count, min=1.0)

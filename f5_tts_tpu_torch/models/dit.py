@@ -12,6 +12,13 @@ to end; with ``backend="train_auto"`` its attention runs the training
 kernels.  ``fuse_for_inference`` is the serving qkv fusion.  With
 ``checkpoint_activations`` each block runs under activation checkpointing
 with the config's ``remat_policy`` (``models/remat.py``; JAX :258-278).
+
+``activation_constraint`` (JAX :169-182, 222-282, 306-351) is sequence
+parallelism's hook (``parallel/sequence.make_seq_constraint``): ``forward``
+computes the input embedding on all frames, calls the hook once to keep
+this rank's frames, runs the blocks on them with the mask and the RoPE
+table sliced alike (RoPE at global positions), and all-gathers the output
+frames (``hook.gather``).  The blocks' attention is then the ring backend.
 """
 
 from __future__ import annotations
@@ -154,12 +161,14 @@ def precompute_adaln(model: DiT, cfg: DiTConfig, times: torch.Tensor, dtype=torc
 
 
 def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
-            drop_audio_cond: bool = False, backend: str = "auto", adaln_mods=None):
+            drop_audio_cond: bool = False, backend="auto", adaln_mods=None,
+            activation_constraint=None):
     """DiT forward with the text embedding precomputed -> flow [b, n, mel_dim].
 
     ``adaln_mods``: optional (block_mods [depth, 6 dim], final_mod [2 dim])
     from ``precompute_adaln`` for one shared timestep, or per row
     ([depth, b, 6 dim], [b, 2 dim]); ``time`` is then unused.
+    ``activation_constraint``: the sequence-parallel hook (module docstring).
     """
     b, n, _ = x.shape
     if adaln_mods is None:
@@ -170,6 +179,11 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
         t_emb = None
     h = input_embedding(model, x, cond, text_emb, drop_audio_cond=drop_audio_cond, mask=mask)
     rope = device_table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
+    seq = activation_constraint
+    if seq is not None:  # this rank's frames from here to the gather
+        h = seq(h)
+        rope = seq.shard(rope, dim=0)
+        mask = None if mask is None else seq.shard(mask, dim=1)
     residual = h if cfg.long_skip_connection else None
 
     def block(blk, h, t_emb, mod):
@@ -186,21 +200,23 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
         h = L.adaln_final_from_mod(adaln_mods[1].to(h.dtype), h)
     else:
         h = L.adaln_final(model.norm_out, h, t_emb)
-    return L.linear(model.proj_out, h)
+    out = L.linear(model.proj_out, h)
+    return out if seq is None else seq.gather(out)
 
 
 def forward_with_text(model: DiT, cfg: DiTConfig, x, cond, text_ids, time, mask=None, lens=None,
                       drop_audio_cond: bool = False, drop_text: bool = False,
-                      backend: str = "auto"):
+                      backend="auto", activation_constraint=None):
     """Training-path forward (JAX ``forward_with_text``, dit.py:293-316):
     the text encoder runs inline with the drop flags."""
     te = text_embedding(model, cfg, text_ids, x.shape[1], lens=lens, drop_text=drop_text)
     return forward(model, cfg, x, cond, te.to(x.dtype), time, mask=mask,
-                   drop_audio_cond=drop_audio_cond, backend=backend)
+                   drop_audio_cond=drop_audio_cond, backend=backend,
+                   activation_constraint=activation_constraint)
 
 
 def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_emb_uncond, time,
-                mask=None, backend: str = "auto", adaln_mods=None):
+                mask=None, backend="auto", adaln_mods=None, activation_constraint=None):
     """Fused classifier-free guidance: cond and uncond rows as one 2B batch
     (reference cfg_infer, dit.py:337-346).  Returns (pred, null_pred)."""
     b = x.shape[0]
@@ -217,7 +233,7 @@ def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_em
         adaln_mods = (torch.cat([adaln_mods[0], adaln_mods[0]], dim=1),
                       torch.cat([adaln_mods[1], adaln_mods[1]], dim=0))
     out = forward(model, cfg, x2, cond2, te2, t2, mask=mask2, backend=backend,
-                  adaln_mods=adaln_mods)
+                  adaln_mods=adaln_mods, activation_constraint=activation_constraint)
     return out[:b], out[b:]
 
 

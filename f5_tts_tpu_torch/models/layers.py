@@ -169,6 +169,12 @@ def conv_pos_embed(p: ConvPositionEmbedding, x, mask=None):
                           taps=p.taps)
 
 
+# JAX ``conv_pos_embed_taps`` (:238-250): the per-tap form that JAX switches
+# on over a data mesh.  Kernel B already reads the weights tap by tap, and its
+# plain version is the CPU's, so the port has one function for both.
+conv_pos_embed_taps = conv_pos_embed
+
+
 def sinus_pos_embed(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
     """SinusPositionEmbedding (modules.py:157-169): [b] -> [b, dim], cat(sin, cos)."""
     half = dim // 2

@@ -8,8 +8,12 @@ tensors, its plain version for CPU tensors); ``"flash_train"`` and
 ``"train_auto"`` go to its differentiable ``flash_attention_trainable``
 (kernels C, D, E, or their plain versions under the same autograd
 Function); ``"sdpa"`` runs the plain ``sdpa`` only when the caller names it.
-``mask`` is a prefix (length) mask [b, n].  The ``"chunked"`` backend and
-callable backends (ring attention) are not ported.
+``"chunked"`` is JAX's ``chunked_attention`` (:39-80): a plain,
+differentiable online-softmax scan over 512-key chunks, which gives
+``sdpa`` when the chunk does not divide n, as JAX's does.  A callable
+backend ``(q, k, v, mask) -> o`` is called as is (:90-91): the ring
+attention of ``parallel/ring.py``.  ``mask`` is a prefix (length) mask
+[b, n].
 """
 
 from __future__ import annotations
@@ -32,14 +36,43 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def attention(q, k, v, mask=None, backend: str = "auto"):
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor | None = None, chunk: int = 512) -> torch.Tensor:
+    """Online softmax over key chunks, never the [n, n] scores; autograd
+    through the loop is the recomputing backward (JAX ``chunked_attention``)."""
+    b, h, n, d = q.shape
+    if n % chunk != 0:
+        return sdpa(q, k, v, mask)
+    scale = d ** -0.5
+    m = torch.full((b, h, n, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, n, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+    for j in range(0, n, chunk):
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, j:j + chunk]).float() * scale
+        if mask is not None:
+            s = torch.where(mask[:, None, None, j:j + chunk], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype),
+                                         v[:, :, j:j + chunk]).float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def attention(q, k, v, mask=None, backend="auto"):
+    if callable(backend):
+        return backend(q, k, v, mask)
     if backend == "sdpa":
         return sdpa(q, k, v, mask)
+    if backend == "chunked":
+        return chunked_attention(q, k, v, mask)
     if backend in ("flash_train", "train_auto"):
         return flash_attention_trainable(q, k, v, mask)
     if backend not in ("auto", "flash"):
         raise ValueError(f"unknown attention backend {backend!r} "
-                         "(auto | flash | flash_train | train_auto | sdpa)")
+                         "(auto | flash | flash_train | train_auto | sdpa | chunked | a callable)")
     b, _, n, _ = q.shape
     if mask is None:
         lens = torch.full((b,), n, dtype=torch.int32, device=q.device)

@@ -10,10 +10,19 @@ random batch: one untimed micro-step, then ``iters`` timed ones.
         [bucket] [accum] [model] [device] [iters]
 
 backend: an ``ops/attention.py`` backend, ``train_auto`` by default (kernels
-C, D, E on the card).  JAX's default, ``chunked``, is not ported and raises
-as ``attention`` does.  policy: a ``models/remat.py`` policy, or ``none``
-for no activation checkpointing (default ``nothing``, as JAX).  model: any
-``MODEL_CONFIGS`` name.  device: ``cuda`` (default) or ``cpu``.
+C, D, E on the card); JAX's default, ``chunked``, is the plain online-softmax
+scan.  policy: a ``models/remat.py`` policy, or ``none`` for no activation
+checkpointing (default ``nothing``, as JAX).  model: any ``MODEL_CONFIGS``
+name.  device: ``cuda`` (default) or ``cpu``.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank joins the group and runs
+data-parallel steps on its own b rows of a global batch of
+``WORLD_SIZE * b`` (gradients summed over the ranks, ``train/step.py``);
+rank 0 prints the line, per card as before, with ``world_size`` added.
+Ranks that share one card share its time: only one rank per card gives a
+scaling figure.
+
+    torchrun --nproc_per_node=4 -m f5_tts_tpu_torch.scripts.bench_train 8 bf16
 
 MFU counts ``utils/flops.py`` ``train_step_flops`` (fwd + bwd = 3x the
 forward, remat recompute not counted) against the H100's bf16 peak.
@@ -54,6 +63,20 @@ def main(argv=None) -> dict:
     dev = resolve_device(arg(7, None), "bench_train")
     iters = int(arg(8, 10))
     nt = 256
+    import os
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    par = {}
+    if world > 1:
+        import torch.distributed as dist
+
+        from f5_tts_tpu_torch.parallel.distributed import init_distributed
+
+        topo = init_distributed(device=arg(7, None))
+        dev = torch.device(topo["device"])
+        rank = dist.get_rank()
+        par = dict(rows=(rank * b, world * b), data_group=dist.group.WORLD,
+                   grad_group=dist.group.WORLD)
 
     # "none" = no activation checkpointing at all (every activation kept)
     arch = dataclasses.replace(MODEL_CONFIGS[model_name].arch,
@@ -75,13 +98,14 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    micro, m = train_step(model, opt, ema, 0, batch, 1, opt_cfg, backend=backend)
+    micro, m = train_step(model, opt, ema, 0, batch, 1, opt_cfg, backend=backend, **par)
     loss = float(m["loss"])
     print(f"first step: {time.perf_counter() - t0:.1f}s, loss {loss:.4f}", file=sys.stderr)
     sync()
     t0 = time.perf_counter()
     for i in range(iters):
-        micro, m = train_step(model, opt, ema, micro, batch, 2 + i, opt_cfg, backend=backend)
+        micro, m = train_step(model, opt, ema, micro, batch, 2 + i, opt_cfg, backend=backend,
+                              **par)
     sync()
     dt = (time.perf_counter() - t0) / iters
     frames_s = b * n / dt
@@ -95,6 +119,10 @@ def main(argv=None) -> dict:
     print(f"MFU: {tflops:.1f} TFLOP/s = {mfu_pct:.1f}% of the H100 bf16 peak", file=sys.stderr)
     rec = {"metric": "train_frames_per_s", "value": round(frames_s), "unit": "frames/s/chip",
            "model_tflops_per_s": round(tflops, 1), "mfu_pct": round(mfu_pct, 1)}
+    if world > 1:
+        rec["world_size"] = world
+        if torch.distributed.get_rank() != 0:
+            return rec
     print(json.dumps(rec))
     return rec
 

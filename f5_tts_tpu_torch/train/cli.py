@@ -3,9 +3,17 @@
 JAX counterpart: ``f5_tts_tpu/train/cli.py:14-206``.  Reads the reference
 YAML schema (``configs/*.yaml``) through a stdlib subset parser, or a
 builtin config, applies hydra-style dotted overrides and runs the
-``Trainer`` on the card (``--device cuda``, the default).  Parallel layouts
-(``--tensor_parallel``, ``--pipeline_parallel``, ``--sequence_parallel``,
-``--zero1``) are not ported and raise above 1.  ``--pretrain`` loads a
+``Trainer`` on the card (``--device cuda``, the default).  Under
+``torchrun`` (``WORLD_SIZE`` > 1) every process joins the group
+(``parallel/distributed.init_distributed``) and the trainer gets a mesh of
+``WORLD_SIZE / S`` data ranks by ``S = --sequence_parallel`` seq ranks, as
+JAX :159-190; ``--zero1`` shards AdamW's moments over the data ranks.
+``--tensor_parallel`` and ``--pipeline_parallel`` above 1 (and
+``--pipeline_microbatches``) are the next slice and raise.
+
+    torchrun --nproc_per_node=4 -m f5_tts_tpu_torch.train.cli --sequence_parallel 2 --zero1
+
+``--pretrain`` loads a
 reference ``.pt`` / ``.safetensors`` checkpoint or a JAX-layout ``.npz``.
 The dataset comes from ``data/<name>_<tokenizer>/``
 (``train/dataset.load_dataset``).
@@ -118,10 +126,16 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*", metavar="[++]section.key=value",
                    help="hydra-style dotted overrides over the YAML / builtin config")
     args = p.parse_args(argv)
-    if (args.tensor_parallel > 1 or args.pipeline_parallel > 1 or args.sequence_parallel > 1
-            or args.pipeline_microbatches or args.zero1):
-        raise SystemExit("parallel training layouts are not ported to the PyTorch package yet "
-                         "(see ROADMAP.md)")
+    if args.tensor_parallel > 1 or args.pipeline_parallel > 1 or args.pipeline_microbatches:
+        raise SystemExit("tensor and pipeline parallel training are not ported yet: they are the "
+                         "next slice of the port (see ROADMAP.md)")
+    import os
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world % args.sequence_parallel:
+        raise SystemExit(f"--sequence_parallel {args.sequence_parallel} needs a multiple of "
+                         f"{args.sequence_parallel} processes (torchrun --nproc_per_node); "
+                         f"WORLD_SIZE is {world}")
 
     import torch
 
@@ -145,6 +159,13 @@ def main(argv=None):
     datasets_cfg = ycfg.get("datasets", {})
     ckpts_cfg = ycfg.get("ckpts", {})
 
+    mesh = None
+    if world > 1:  # JAX :159-168: data = world / (tp * pp * sp)
+        from f5_tts_tpu_torch.parallel.distributed import init_distributed
+        from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
+
+        init_distributed(device=args.device)
+        mesh = make_train_mesh(data=world // args.sequence_parallel, seq=args.sequence_parallel)
     dataset_name = datasets_cfg.get("name", args.dataset_name)
     vocab, vocab_size = get_tokenizer(dataset_name, model_cfg.tokenizer)
     model_cfg = with_vocab_size(model_cfg, vocab_size)
@@ -167,7 +188,10 @@ def main(argv=None):
         keep_last_n_checkpoints=ckpts_cfg.get("keep_last_n_checkpoints", -1),
         last_per_updates=ckpts_cfg.get("last_per_updates", 5_000),
         logger=ckpts_cfg.get("logger"),
+        mesh=mesh,
         seed=666,
+        zero1=args.zero1,
+        sequence_parallel=args.sequence_parallel > 1,
         device=args.device,
     )
     dataset = load_dataset(dataset_name, model_cfg.tokenizer, mel_cfg=model_cfg.mel,

@@ -19,6 +19,20 @@ flow back through the cast and arrive in fp32.  A wav batch (the trainer's
 ``mel_in_graph``) carries int16 waveforms that the step dequantizes and
 turns into the log-mel on the device (``ops/mel.log_mel_prepadded``), as
 JAX ``train_step`` does (:119-127).
+
+Over a mesh (``train/trainer.py``) each rank's loss is its share of the
+global mean (``cfm.loss``'s ``rows`` and ``count_group``), and the step
+sums the gradients over the data (and seq) ranks before the global-norm
+clip, in flat buckets (``all_reduce_sum_``: JAX's XLA all-reduce made
+explicit).  ``Optimizer(zero1_group=...)`` is ZeRO-1: every rank holds the
+whole summed gradients, updates AdamW's moments and parameters for its
+rows of each tensor whose leading axis divides by the data size
+(``parallel/mesh.zero1_state_specs``; the others on every rank), then the
+updated rows go to every rank (a broadcast per owner).  Its ``state_dict``
+gathers the moments into the one-device layout, and ``load_state_dict``
+takes that layout and keeps this rank's rows, so a checkpoint resumes under
+any data-parallel size.  The EMA runs on every rank, on identical
+parameters.
 """
 
 from __future__ import annotations
@@ -27,7 +41,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.distributed.tensor import Shard
+
+from f5_tts_tpu_torch.parallel.mesh import shard_rows, zero1_state_specs
 
 
 @dataclass(frozen=True)
@@ -168,16 +186,68 @@ class Adafactor(torch.optim.Optimizer):
                    for t in st.values() if torch.is_tensor(t))
 
 
+def all_reduce_sum_(tensors, group, bucket_elems: int = 1 << 24) -> None:
+    """Sum ``tensors`` in place over ``group``, in flat buckets of at most
+    ``bucket_elems`` elements of one dtype (one collective per bucket)."""
+    bucket: list[torch.Tensor] = []
+
+    def flush():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        bucket.clear()
+
+    size = 0
+    for t in tensors:
+        if bucket and (size + t.numel() > bucket_elems or t.dtype != bucket[0].dtype):
+            flush()
+            size = 0
+        bucket.append(t)
+        size += t.numel()
+    if bucket:
+        flush()
+
+
+def gather_rows_(full: torch.Tensor, group) -> None:
+    """Give every rank of ``group`` all of ``full``'s rows, rank r holding
+    the r-th contiguous block of them (``parallel/mesh.shard_rows``): one
+    broadcast per owner, which NCCL and gloo (CUDA tensors too) both carry."""
+    dp = dist.get_world_size(group)
+    for r in range(dp):
+        dist.broadcast(shard_rows(full, r, dp), src=dist.get_global_rank(group, r), group=group)
+
+
 class Optimizer:
     """Clip + AdamW or Adafactor with gradient accumulation (``make_optimizer``'s
-    chain).  ``inner`` is the torch optimizer, ``scheduler`` its LambdaLR."""
+    chain).  ``inner`` is the torch optimizer, ``scheduler`` its LambdaLR.
+    ``zero1_group``: the data ranks' group, for ZeRO-1 (module docstring;
+    AdamW only)."""
 
-    def __init__(self, params: list[nn.Parameter], cfg: OptimConfig):
+    def __init__(self, params: list[nn.Parameter], cfg: OptimConfig, zero1_group=None):
         self.cfg = cfg
         self.params = list(params)
         self.k = max(cfg.grad_accumulation_steps, 1)
+        self.zero1_group = zero1_group if (zero1_group is not None
+                                           and dist.get_world_size(zero1_group) > 1) else None
+        targets = self.params
+        if self.zero1_group is not None:
+            if cfg.optimizer != "adamw":
+                raise NotImplementedError(
+                    "ZeRO-1 shards AdamW's moments; Adafactor's factored moments are rows and "
+                    "columns of whole matrices, and its ZeRO-1 is not ported (see ROADMAP.md)")
+            self.dp = dist.get_world_size(self.zero1_group)
+            self.rank = dist.get_rank(self.zero1_group)
+            self.sharded = [isinstance(sp, Shard)
+                            for sp in zero1_state_specs(self.params, dp=self.dp)]
+            # leaf views of each parameter's rows: AdamW updates them in place
+            targets = [shard_rows(p.detach(), self.rank, self.dp) if sh else p.detach()
+                       for p, sh in zip(self.params, self.sharded)]
+        self.targets = targets
         if cfg.optimizer == "adamw":
-            self.inner = torch.optim.AdamW(self.params, lr=cfg.learning_rate, betas=cfg.betas,
+            self.inner = torch.optim.AdamW(targets, lr=cfg.learning_rate, betas=cfg.betas,
                                            eps=cfg.eps, weight_decay=cfg.weight_decay)
         elif cfg.optimizer == "adafactor":
             self.inner = Adafactor(self.params, lr=cfg.learning_rate,
@@ -205,11 +275,57 @@ class Optimizer:
         if self.k > 1:
             torch._foreach_div_(acc, float(self.k))
         clip_by_global_norm_(acc, self.cfg.max_grad_norm)
+        if self.zero1_group is not None:
+            for t, p, sh in zip(self.targets, self.params, self.sharded):
+                t.grad = shard_rows(p.grad, self.rank, self.dp) if sh else p.grad
         self.inner.step()
         self.scheduler.step()
+        if self.zero1_group is not None:
+            for t, p, sh in zip(self.targets, self.params, self.sharded):
+                t.grad = None
+                if sh:
+                    gather_rows_(p.data, self.zero1_group)
         for p in self.params:
             p.grad = None
         return True
+
+    def state_dict(self) -> dict:
+        """The inner optimizer's state dict in the one-device layout: under
+        ZeRO-1 the moments' rows gathered from every data rank (a collective:
+        every rank calls it)."""
+        sd = self.inner.state_dict()
+        if self.zero1_group is None:
+            return sd
+        state = dict(sd["state"])
+        for i, sh in enumerate(self.sharded):
+            if sh and i in state:
+                st = dict(state[i])
+                for key in ("exp_avg", "exp_avg_sq"):
+                    part = st[key]
+                    full = part.new_empty((part.shape[0] * self.dp, *part.shape[1:]))
+                    shard_rows(full, self.rank, self.dp).copy_(part)
+                    gather_rows_(full, self.zero1_group)
+                    st[key] = full
+                state[i] = st
+        return dict(sd, state=state)
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a one-device-layout state dict (``state_dict``'s); under
+        ZeRO-1 this rank keeps its rows of each sharded moment."""
+        if self.zero1_group is not None:
+            state = dict(sd["state"])
+            for i, sh in enumerate(self.sharded):
+                if sh and i in state:
+                    state[i] = dict(state[i], **{
+                        key: shard_rows(state[i][key], self.rank, self.dp).clone()
+                        for key in ("exp_avg", "exp_avg_sq")})
+            sd = dict(sd, state=state)
+        self.inner.load_state_dict(sd)
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds on its device."""
+        return sum(t.numel() * t.element_size() for st in self.inner.state.values()
+                   for t in st.values() if torch.is_tensor(t))
 
     def accumulation_state(self) -> dict | None:
         """The gradients summed so far between updates (None at a boundary),
@@ -224,8 +340,8 @@ class Optimizer:
             p.grad = None if state is None else state["grads"][i].to(p.device)
 
 
-def make_optimizer(params, cfg: OptimConfig) -> Optimizer:
-    return Optimizer(params, cfg)
+def make_optimizer(params, cfg: OptimConfig, zero1_group=None) -> Optimizer:
+    return Optimizer(params, cfg, zero1_group=zero1_group)
 
 
 @torch.no_grad()
@@ -258,8 +374,9 @@ def batch_mel(batch: dict, mel_cfg=None) -> torch.Tensor:
 
 
 def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, micro: int,
-               batch: dict, seed: int, opt_cfg: OptimConfig, backend: str = "train_auto",
-               mel_cfg=None):
+               batch: dict, seed: int, opt_cfg: OptimConfig, backend="train_auto",
+               mel_cfg=None, activation_constraint=None, rows=None, data_group=None,
+               grad_group=None):
     """One micro-step on ``model`` (a ``models.cfm.CFM``): loss and gradients,
     the optimizer (an update on every k-th micro-step) and the EMA.
 
@@ -269,13 +386,19 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, mic
     ``seed`` seeds this micro-step's generators.  Returns (micro + 1,
     metrics) with "loss" and "grad_norm" (of this micro-step's gradients,
     before clipping) as device scalars.
+
+    Over a mesh: ``rows`` and ``data_group`` go to ``cfm.loss`` (its
+    ``rows`` and ``count_group``); ``grad_group`` (data x seq) sums the
+    gradients; the reported loss is summed over ``data_group``, the global
+    mean.  ``activation_constraint``: the sequence-parallel hook.
     """
     mel = batch_mel(batch, mel_cfg)
     gen = torch.Generator(device=mel.device).manual_seed(seed)
     drop_gen = torch.Generator().manual_seed(seed)
     named = dict(model.named_parameters())
     args = (batch["text_ids"], batch["lens"])
-    kw = dict(generator=gen, drop_generator=drop_gen, backend=backend, valid=batch.get("valid"))
+    kw = dict(generator=gen, drop_generator=drop_gen, backend=backend, valid=batch.get("valid"),
+              activation_constraint=activation_constraint, rows=rows, count_group=data_group)
     if opt_cfg.mixed_precision:
         low = {k: p.to(torch.bfloat16) if p.is_floating_point() else p for k, p in named.items()}
         loss = torch.func.functional_call(model, low, (mel.to(torch.bfloat16), *args), kw)
@@ -283,9 +406,14 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, mic
         loss = model(mel, *args, **kw)
     params = list(named.values())
     grads = torch.autograd.grad(loss, params)
+    loss = loss.detach()
+    if grad_group is not None:
+        all_reduce_sum_(grads, grad_group)
+        if data_group is not None:
+            dist.all_reduce(loss, group=data_group)
     gnorm = global_norm(grads)
     did_update = optimizer.step(grads)
     micro += 1
     if did_update:
         ema_update(list(ema_model.parameters()), params, micro // optimizer.k, opt_cfg)
-    return micro, {"loss": loss.detach(), "grad_norm": gnorm}
+    return micro, {"loss": loss, "grad_norm": gnorm}

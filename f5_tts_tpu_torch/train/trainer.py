@@ -28,10 +28,32 @@ JAX counterpart: ``f5_tts_tpu/train/trainer.py:51-609``.  What it keeps:
   model)`` at each save.
 
 Each micro-step's generators are seeded from ``(seed, micro_step)`` alone,
-so a resumed run draws what an uninterrupted one draws.  The mesh modes
-(``mesh``, ``zero1``, ``tensor_parallel``, ``pipeline_microbatches``,
-``sequence_parallel``) and ``convpos_taps`` are not ported and raise.  The
-trainer runs on the card: ``device=None`` means ``"cuda"``.
+so a resumed run draws what an uninterrupted one draws.  The trainer runs
+on the card: ``device=None`` means ``"cuda"``.
+
+Over a mesh (``parallel/mesh.make_train_mesh``, one process per device,
+started by ``parallel/distributed.init_distributed``), as JAX :121-125,
+434-470, 505-530:
+
+- every rank walks the same sampler order; each data rank collates only
+  its contiguous rows of each global batch, padded to a multiple of the
+  data size with ``valid = 0`` duplicates and to the batch's global padded
+  width, so every rank has the same shapes and draws for its rows what the
+  one-process run draws there (``cfm.loss`` ``rows``); the gradients are
+  summed over the data (and seq) ranks before the clip (``train/step.py``);
+- ``zero1`` shards AdamW's moments over ``data`` (``train/step.Optimizer``);
+  a checkpoint holds them gathered, so it resumes under any data size;
+- ``sequence_parallel`` splits the frames over ``seq`` on ring attention
+  (``parallel/sequence.py``, ``parallel/ring.py``): DiT only, as in JAX,
+  whose UNetT and MMDiT take no activation constraint;
+- ``convpos_taps`` is accepted for JAX's signature and routes nothing: JAX's
+  per-tap ConvPositionEmbedding is the function that kernel B and its plain
+  version already compute (``models/layers.conv_pos_embed_taps``);
+- rank 0 writes the checkpoints, the JSONL log and the loggers; a SIGTERM
+  on any rank makes every rank save and stop at the same micro-step.
+
+``tensor_parallel`` and ``pipeline_microbatches`` are the next slice and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,13 +72,16 @@ import numpy as np
 import torch
 
 from f5_tts_tpu_torch.models.remat import resolve_remat_policy
+from f5_tts_tpu_torch.parallel import mesh as M
+from f5_tts_tpu_torch.parallel.distributed import process_batch_slice
 from f5_tts_tpu_torch.train.dataset import (DynamicBatchSampler, SampleBatchSampler,
-                                            collate_batch, collate_wav_batch)
+                                            collate_batch, collate_wav_batch, pad_frames_to)
 from f5_tts_tpu_torch.train.step import OptimConfig, make_optimizer, train_step
 from f5_tts_tpu_torch.utils.ckpt import CheckpointWriter, train_checkpoint
 from f5_tts_tpu_torch.utils.device import resolve_device
 
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+_NEXT_SLICE = ("is the next slice of the port (tensor parallel, the pipeline and Picard over a "
+               "mesh; see ROADMAP.md)")
 
 
 def micro_step_seed(seed: int, micro: int) -> int:
@@ -93,13 +118,28 @@ class Trainer:
         device: str | None = None,
         log_every_updates: int = 10,  # the JSONL log's cadence (and update 1)
     ):
-        for name, value in (("mesh", mesh is not None), ("zero1", zero1),
-                            ("tensor_parallel", tensor_parallel),
-                            ("pipeline_microbatches", pipeline_microbatches),
-                            ("sequence_parallel", sequence_parallel),
-                            ("convpos_taps", convpos_taps)):
+        for name, value in (("tensor_parallel", tensor_parallel),
+                            ("pipeline_microbatches", pipeline_microbatches)):
             if value:
-                raise NotImplementedError(f"Trainer({name}=...) {_NOT_PORTED}")
+                raise NotImplementedError(f"Trainer({name}=...) {_NEXT_SLICE}")
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py), "
+                                f"got {type(mesh).__name__}")
+        mesh_axes = set(mesh.mesh_dim_names) if mesh is not None else set()
+        if M.axis_size(mesh, M.MODEL_AXIS) > 1 or M.PIPE_AXIS in mesh_axes:
+            raise NotImplementedError(f"a mesh with a model or pipe axis {_NEXT_SLICE}")
+        self.mesh = mesh
+        self.dp = M.axis_size(mesh, M.DATA_AXIS)
+        self.sequence_parallel = bool(sequence_parallel) and M.SEQ_AXIS in mesh_axes
+        if self.sequence_parallel and model_cfg.arch.backbone != "DiT":
+            raise ValueError(f"sequence_parallel runs DiT only ({model_cfg.arch.backbone} takes "
+                             "no activation constraint, in JAX either)")
+        self.zero1 = bool(zero1) and self.dp > 1
+        self.convpos_taps = bool(convpos_taps)  # routes nothing (module docstring)
+        self.is_main = mesh is None or torch.distributed.get_rank() == 0
         if logger not in (None, "wandb", "tensorboard"):
             raise ValueError(f"unknown logger {logger!r} (wandb | tensorboard)")
         if grad_accumulation_steps > 1 and opt_cfg.grad_accumulation_steps == 1:
@@ -122,6 +162,7 @@ class Trainer:
         self.log_every_updates = log_every_updates
         self.mel_in_graph = mel_in_graph
         self.writer = CheckpointWriter()
+        self._groups = None  # (data, data x seq) process groups, made in train()
         os.makedirs(ckpt_dir, exist_ok=True)
         self.log_file = log_file or os.path.join(ckpt_dir, "train_log.jsonl")
         self.wandb = None
@@ -156,7 +197,10 @@ class Trainer:
         """Start the write of ``model_{update}.pt`` (or ``model_last.pt``);
         the rotation of the numbered files runs after it, on the writer."""
         acc = optimizer.accumulation_state()
-        obj = train_checkpoint(model, ema_model, optimizer.inner.state_dict(),
+        opt_state = optimizer.state_dict()  # under ZeRO-1 a gather: every rank calls it
+        if not self.is_main:
+            return
+        obj = train_checkpoint(model, ema_model, opt_state,
                                optimizer.scheduler.state_dict(), micro, update,
                                extra=None if acc is None else {"grad_accumulation": acc})
         rotate = not last and self.keep_last_n_checkpoints >= 0
@@ -183,6 +227,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ log
     def _log(self, rec: dict) -> None:
+        if not self.is_main:
+            return
         with open(self.log_file, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if self.wandb is not None and getattr(self.wandb, "run", None):
@@ -235,7 +281,12 @@ class Trainer:
             self.opt_cfg = dataclasses.replace(self.opt_cfg, total_updates=total)
         model = model.to(self.device)
         ema_model = copy.deepcopy(model).requires_grad_(False)
-        optimizer = make_optimizer(list(model.parameters()), self.opt_cfg)
+        if self.mesh is not None and self._groups is None:
+            self._groups = (M.axis_group(self.mesh, M.DATA_AXIS), M.mesh_group(self.mesh))
+        data_group, grad_group = self._groups or (None, None)
+        optimizer = make_optimizer(list(model.parameters()), self.opt_cfg,
+                                   zero1_group=data_group if self.zero1 else None)
+        self.optimizer = optimizer  # the last run's, for inspection
         micro = 0
         if resume:
             ckpt = self.load_checkpoint()
@@ -244,7 +295,7 @@ class Trainer:
                 ema_model.load_state_dict({k[len("ema_model."):]: v
                                            for k, v in ckpt["ema_model_state_dict"].items()
                                            if k.startswith("ema_model.")})
-                optimizer.inner.load_state_dict(ckpt["optimizer_state_dict"])
+                optimizer.load_state_dict(ckpt["optimizer_state_dict"])
                 optimizer.scheduler.load_state_dict(ckpt["scheduler_state_dict"])
                 optimizer.load_accumulation_state(ckpt.get("grad_accumulation"))
                 micro = int(ckpt["step"])
@@ -271,39 +322,62 @@ class Trainer:
 
         mel_cfg = self.model_cfg.mel
 
+        def collate(idx, **kw):
+            if self.mel_in_graph:  # JAX trainer.py:468-490
+                return collate_wav_batch(dataset.wav_batch(idx), self.vocab,
+                                         self.model_cfg.tokenizer, mel_cfg, **kw)
+            return collate_batch([dataset[i] for i in idx], self.vocab,
+                                 self.model_cfg.tokenizer, **kw)
+
         def produce(skip_n: int, out_q: queue.Queue):
             for bi, idx in enumerate(sampler):
                 if bi < skip_n:
                     continue
-                if self.mel_in_graph:  # JAX trainer.py:468-490
-                    out_q.put(collate_wav_batch(dataset.wav_batch(idx), self.vocab,
-                                                self.model_cfg.tokenizer, mel_cfg))
-                else:
-                    items = [dataset[i] for i in idx]
-                    out_q.put(collate_batch(items, self.vocab, self.model_cfg.tokenizer))
+                if self.mesh is None:
+                    out_q.put((collate(idx), len(idx), None))
+                    continue
+                # this data rank's rows of the global batch (JAX :434-470):
+                # padded to a multiple of dp with valid = 0 duplicates, at the
+                # global padded width from the sampler's metadata
+                b_real, idx = len(idx), list(idx)
+                idx += [idx[i % b_real] for i in range(-b_real % self.dp)]
+                n_global = pad_frames_to(
+                    max(int(math.ceil(dataset.get_frame_len(i))) for i in idx), 256)
+                start, size = process_batch_slice(len(idx), self.mesh)
+                local = collate(idx[start:start + size], mel_len=n_global, text_len=n_global)
+                local["valid"] = (np.arange(start, start + size) < b_real).astype(np.float32)
+                out_q.put((local, b_real, (start, b_real)))
             out_q.put(None)
 
         def upload(in_q: queue.Queue, out_q: queue.Queue):
             while True:
-                batch = in_q.get()
-                if batch is None:
+                got = in_q.get()
+                if got is None:
                     out_q.put(None)
                     return
+                batch, b_real, rows = got
                 if "mel" in batch:
-                    b_real, n_frames = batch["mel"].shape[:2]
+                    n_frames = batch["mel"].shape[1]
                 else:  # the wav bucket S = (n - 1) * hop + n_fft
-                    b_real = batch["wav"].shape[0]
                     n_frames = (batch["wav"].shape[1] - mel_cfg.n_fft) // mel_cfg.hop_length + 1
-                valid_frames = int(batch["lens"].sum())
+                # this rank's real rows' frames (the log sums them over the data ranks)
+                valid_frames = int((batch["lens"] * batch.get("valid", 1)).sum())
                 tensors = {}
                 for key, arr in batch.items():
                     t = torch.from_numpy(np.ascontiguousarray(arr))
                     if cuda:
                         t = t.pin_memory().to(self.device, non_blocking=True)
                     tensors[key] = t
-                out_q.put((tensors, b_real, n_frames, valid_frames))
+                out_q.put((tensors, b_real, n_frames, valid_frames, rows))
 
         state = (model, ema_model, optimizer)
+        seq, backend = None, "train_auto"
+        if self.sequence_parallel:  # JAX :148-170: the seq hook and ring attention
+            from f5_tts_tpu_torch.parallel.ring import make_ring_attention
+            from f5_tts_tpu_torch.parallel.sequence import make_seq_constraint
+
+            seq = make_seq_constraint(self.mesh)
+            backend = make_ring_attention(self.mesh, block_impl="auto")
         for epoch in range(start_epoch, epochs):
             sampler.set_epoch(epoch)
             q1: queue.Queue = queue.Queue(maxsize=4)
@@ -317,11 +391,13 @@ class Trainer:
                     if errors:
                         raise errors[0]
                     break
-                batch, b_real, n_frames, valid_frames = item
+                batch, b_real, n_frames, valid_frames, rows = item
                 t0 = time.perf_counter()
                 micro, metrics = train_step(model, optimizer, ema_model, micro, batch,
                                             micro_step_seed(self.seed, micro), self.opt_cfg,
-                                            mel_cfg=mel_cfg)
+                                            mel_cfg=mel_cfg, rows=rows, data_group=data_group,
+                                            grad_group=grad_group, backend=backend,
+                                            activation_constraint=seq)
                 did_update = micro % k_accum == 0
                 if did_update:
                     update = micro // k_accum
@@ -330,20 +406,21 @@ class Trainer:
                            "loss": float(metrics["loss"]),
                            "grad_norm": float(metrics["grad_norm"]),
                            "step_time_s": time.perf_counter() - t0,
-                           "frames": int(b_real * n_frames), "valid_frames": valid_frames}
+                           "frames": int(b_real * n_frames),
+                           "valid_frames": self._sum_over_data(valid_frames, data_group)}
                     if cuda:
                         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
                     self._log(rec)
                 if did_update and update % self.save_per_updates == 0:
                     self.save_checkpoint(*state, micro, update)
-                    if self.log_samples_fn is not None:  # reference log_samples (:408-438)
+                    if self.log_samples_fn is not None and self.is_main:  # reference :408-438
                         try:
                             self.log_samples_fn(ema_model, update, model)
                         except Exception as e:  # noqa: BLE001 - sampling must not stop training
                             print(f"log_samples failed at update {update}: {e}")
                 if did_update and update % self.last_per_updates == 0:
                     self.save_checkpoint(*state, micro, update, last=True)
-                if preempt["hit"]:
+                if self._agree(preempt["hit"], grad_group):
                     self.save_checkpoint(*state, micro, update, last=True, block=True)
                     self._log({"preempted": True, "update": update, "micro_step": micro})
                     print(f"SIGTERM: model_last.pt at micro-step {micro}; exiting")
@@ -351,3 +428,19 @@ class Trainer:
             skip = 0
         self.save_checkpoint(*state, micro, update, last=True, block=True)
         return model, ema_model, update
+
+    def _sum_over_data(self, value: int, group) -> int:
+        if group is None:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        torch.distributed.all_reduce(t, group=group)
+        return int(t.item())
+
+    def _agree(self, hit: bool, group) -> bool:
+        """True on every rank when any rank got SIGTERM (one tiny all-reduce
+        per step over a mesh), so all save and stop at one micro-step."""
+        if group is None:
+            return hit
+        t = torch.tensor([int(hit)], dtype=torch.int32, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+        return bool(t.item())

@@ -80,6 +80,6 @@ def test_auto_backend_on_cpu_runs_plain_version_without_launching():
     assert TFA.KERNEL.launches == before
     want = TFA.flash_attention_plain(q, k, v, torch.tensor([100], dtype=torch.int32))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="backend"):
-        TA.attention(q, k, v, mask=mask, backend="chunked")
+    with pytest.raises(ValueError, match="backend"):  # "chunked" is a backend: another name
+        TA.attention(q, k, v, mask=mask, backend="ring")
 

@@ -410,10 +410,13 @@ def test_w8a8_engine_matches_jax(family):
 
 def test_engine_options_take_quantize_and_still_refuse_later_fields():
     """The time-parallel window is ported (it reaches the sampler's
-    options); the mesh-serving convpos taps still raise."""
+    options); so are the mesh-serving convpos taps, and a pipeline block
+    scan in the engine's hooks still raises (the next slice)."""
     assert TE.EngineOptions(quantize=True).quantize
     opts = TE.EngineOptions(time_parallel_window=2, picard_tol=0.0).sample_opts()
     assert (opts.time_parallel_window, opts.picard_tol) == (2, 0.0)
-    with pytest.raises(NotImplementedError):
-        TE.EngineOptions(convpos_taps=True)
+    assert TE.EngineOptions(convpos_taps=True).convpos_taps
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TE.sample_and_decode(None, None, None, TE.EngineOptions(), None, None, None, None, None,
+                             hooks=(object(), None))
     assert dataclasses.replace(TE.EngineOptions(quantize=True), nfe_step=8).quantize

@@ -110,11 +110,14 @@ def test_bench_train_one_tiny_update(capsys):
 
 
 def test_bench_train_chunked_backend_raises():
-    """JAX's default backend is not ported: it raises as ``attention`` does."""
+    """JAX's default backend, ``chunked``, is ported and runs; a backend
+    ``attention`` does not know still raises."""
     from f5_tts_tpu_torch.scripts import bench_train
 
+    rec = bench_train.main(["1", "fp32", "chunked", "none", "32", "1", "F5TTS_Tiny", "cpu", "1"])
+    assert rec["metric"] == "train_frames_per_s" and rec["value"] > 0
     with pytest.raises(ValueError, match="unknown attention backend"):
-        bench_train.main(["1", "fp32", "chunked", "none", "32", "1", "F5TTS_Tiny", "cpu", "1"])
+        bench_train.main(["1", "fp32", "ring", "none", "32", "1", "F5TTS_Tiny", "cpu", "1"])
 
 
 def _opcheck_cases():
