@@ -112,12 +112,14 @@ Run from the repository root:  python3 chip_smoke.py
 18. The serving surface.  The engine's CUDA graphs: a replay equals the
     module-level eager function bitwise in mel and int16 wav (F5TTS_v1_Base
     dense short request at bucket 512 and its chunked long form, W8A8 short,
-    E2TTS_Base and F5TTS_MMDiT_Base short); A's, B's and G's launches over
-    three replays are three eager calls'; ``warmup_all`` over buckets (512,
-    1024, 2048) x batches (1, 2, 4) with each capture's seconds and the
-    graph pool's bytes; the short request eager against graph (wall,
-    device time, kernel count, busy share; dense and W8A8).  The serving
-    layers on the card: ``http_server.serve`` with a DynamicBatcher
+    E2TTS_Base and F5TTS_MMDiT_Base short, these two at ``PAR_DEPTH``
+    blocks); A's, B's and G's launches over three replays are three eager
+    calls'; the short request eager against graph (wall, device time,
+    kernel count, busy share; dense and W8A8).  At ``PAR_DEPTH`` blocks of
+    F5TTS_v1_Base (for the script's time): ``warmup_all`` over
+    buckets (512, 1024, 2048) x batches (1, 2, 4) with each capture's
+    seconds and the graph pool's bytes, and the serving layers on the card:
+    ``http_server.serve`` with a DynamicBatcher
     (max_batch 4) answers four concurrent ``request_tts`` calls in one
     batch, each equal to the same request alone (``GRAPH_WAV_TOL``); one
     request streamed through the socket server and client; ``cli.main`` on
@@ -136,7 +138,8 @@ Run from the repository root:  python3 chip_smoke.py
     peak); the bigvgan mel on the card against ``log_mel_np`` on the CPU
     (``BIGVGAN_MEL_TOL``); ``warmup_all`` over (512, 2048) x (1, 4) with the
     capture seconds and the pool's bytes.  The single-device Picard sampler
-    on F5TTS_v1_Base, W = 4: at tol 0 as many sweeps as steps, the mel
+    on F5TTS_v1_Base at ``PAR_DEPTH`` blocks, W = 4: at tol 0
+    as many sweeps as steps, the mel
     within ``PICARD_MEL_MAE_TOL`` of the sequential sampler, a replay
     bitwise the eager Picard call, depth A and one B launch per sweep; at
     tol 1e-3 and 1e-2 the sweeps, the wall and the mel against the
@@ -193,7 +196,27 @@ Run from the repository root:  python3 chip_smoke.py
     ``BatchServer`` over data = 2 on 4 prompts against ``mesh=None`` (int16
     steps, A and B launches per rank).  Two ranks on one card share it:
     their wall is no scaling figure.
-24. Prints the kernels' JSON line, then the result line.
+24. Parallelism over the model, F5TTS_v1_Base at full width and depth,
+    seeded weights with the AdaLN gates and ``proj_out`` filled: one
+    ``train_step`` of ``MP_ROWS`` x ``MP_N`` frames in fp32 in one process,
+    the same step through NCCL at world size 1 with ``pipe=1, model=1``
+    through the new code paths (``ModelLayout``, the pipeline's hook at one
+    stage; bitwise), then two gloo ranks on the one card:
+    ``BatchServer(mesh=make_mesh(data=1, model=2), tensor_parallel=True)``
+    serving one short request at NFE 32 against the one-device engine
+    (``MP_WAV_STEPS``, ``MP_MEL_MAE_TOL``; A 22 x 32 and B 32 launches per
+    rank, 8 heads each) and ``enable_time_parallel(make_mesh(data=2))`` at
+    W = 4, tol 0 against the one-device Picard engine (the same gates; A
+    22 per sweep per rank, half the window's rows each); then four gloo
+    ranks: the same ``train_step`` on ``make_train_mesh(data=1, pipe=2,
+    model=2)`` with 2 microbatches (loss ``MP_LOSS_REL_TOL``, gradient norm
+    ``MP_GNORM_REL_TOL``, AdamW's first moment ``PAR_GRAD_TOL`` per tensor;
+    C, D, E 11 x 2 per rank) and two ``train/cli.py`` runs at ``PAR_DEPTH``:
+    pp 2 x sp 2 on the ring and ZeRO-1 with Adafactor at data 2 x model 2
+    (its state bytes per rank).  The ranks' collectives are gloo's, CUDA
+    tensors staged through host memory, and the calls run eagerly: the
+    ranks share one card, so no wall time of the phase is a scaling figure.
+25. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -203,6 +226,7 @@ random, made from fixed seeds.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2391,11 +2415,12 @@ def phase_graphs(torch):
     """The engine's CUDA graphs: replays bitwise equal to the eager
     function (F5TTS_v1_Base dense short and chunked long, W8A8 short,
     E2TTS_Base and F5TTS_MMDiT_Base short), launch counts through replays,
-    ``warmup_all`` over buckets (512, 1024, 2048) x batches (1, 2, 4), the
-    short request eager against graph (dense, W8A8), and the serving layers
-    on the card."""
+    the short request eager against graph (dense, W8A8), then, at
+    ``PAR_DEPTH`` blocks, ``warmup_all`` over buckets (512, 1024, 2048) x
+    batches (1, 2, 4) and the serving layers on the card."""
     from f5_tts_tpu_torch.infer.api import F5TTS
     from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
 
     quiet = lambda *a, **k: None  # noqa: E731
     out = {}
@@ -2422,10 +2447,17 @@ def phase_graphs(torch):
     _check_replays(torch, "F5TTS_v1_Base W8A8", quant, calls)
     out["w8a8_launches"] = _replay_launches(torch, "F5TTS_v1_Base W8A8", tts)
     out["w8a8_short"] = _eager_vs_graph(torch, "F5TTS_v1_Base W8A8", tts)
-    tts.engine = dense
-    del quant, calls
+    del tts, dense, quant, calls
     torch.cuda.empty_cache()
 
+    # warmup_all and the serving layers exercise the engine's keys and the
+    # servers around it, which do not depend on the depth: F5TTS_v1_Base at
+    # full width with PAR_DEPTH of its 22 blocks, to leave the script's time
+    # to phase 24
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE,
+                model_cfg=_shallow(MODEL_CONFIGS["F5TTS_v1_Base"]))
+    randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(4))
+    dense = tts.engine
     before = set(dense.graphs)
     t0 = time.perf_counter()
     dense.warmup_all(buckets=(512, 1024, 2048), batch_sizes=(1, 2, 4))
@@ -2455,8 +2487,9 @@ def phase_graphs(torch):
     del tts, dense
     torch.cuda.empty_cache()
 
-    for name in ("E2TTS_Base", "F5TTS_MMDiT_Base"):
-        tts = F5TTS(model=name, init_random=True, nfe_step=NFE)
+    for name in ("E2TTS_Base", "F5TTS_MMDiT_Base"):  # replay vs eager: PAR_DEPTH blocks
+        tts = F5TTS(model=name, init_random=True, nfe_step=NFE,
+                    model_cfg=_shallow(MODEL_CONFIGS[name]))
         randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(36))
         calls = _recorded_run(tts.engine)
         tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
@@ -2740,7 +2773,12 @@ def _phase_bigvgan(torch):
     del tts, eng, voc
     torch.cuda.empty_cache()
 
-    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE)
+    # Picard's sweeps against the sequential sampler: PAR_DEPTH blocks of
+    # F5TTS_v1_Base (the sweep count and the wall ratio run per block)
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE,
+                model_cfg=_shallow(MODEL_CONFIGS["F5TTS_v1_Base"]))
     randomize_zero_init(tts.engine.model.transformer, torch.Generator().manual_seed(4))
     out["picard"] = _picard(torch, tts)
     del tts
@@ -3501,6 +3539,12 @@ RING_O_TOL = (1.2e-2, 2e-4)  # max, mean abs over valid query rows
 RING_GRAD_TOL = (2e-2, 4e-3)  # max, mean abs over the largest reference value
 
 
+def _shallow(cfg):
+    """``cfg`` with ``PAR_DEPTH`` blocks: for the paths that run per block and
+    check no depth-dependent number, to keep the script inside its time."""
+    return dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, depth=PAR_DEPTH))
+
+
 def _par_dataset(np, vocab):
     """PAR_ROWS seeded mel rows of 900-1250 frames: one sampler batch."""
     from f5_tts_tpu_torch.train.dataset import CustomDataset
@@ -3595,10 +3639,11 @@ def _par_serve(torch, mesh) -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wavs, _ = srv.run(reqs, overlap=1)
+    wavs, _ = srv.run(reqs, overlap=1, fetch_mel=True)
     torch.cuda.synchronize()
     return dict(wavs=[np.round(w * 32767.0).astype(np.int32) for w in wavs], launches=counts(),
-                wall_s=time.perf_counter() - t0, calls=len(eng.graphs))
+                wall_s=time.perf_counter() - t0, calls=len(eng.graphs),
+                mels=[srv.mels[i] for i in range(len(reqs))])
 
 
 def _param_diff(torch, model, ref: dict) -> tuple[float, float]:
@@ -3634,6 +3679,10 @@ def _par_rank(rank: int, root: str) -> None:
     from f5_tts_tpu_torch.parallel.distributed import init_distributed
     from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
 
+    # the served mel is bitwise mesh=None's, so only the vocoder's fp32
+    # convs move the wav: under cuDNN's TF32 default here and without TF32
+    # in the reference, 1 int16 step in every reading but one (23)
+    _fp32_as_parent(torch)
     init_distributed(f"file://{root}/pg", num_processes=2, process_id=rank, device="cuda:0",
                      backend="gloo")
     try:
@@ -3813,17 +3862,22 @@ def phase_parallel(torch) -> dict:
                      f"{depth} and B 1")
             if name == "zero1" and not all(0.5 <= s < 0.55 for s in share):
                 fail(f"ZeRO-1: AdamW state share per rank {share}, want about 1/2")
-        steps = []
+        steps, mel_diff = [], []
         for x in ranks:
             sv = x["serve"]
             steps.append(max(int(np.abs(a - b).max()) if len(a) else 0
                              for a, b in zip(sv["wavs"], serve_ref["wavs"])))
-        out["serve"] = dict(max_int16_steps=steps, launches=[x["serve"]["launches"] for x in ranks],
+            # a data rank's mel pads to its rows' bucket
+            mel_diff.append(max(float(np.abs(a[:len(b)] - b).max())
+                                for a, b in zip(sv["mels"], serve_ref["mels"])))
+        out["serve"] = dict(max_int16_steps=steps, max_mel_diff=mel_diff,
+                            launches=[x["serve"]["launches"] for x in ranks],
                             reference_launches=serve_ref["launches"],
                             wall_s=[x["serve"]["wall_s"] for x in ranks],
                             reference_wall_s=serve_ref["wall_s"], spawn_s=spawn_s)
         print(f"phase 23 BatchServer data 2 (two gloo ranks, batch 4) against mesh=None (batch "
-              f"2): max int16 steps per rank {steps}; launches per rank "
+              f"2): max int16 steps per rank {steps}, max |mel - mesh=None's| {mel_diff}; "
+              f"launches per rank "
               f"{[{k: v for k, v in la.items() if v} for la in out['serve']['launches']]}, "
               f"mesh=None {({k: v for k, v in serve_ref['launches'].items() if v})}; spawn "
               f"{spawn_s:.1f} s", flush=True)
@@ -3833,6 +3887,462 @@ def phase_parallel(torch) -> dict:
             if la["A"] != depth * NFE or la["B"] != NFE:
                 fail(f"BatchServer data 2: launches per rank {la}, want A {depth * NFE}, "
                      f"B {NFE}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# parallelism over the model (phase 24).  The predictions behind the gates
+# are in PERF.md, written before the first card run: the train step
+# in fp32 differs from one process only where tensor parallelism splits a
+# GEMM's K (the row-parallel sums) or its N and the pipeline its rows, so
+# the loss moves by about 1e-7 and the gradient norm by about 1e-5 (a norm
+# that counted a replicated tensor twice would move it by up to 40%, with
+# the clip acting); serving runs in bf16, where the row-parallel partial
+# sums are rounded before they are added, so the served mel and wav move
+# as much as another bf16 rounding of the same model does: a generated-mel
+# MAE of a few 1e-3 and some hundred int16 steps
+MP_ROWS, MP_N, MP_MICRO = 4, 1024, 2
+MP_MAX_NORM = 1e-3  # below the gradient norm: the clip acts, so a wrong norm shows
+MP_LOSS_REL_TOL = 1e-5
+MP_GNORM_REL_TOL = 1e-4
+MP_MEL_MAE_TOL = PICARD_MEL_MAE_TOL
+MP_WAV_STEPS = 100  # about 3.5x the 28 steps the card reads (PERF.md §6)
+# one short request at bucket 256: tensor-parallel serving all-reduces its
+# [2 rows, n, 1024] activations 1,408 times through host memory on gloo
+MP_SERVE_TEXT, MP_SERVE_REF, MP_SERVE_DURATION = 40, 90, 250
+
+
+def _mp_batch(torch):
+    """The train step's batch on the card: seeded mel rows, text ids, lens."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    mel = (rng.standard_normal((MP_ROWS, MP_N, 100)) * 2.0 - 5.0).astype(np.float32)
+    text = rng.integers(0, 2545, (MP_ROWS, 300)).astype(np.int32)
+    text[1:, 200:] = -1
+    lens = np.array([MP_N, 900, 800, 1000], np.int32)
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            (("mel", mel), ("text_ids", text), ("lens", lens))}
+
+
+def _mp_step(torch, mesh=None, layout: bool = False) -> dict:
+    """One ``train_step`` of full-depth F5TTS_v1_Base in fp32 (AdamW, the
+    clip acting) on ``_mp_batch``; under ``mesh`` with ``ModelLayout`` and
+    the pipeline's hook (``layout``): (metrics, AdamW's first moments in the
+    one-device layout, launches, the model)."""
+    import copy
+
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.train import step as S
+
+    arch = dataclasses.replace(_par_cfg().arch, depth=22)
+    model = _fresh_cfm(torch, arch, 41, device="cuda")
+    randomize_zero_init(model.transformer, torch.Generator().manual_seed(41))
+    opt_cfg = S.OptimConfig(num_warmup_updates=0, total_updates=10, learning_rate=PAR_LR,
+                            max_grad_norm=MP_MAX_NORM)
+    kw, lay = {}, None
+    if layout:
+        from f5_tts_tpu_torch.parallel.layout import ModelLayout
+        from f5_tts_tpu_torch.parallel.pipeline import make_dit_block_scan
+
+        lay = ModelLayout(model, mesh, tensor_parallel=True, pipeline=True)
+        lay.apply_(model)
+        kw = dict(layout=lay, block_scan=make_dit_block_scan(arch, mesh, MP_MICRO,
+                                                             backend="train_auto"))
+    params = list(model.parameters()) if lay is None else lay.live_params(model)
+    opt = S.make_optimizer(params, opt_cfg, layout=lay)
+    ema = copy.deepcopy(model).requires_grad_(False)
+    batch = _mp_batch(torch)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # cuDNN may pick a backward-filter algorithm with atomics for the convs;
+    # two steps are held bitwise only under its deterministic ones, and in
+    # fp32 (this process turned TF32 off in phases 2-3, the ranks start with it on)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _, met = S.train_step(model, opt, ema, 0, batch, 41, opt_cfg, backend="train_auto",
+                              **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    moments = [opt.inner.state[p]["exp_avg"] for p in params]  # on the card
+    if lay is not None and lay.active:  # the one-device layout: over model and pipe
+        moments = lay.gather_live(moments, batch["mel"].device)
+    return dict(loss=met["loss"].item(), grad_norm=met["grad_norm"].item(), wall_s=wall,
+                launches=launches, moments=moments, model=model, layout=lay)
+
+
+def _mp_request(np):
+    from f5_tts_tpu_torch.infer.serve import Request
+
+    rng = np.random.default_rng(32)
+    return Request(ref_mel=(rng.standard_normal((MP_SERVE_REF, 100)) - 4.0).astype(np.float32),
+                   text_ids=rng.integers(0, 2545, MP_SERVE_TEXT).astype(np.int32),
+                   duration=MP_SERVE_DURATION, seed=0)
+
+
+def _mp_options(picard: bool):
+    """NFE 32; the Picard sampler at W = 4, tol 0 when ``picard``."""
+    from f5_tts_tpu_torch.infer.engine import EngineOptions
+
+    return EngineOptions(nfe_step=NFE, time_parallel_window=PICARD_W if picard else 0,
+                         picard_tol=0.0)
+
+
+def _mp_engine(torch, picard: bool):
+    """F5TTS_v1_Base at full depth, bf16, on seeded weights made on the card
+    (the AdaLN gates and ``proj_out`` filled)."""
+    from f5_tts_tpu_torch.infer.api import _seeded
+    from f5_tts_tpu_torch.infer.engine import InferenceEngine
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    cfg = _par_cfg()
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, depth=22))
+    model = _fresh_cfm(torch, cfg.arch, 7, device="cuda")
+    randomize_zero_init(model.transformer, torch.Generator().manual_seed(7))
+    return InferenceEngine(model, cfg, vocoder=_seeded(Vocos, 1).cuda(), dtype=torch.bfloat16,
+                           options=_mp_options(picard))
+
+
+def _mp_serve(torch, eng, server=None) -> dict:
+    """One short request (``server.run`` or the engine's ``generate_batch``):
+    its mel, int16 wav, launches and wall."""
+    import numpy as np
+
+    req = _mp_request(np)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if server is not None:
+        wavs, _ = server.run([req], fetch_mel=True)
+        mel = server.mels[0]
+    else:
+        mels, wavs, _ = eng.generate_batch([req.ref_mel], [req.text_ids], [req.duration],
+                                           seeds=[req.seed])
+        mel = mels[0]
+    torch.cuda.synchronize()
+    return dict(mel=mel, wav=np.round(wavs[0] * 32767.0).astype(np.int32), launches=counts(),
+                wall_s=time.perf_counter() - t0)
+
+
+def _fp32_as_parent(torch) -> None:
+    """A spawned rank's fp32 matmuls and convolutions without TF32, as this
+    script's process runs them since phases 2-3 (the vocoder's convs, fp32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _mp_serve_rank(rank: int, root: str) -> None:
+    """One of two gloo ranks: tensor-parallel serving at model 2, then
+    Picard over data 2."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from f5_tts_tpu_torch.infer.serve import BatchServer
+    from f5_tts_tpu_torch.parallel.distributed import init_distributed
+    from f5_tts_tpu_torch.parallel.mesh import make_mesh
+
+    _fp32_as_parent(torch)
+    init_distributed(f"file://{root}/pg_serve", num_processes=2, process_id=rank,
+                     device="cuda:0", backend="gloo")
+    try:
+        eng = _mp_engine(torch, picard=False)
+        srv = BatchServer(eng, mesh=make_mesh(data=1, model=2), batch_size=1,
+                          tensor_parallel=True)
+        heads = {m.to_q.weight.shape[0] // 64 for m in eng.model.modules()
+                 if type(m).__name__ == "Attention"}
+        res = {"tp": dict(_mp_serve(torch, eng, srv), heads=sorted(heads),
+                          eager=eng._collective())}
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = _mp_engine(torch, picard=True)
+        eng.enable_time_parallel(make_mesh(data=2))
+        res["picard"] = _mp_serve(torch, eng)
+        torch.save(res, os.path.join(root, f"serve{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mp_train_rank(rank: int, root: str) -> None:
+    """One of four gloo ranks: the train step at data 1 x pipe 2 x model 2,
+    then two ``train/cli.py`` runs at PAR_DEPTH (pp 2 x sp 2; ZeRO-1 with
+    Adafactor at data 2 x model 2)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from f5_tts_tpu_torch.parallel.distributed import init_distributed
+    from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
+
+    _fp32_as_parent(torch)
+    # train/cli.py reads torchrun's environment, as under torchrun
+    os.environ.update(WORLD_SIZE="4", RANK=str(rank), LOCAL_RANK="0")
+    init_distributed(f"file://{root}/pg_train", num_processes=4, process_id=rank,
+                     device="cuda:0", backend="gloo")
+    try:
+        r = _mp_step(torch, make_train_mesh(data=1, pipe=2, model=2), layout=True)
+        lay = r.pop("layout")
+        res = {"step": {k: v for k, v in r.items() if k not in ("model", "moments")},
+               "stage": lay.stage, "tp_rank": lay.tp_rank,
+               "heads": sorted({m.to_q.weight.shape[0] // 64 for m in r["model"].modules()
+                                if type(m).__name__ == "Attention" and m.to_q.weight.numel()})}
+        if rank == 0:
+            ref_m = torch.load(os.path.join(root, "ref_m.pt"), map_location="cuda",
+                               weights_only=True)
+            res["step"]["m_max"], res["step"]["m_mean"] = _moment_diff(torch, r["moments"],
+                                                                       ref_m)
+        del r, lay
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        from f5_tts_tpu_torch.text.tokenizer import get_tokenizer
+        from f5_tts_tpu_torch.train import cli as TCLI
+        from f5_tts_tpu_torch.train import dataset as TDS
+        from f5_tts_tpu_torch.train import trainer as TT
+
+        vocab, _ = get_tokenizer(None, "pinyin")
+        TDS.load_dataset = lambda *a, **k: _par_dataset(np, vocab)
+        real, seen = TT.Trainer, []
+
+        class Recording(real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                seen.append(self)
+
+        TT.Trainer = Recording
+        for name, flags, extra in (
+                ("pp_sp", ["--pipeline_parallel", "2", "--sequence_parallel", "2"], []),
+                ("zero1_adafactor", ["--tensor_parallel", "2", "--zero1"],
+                 ["++optim.optimizer=adafactor"])):
+            ck = os.path.join(root, f"cli_{name}")
+            reset_counts()
+            t0 = time.perf_counter()
+            TCLI.main(["--model", "F5TTS_v1_Base", "--device", "cuda", "--epochs", "1",
+                       "--ckpt_dir", ck, "--batch_size_per_gpu", str(PAR_FRAMES),
+                       "--learning_rate", str(PAR_LR), "--num_warmup_updates", "1", *flags,
+                       f"model.arch.depth={PAR_DEPTH}", "++ckpts.last_per_updates=1000000",
+                       *extra])
+            torch.cuda.synchronize()
+            tr = seen[-1]
+            log = [json.loads(x) for x in open(tr.log_file)] if rank == 0 else []
+            res[name] = dict(wall_s=time.perf_counter() - t0, launches=counts(),
+                             mesh=[list(tr.mesh.mesh_dim_names), list(tr.mesh.shape)],
+                             state_bytes=tr.optimizer.state_bytes(),
+                             one_device_bytes=_adafactor_bytes(tr),
+                             micro=tr.pipeline_microbatches, zero1=tr.zero1,
+                             remat=tr.model_cfg.arch.checkpoint_activations,
+                             log=log[-1] if log else None)
+            del tr
+            seen.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        TT.Trainer = real
+        torch.save(res, os.path.join(root, f"train{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _adafactor_bytes(tr) -> int | None:
+    """Adafactor's state bytes for the trainer's model on one device (its
+    factored row and column statistics, or a whole one), fp32; None for
+    AdamW."""
+    import math
+
+    from f5_tts_tpu_torch.train.step import Adafactor
+
+    if tr.opt_cfg.optimizer != "adafactor":
+        return None
+    total = 0
+    for shape in tr.layout.shapes.values():
+        dims = Adafactor.factored_dims(shape)
+        n = math.prod(shape)
+        total += n if dims is None else n // shape[dims[1]] + n // shape[dims[0]]
+    return 4 * total
+
+
+def _mel_mae(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).mean())
+
+
+def _wav_steps(a, b) -> int:
+    import numpy as np
+
+    n = min(len(a), len(b))
+    return int(np.abs(a[:n] - b[:n]).max()) if n else 0
+
+
+def phase_model_parallel(torch) -> dict:
+    """Phase 24 (module docstring): one process's full-depth train step,
+    the same at NCCL world size 1 through the new code paths, the one-device
+    serving references; two gloo ranks (tensor-parallel serving, Picard over
+    data); four gloo ranks (the tp x pp train step, the CLI runs)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from f5_tts_tpu_torch.parallel.distributed import init_distributed
+    from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=os.path.join(REPO, ".cache"))
+    try:
+        one = _mp_step(torch)
+        torch.save(one["moments"], os.path.join(root, "ref_m.pt"))
+        ref_params = {k: p.detach().clone() for k, p in one.pop("model").named_parameters()}
+        print(f"phase 24 one process: train_step of F5TTS_v1_Base (22 blocks) on {MP_ROWS} x "
+              f"{MP_N} frames, fp32: loss {one['loss']:.7f}, grad norm {one['grad_norm']:.6f} "
+              f"(clip at {MP_MAX_NORM}), {one['wall_s']:.2f} s, launches "
+              f"{ {k: v for k, v in one['launches'].items() if v} }", flush=True)
+        free()
+
+        init_distributed(f"file://{root}/nccl_pg", num_processes=1, process_id=0, device="cuda:0")
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"world size 1 on the card: backend {dist.get_backend()}, want nccl")
+            r = _mp_step(torch, make_train_mesh(data=1, pipe=1, model=1), layout=True)
+        finally:
+            dist.destroy_process_group()
+        got = dict(r.pop("model").named_parameters())
+        bitwise = all(torch.equal(got[k].detach(), v) for k, v in ref_params.items())
+        same_m = all(torch.equal(a, b) for a, b in zip(r["moments"], one.pop("moments")))
+        out["nccl"] = dict(bitwise=bitwise, moments_bitwise=same_m, loss=r["loss"],
+                           grad_norm=r["grad_norm"], layout_active=r["layout"].active)
+        print(f"phase 24 NCCL world 1 (pipe 1, model 1: ModelLayout and the pipeline hook at "
+              f"one stage): parameters bitwise {bitwise}, first moments bitwise {same_m}, loss "
+              f"{r['loss']:.7f}, grad norm {r['grad_norm']:.6f}", flush=True)
+        if not (bitwise and same_m and r["loss"] == one["loss"]
+                and r["grad_norm"] == one["grad_norm"]):
+            fail(f"NCCL world size 1 through the new paths against one process: {out['nccl']}")
+        del r, got, ref_params
+        free()
+
+        refs = {}
+        eng = _mp_engine(torch, False)
+        for name, picard in (("tp", False), ("picard", True)):
+            eng.options = _mp_options(picard)
+            _mp_serve(torch, eng)  # the key's first hit: an eager call, the capture
+            refs[name] = _mp_serve(torch, eng)
+        del eng
+        free()
+
+        # the two serving ranks and the four training ranks at once, each set
+        # in its own gloo group: they share the card and the host
+        t0 = time.perf_counter()
+        serving = mp.start_processes(_mp_serve_rank, args=(root,), nprocs=2,
+                                     start_method="spawn", join=False)
+        training = mp.start_processes(_mp_train_rank, args=(root,), nprocs=4,
+                                      start_method="spawn", join=False)
+        try:
+            while not serving.join():
+                pass
+            out["serve_spawn_s"] = time.perf_counter() - t0
+            while not training.join():
+                pass
+            out["train_spawn_s"] = time.perf_counter() - t0
+        finally:  # a failed set leaves no rank of the other behind
+            for p in serving.processes + training.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(30)
+        ranks = [torch.load(os.path.join(root, f"serve{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        depth = 22
+        for name, want_a in (("tp", depth * NFE), ("picard", depth * NFE)):
+            rows = []
+            for x in ranks:
+                g = x[name]
+                rows.append(dict(mel_mae=_mel_mae(g["mel"], refs[name]["mel"]),
+                                 wav_steps=_wav_steps(g["wav"], refs[name]["wav"]),
+                                 A=g["launches"]["A"], B=g["launches"]["B"], wall_s=g["wall_s"],
+                                 **({"heads": g["heads"], "eager": g["eager"]}
+                                    if name == "tp" else {})))
+            out[name] = dict(ranks=rows, reference_wall_s=refs[name]["wall_s"],
+                             reference_launches={k: refs[name]["launches"][k] for k in "AB"})
+            print(f"phase 24 {'BatchServer model 2' if name == 'tp' else 'Picard data 2'} (two "
+                  f"gloo ranks, eager) against the one-device engine: per rank {rows}; one "
+                  f"device A {refs[name]['launches']['A']} B {refs[name]['launches']['B']}, "
+                  f"{refs[name]['wall_s']:.2f} s", flush=True)
+            for x in rows:
+                if x["mel_mae"] > MP_MEL_MAE_TOL or x["wav_steps"] > MP_WAV_STEPS:
+                    fail(f"{name}: against the one-device engine {rows}")
+                if x["A"] != want_a or x["B"] != NFE:
+                    fail(f"{name}: launches per rank A {x['A']} B {x['B']}, want {want_a}, {NFE}")
+            if name == "tp" and any(x["heads"] != [8] or not x["eager"] for x in rows):
+                fail(f"tensor-parallel serving: heads per rank / eager {rows}")
+        ranks = [torch.load(os.path.join(root, f"train{r}.pt"), weights_only=False)
+                 for r in range(4)]
+        st = ranks[0]["step"]
+        lrel = abs(st["loss"] - one["loss"]) / abs(one["loss"])
+        grel = abs(st["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        per_rank = [dict(stage=x["stage"], tp_rank=x["tp_rank"], heads=x["heads"],
+                         wall_s=x["step"]["wall_s"],
+                         launches={k: x["step"]["launches"][k] for k in ("B", "C", "D", "E")})
+                    for x in ranks]
+        out["step"] = dict(loss=st["loss"], loss_rel=lrel, grad_norm=st["grad_norm"],
+                           grad_norm_rel=grel, m_max=st["m_max"], m_mean=st["m_mean"],
+                           ranks=per_rank, one_wall_s=one["wall_s"])
+        print(f"phase 24 train_step data 1 x pipe 2 x model 2 (four gloo ranks, {MP_MICRO} "
+              f"microbatches): loss {st['loss']:.7f} (rel {lrel:.2e}), grad norm "
+              f"{st['grad_norm']:.6f} (rel {grel:.2e}), first moments (max, mean over max |ref|) "
+              f"({st['m_max']:.3e}, {st['m_mean']:.3e}); per rank {per_rank}", flush=True)
+        if lrel > MP_LOSS_REL_TOL or grel > MP_GNORM_REL_TOL or st["m_max"] > PAR_GRAD_TOL[0] \
+                or st["m_mean"] > PAR_GRAD_TOL[1]:
+            fail(f"tp x pp train step against one process: {out['step']}")
+        want = depth // 2 * MP_MICRO
+        for x in per_rank:
+            la = x["launches"]
+            if (la["C"], la["D"], la["E"], la["B"]) != (want, want, want, 1) or x["heads"] != [8]:
+                fail(f"tp x pp: per rank {x}, want C, D, E {want}, B 1, 8 heads")
+        for name in ("pp_sp", "zero1_adafactor"):
+            rows = [x[name] for x in ranks]
+            log = rows[0]["log"]
+            out[name] = dict(log=log, ranks=[{k: v for k, v in x.items() if k != "log"}
+                                             for x in rows])
+            print(f"phase 24 train/cli.py {name} at {PAR_DEPTH} blocks: loss {log['loss']:.6f}, "
+                  f"grad norm {log['grad_norm']:.6f}; per rank "
+                  f"{[{k: v for k, v in x.items() if k != 'log'} for x in rows]}", flush=True)
+            if not (log["update"] == 1 and np.isfinite(log["loss"])
+                    and np.isfinite(log["grad_norm"])):
+                fail(f"{name}: {log}")
+            for x in rows:
+                c = x["launches"]
+                if name == "pp_sp":  # 2 blocks a stage, 8 microbatches, 2 ring steps each
+                    base = PAR_DEPTH // 2 * x["micro"] * 2
+                    ok = x["mesh"] == [["data", "pipe", "seq", "model"], [1, 2, 2, 1]]
+                else:
+                    base = PAR_DEPTH
+                    ok = x["mesh"] == [["data", "model"], [2, 2]] and x["zero1"]
+                if not ok or (c["C"], c["D"], c["E"]) != (base, base, base):
+                    fail(f"{name}: per rank {x}, want C, D, E {base}")
+            if name == "zero1_adafactor":
+                share = [x["state_bytes"] / x["one_device_bytes"] for x in rows]
+                out[name]["state_share"] = share
+                print(f"phase 24 ZeRO-1 Adafactor at data 2: state bytes per rank "
+                      f"{[x['state_bytes'] for x in rows]}, share of one device's "
+                      f"{rows[0]['one_device_bytes']}: {share}", flush=True)
+                if not all(0.5 <= x < 0.55 for x in share):
+                    fail(f"ZeRO-1 Adafactor: state share per rank {share}, want about 1/2")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -3979,6 +4489,9 @@ def main() -> int:
     par = phase_parallel(torch)  # counts set to 0 before each update, ring and served pass
     lap("23 (ring on the card, NCCL at world 1, DP / ZeRO-1 / DP serving on two gloo ranks)")
     print(f"summary: parallel {json.dumps(par, default=str)}", flush=True)
+    mpar = phase_model_parallel(torch)  # counts set to 0 before each step, request and CLI run
+    lap("24 (model parallel: NCCL at world 1, TP serving, Picard over data, tp x pp step, CLI)")
+    print(f"summary: model parallel {json.dumps(mpar, default=str)}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
@@ -4153,6 +4666,19 @@ def main() -> int:
             if k == "B":
                 entry_["data_parallel_launches_per_rank"] = {n: [la["B"] for la in v]
                                                              for n, v in dp_rank.items()}
+    # phase 24: launches per rank under tensor parallelism, the pipeline and Picard over data
+    for entry_ in kernels:
+        key = {"flash_attention_fwd": "A", "fused_convpos_fwd": "B",
+               "flash_attention_fwd_stats": "C", "flash_attention_bwd_dq": "D",
+               "flash_attention_bwd_dkv": "E"}.get(entry_["name"])
+        if key in ("A", "B"):
+            entry_["model_parallel_serving_launches_per_rank"] = {
+                n: [x[key] for x in mpar[n]["ranks"]] for n in ("tp", "picard")}
+        if key in ("B", "C", "D", "E"):
+            entry_["model_parallel_train_launches_per_rank"] = {
+                "tp2_pp2_step": [x["launches"][key] for x in mpar["step"]["ranks"]],
+                **{n: [x["launches"][key] for x in mpar[n]["ranks"]]
+                   for n in ("pp_sp", "zero1_adafactor")}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -62,12 +62,17 @@ Mesh serving (``infer/serve.BatchServer``; JAX :61-66, 106-134, 246-249):
 ``EngineOptions.convpos_taps`` is accepted for JAX's signature and routes
 nothing: JAX's per-tap ConvPositionEmbedding is the function that kernel B
 and its plain version already compute (``models/layers.conv_pos_embed_taps``).
-``engine.parallel_hooks`` holds (block_scan, activation_constraint): the
-sequence-parallel hook (``parallel/sequence.py``) goes to the sampler, and
-the hooks are in a graph's key.  A data-parallel rank replays its own rows'
-graph and needs no collective inside it.  Under the sequence-parallel hook
-every step's ring attention sends and receives, and the call runs eagerly
-on the card, never captured; ``BatchServer`` then runs one batch at a time
+``engine.parallel_hooks`` holds (block_scan, activation_constraint,
+time_parallel_mesh), as JAX's: the pipeline's block scan
+(``parallel/pipeline.py``) and the sequence-parallel hook
+(``parallel/sequence.py``) go to the sampler, and ``enable_time_parallel``
+sets the mesh of Picard over ``data``; the hooks are in a graph's key.  A
+data-parallel rank replays its own rows' graph and needs no collective
+inside it.  Under a hook, or under tensor parallelism (``BatchServer
+(tensor_parallel=True)``, whose every block all-reduces over ``model``), a
+call issues collectives and runs eagerly on the card, never captured: a
+gloo collective cannot be captured, and capturing NCCL's waits for a
+multi-card cell.  ``BatchServer`` then runs one batch at a time
 (``infer/serve.py``), since two threads' collectives on one group could
 interleave in another order on each rank.
 """
@@ -168,15 +173,15 @@ def decode_wav(voc, vocoder_type: str, mel_out, lens, duration):
 @torch.inference_mode()
 def sample_and_decode(model, voc, model_cfg: ModelConfig, opts: EngineOptions, cond, text_ids,
                       lens, duration, noise, decode: bool = True, vocoder_type: str = "vocos",
-                      hooks=(None, None)):
+                      hooks=(None, None, None)):
     """cond [b, n, d] in the compute dtype -> (mel [b, n, d], int16 wav [b, T] or None).
-    ``hooks``: (block_scan, activation_constraint), the engine's ``parallel_hooks``."""
-    if hooks[0] is not None:
-        raise NotImplementedError("the pipeline's block scan is the next slice of the port "
-                                  "(see ROADMAP.md)")
+    ``hooks``: (block_scan, activation_constraint, time_parallel_mesh), the
+    engine's ``parallel_hooks``, handed to ``cfm.sample``."""
     mel_out = cfm.sample(model, model_cfg.arch, cond, text_ids, duration,
                          noise.to(cond.dtype), lens=lens, opts=opts.sample_opts(),
-                         backend=opts.backend, activation_constraint=hooks[1])
+                         backend=opts.backend, block_scan=hooks[0],
+                         activation_constraint=hooks[1],
+                         time_parallel_mesh=hooks[2])
     if not decode or voc is None:
         return mel_out, None
     return mel_out, decode_wav(voc, vocoder_type, mel_out, lens, duration)
@@ -197,7 +202,7 @@ def ref_cond(model_cfg: ModelConfig, wav_i16, wav_scale, lens, n: int, dtype):
 def sample_and_decode_from_wav(model, voc, model_cfg: ModelConfig, opts: EngineOptions, wav_i16,
                                wav_scale, lens, text_ids, duration, noise, n: int,
                                decode: bool = True, vocoder_type: str = "vocos",
-                               hooks=(None, None)):
+                               hooks=(None, None, None)):
     """Ref-audio mel extraction + sampling + vocoder.  ``wav_i16`` [b, S] is
     the host-reflect-padded ref wav at a ref-length bucket, ``wav_scale`` [b]
     its dequantization scale; ``noise`` [b, n, d]."""
@@ -277,9 +282,11 @@ class InferenceEngine:
         self.graphs: dict[tuple, CapturedGraph | CapturedPicard] = {}  # CUDA: one per call key
         self.last_sweeps: int | None = None  # the sweeps of the last Picard call on the card
         self._graph_lock = threading.Lock()
-        # (block_scan, activation_constraint) for mesh serving, set by
-        # BatchServer; in every graph's key (JAX :246-249)
-        self.parallel_hooks = (None, None)
+        # (block_scan, activation_constraint, time_parallel_mesh) for mesh
+        # serving, set by BatchServer and enable_time_parallel; in every
+        # graph's key (JAX :246-249)
+        self.parallel_hooks = (None, None, None)
+        self.tensor_parallel = False  # set by BatchServer(tensor_parallel=True)
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -288,11 +295,23 @@ class InferenceEngine:
             weakref.finalize(self, workspace.release_scopes, self._scopes)
 
     def enable_time_parallel(self, mesh) -> None:
-        """JAX's Picard over a mesh (the window's rows over ``data``): the
-        next slice of the port; the single-device Picard sampler is
-        ``EngineOptions(time_parallel_window=W)``."""
-        raise NotImplementedError("Picard over a mesh is the next slice of the port (tensor "
-                                  "parallel, the pipeline and Picard over a mesh; see ROADMAP.md)")
+        """Picard over ``mesh`` (JAX ``enable_time_parallel``): with
+        ``EngineOptions(time_parallel_window=W)`` each of the ``data`` ranks
+        evaluates its W*b / data rows of every sweep's window and the
+        velocities are all-gathered (``cfm.picard_sweep``); the batch stays
+        whole on every rank.  Every rank of the mesh makes the same calls.
+        Call it before the first request; the calls then run eagerly (a
+        collective per sweep)."""
+        if self.options.time_parallel_window <= 0:
+            raise ValueError("set EngineOptions(time_parallel_window=W) to use time parallelism "
+                             "(JAX asserts the same, engine.py:262)")
+        self.parallel_hooks = (self.parallel_hooks[0], self.parallel_hooks[1], mesh)
+
+    def _collective(self) -> bool:
+        """Whether an engine call issues collectives (a mesh hook or tensor
+        parallelism), so it runs eagerly: a gloo collective cannot sit in a
+        CUDA graph, and NCCL's in a captured graph awaits a multi-card cell."""
+        return self.tensor_parallel or any(h is not None for h in self.parallel_hooks)
 
     def _run(self, entry: str, args: tuple, decode: bool):
         """(mel, int16 wav | None) on the device for the request tensors
@@ -304,8 +323,8 @@ class InferenceEngine:
         opts = self.options
         n = args[-1].shape[1]  # the noise [b, n, d]
         call = self._call(entry, args, decode)
-        if self.device.type != "cuda" or self.parallel_hooks[1] is not None:
-            return call(*args)  # the sequence-parallel ring runs eagerly (module docstring)
+        if self.device.type != "cuda" or self._collective():
+            return call(*args)  # a call with collectives runs eagerly (module docstring)
         key = (entry, args[0].shape[0], n, args[0].shape[1] if entry == "wav" else None, decode,
                self.dtype, opts, self.parallel_hooks)
         cur = torch.cuda.current_stream(self.device)

@@ -11,7 +11,8 @@ With a ``mesh`` (``parallel/mesh.py``; one process per device, every rank
 runs the same ``run``), as JAX :49-110:
 
 - each batch's rows split over ``data``: rank r serves its contiguous
-  rows on its own engine (its own CUDA graph; no collective inside it), and
+  rows on its own engine (its own CUDA graph at its rows' bucket; no
+  collective inside it), and
   the waveforms are gathered to every rank after all batches
   (``all_gather_object``), so every rank returns all of them;
 - JAX switches the engine's ``convpos_taps`` on under ``data`` > 1; the
@@ -23,11 +24,24 @@ runs the same ``run``), as JAX :49-110:
   ``run`` takes one batch at a time whatever its ``overlap``: every ring
   step sends and receives on the seq group, and two batches' collectives
   issued from two threads could pair up in another order on each rank;
-- ``tensor_parallel=True`` raises ``NotImplementedError``: it is the next
-  slice (ROADMAP.md).
+- ``tensor_parallel=True`` with a ``model`` axis above 1 (JAX :90-100)
+  shards the engine's backbone over ``model`` (``parallel/mesh.shard_params``:
+  Megatron's column / row split, each rank its ``heads / tp`` heads and
+  ``inner / tp`` feed-forward columns, an all-reduce after each row-parallel
+  linear).  JAX refuses an engine whose qkv is fused; the port's fusion is a
+  serving transform (``Attention.fuse_qkv``), so each rank rebuilds its
+  fused weight from its own q, k and v slices instead, and a fused engine
+  serves.  Under W8A8 (``EngineOptions(quantize=True)``) a quantized
+  module stays whole on every rank, as JAX's: its ``_tp_param_spec``
+  matches ``kernel``, not the quantized ``kernel_q``, so JAX replicates the
+  int8 weights and its quantized linears run whole on every device (kernel
+  G at the full K); the dense modules (MMDiT's feed-forwards) split.  The
+  engine's calls then all-reduce over ``model`` and run eagerly on the
+  card, and ``run`` takes one batch at a time, as under the seq hook.
 
-Build a sequence-parallel server before warming the engine: it replaces
-``engine.options`` and ``engine.parallel_hooks``.
+Build a sequence- or tensor-parallel server before warming the engine: it
+replaces ``engine.options`` and ``engine.parallel_hooks``, or shards the
+model.
 
 ``rtf_report`` is the report in the reference benchmark's format
 (benchmark.py:454-468, client_grpc.py:425-447).
@@ -59,10 +73,6 @@ class BatchServer:
 
     def __init__(self, engine: InferenceEngine, mesh=None, batch_size: int = 8,
                  tensor_parallel: bool = False, sequence_parallel: bool = False):
-        if tensor_parallel:
-            raise NotImplementedError("tensor-parallel serving is the next slice of the port "
-                                      "(tensor parallel, the pipeline and Picard over a mesh; "
-                                      "see ROADMAP.md)")
         self.engine = engine
         self.mesh = mesh
         self.batch_size = batch_size
@@ -81,9 +91,12 @@ class BatchServer:
 
             if engine.model_cfg.arch.backbone != "DiT":
                 raise ValueError("sequence-parallel serving runs DiT only, as in JAX")
-            engine.parallel_hooks = (None, make_seq_constraint(mesh))
+            engine.parallel_hooks = (None, make_seq_constraint(mesh), engine.parallel_hooks[2])
             engine.options = dataclasses.replace(
                 engine.options, backend=make_ring_attention(mesh, block_impl="auto"))
+        if tensor_parallel and M.axis_size(mesh, M.MODEL_AXIS) > 1:
+            M.shard_params(engine.model.transformer, mesh)
+            engine.tensor_parallel = True
         self.data_rank, self.dp = M.data_rank_and_size(mesh)
         self._data_group = M.axis_group(mesh, M.DATA_AXIS)
         if batch_size % self.dp:
@@ -94,8 +107,9 @@ class BatchServer:
 
         ``overlap`` batches run concurrently (the concurrency-2 serving
         pattern of the reference's headline benchmark, README.md:131-138),
-        and one at a time under the sequence-parallel hook (module
-        docstring).  With ``fetch_mel`` each request's generated mel [n, d] is kept in
+        and one at a time when the engine's calls issue collectives (the
+        sequence-parallel hook, tensor parallelism, Picard over a mesh).
+        With ``fetch_mel`` each request's generated mel [n, d] is kept in
         ``self.mels``.  Over a data mesh a batch's latency is its slowest
         rank's."""
         order = sorted(range(len(requests)), key=lambda i: requests[i].duration)
@@ -117,8 +131,8 @@ class BatchServer:
                 [r.duration for r in reqs], seeds=[r.seed for r in reqs], fetch_mel=fetch_mel)
             return ws, mels, time.perf_counter() - t0
 
-        if eng.parallel_hooks[1] is not None:
-            overlap = 1  # the ring's collectives, in one order on every rank
+        if eng._collective():
+            overlap = 1  # the collectives, in one order on every rank
         if overlap > 1 and len(groups) > 1:
             with ThreadPoolExecutor(max_workers=overlap) as ex:
                 done = list(ex.map(run_group, groups))
@@ -130,7 +144,7 @@ class BatchServer:
             parts: list = [None] * self.dp
             dist.all_gather_object(parts, done, group=self._data_group)
             done = [(sum((p[g][0] for p in parts), []),
-                     None if not fetch_mel else np.concatenate([p[g][1] for p in parts]),
+                     None if not fetch_mel else _cat_rows([p[g][1] for p in parts]),
                      max(p[g][2] for p in parts)) for g in range(len(groups))]
         self.mels = {}
         for grp, (ws, mels, lat) in zip(groups, done):
@@ -152,6 +166,14 @@ class BatchServer:
             req = Request(ref_mel=np.zeros((n // 4, d), np.float32),
                           text_ids=np.zeros((min(64, n),), np.int32), duration=n - 1)
             self.run([req] * self.batch_size, overlap=1)
+
+
+def _cat_rows(mels: list) -> np.ndarray:
+    """The data ranks' mels [rows, n_r, d] as one array: each rank's bucket
+    n_r is its rows' own, so the shorter ones are zero-padded (frames past a
+    row's duration are zero already)."""
+    n = max(m.shape[1] for m in mels)
+    return np.concatenate([np.pad(m, ((0, 0), (0, n - m.shape[1]), (0, 0))) for m in mels])
 
 
 def rtf_report(wavs: list[np.ndarray], latencies: list[float], sample_rate: int = 24_000) -> dict:

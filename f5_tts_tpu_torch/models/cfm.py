@@ -21,8 +21,15 @@ gathered with device index tensors, so a sweep has no host sync and is
 capturable (the engine captures the three parts as CUDA graphs).  The one
 departure from JAX, whose ``lax.while_loop`` keeps the loop on the device:
 the host reads the frozen count ``s`` once per sweep (a 4-byte copy) to
-decide whether to sweep again.  Picard over a mesh (JAX's
-``time_parallel_mesh``) is the next slice (ROADMAP.md).
+decide whether to sweep again.  Picard over a mesh (``time_parallel_mesh``,
+JAX :286-386): each data rank evaluates its contiguous rows of the W*b
+window rows (W*b must divide by ``data``), with its rows of the tiled
+conditioning and of the precomputed AdaLN tables (the padded window rows
+keep the last step's mods, dt = 0), and the velocities are all-gathered
+before the Picard update, which every rank then makes whole; the model may
+be tensor-parallel over ``model`` meanwhile.  ``block_scan`` (the
+pipeline's hook, DiT) goes to the backbone; the AdaLN tables are then not
+precomputed, as JAX skips them.
 
 ``activation_constraint`` (``sample`` and ``loss``, JAX :189, 263-264,
 490, 565) is sequence parallelism's hook, handed to the backbone; DiT alone
@@ -214,12 +221,14 @@ def _setup(model, cfg, cond, text_ids, duration, noise, lens, opts, edit_mask, n
 
 
 def _velocity(model, cfg, opts, backend, x, step_cond, te_cond, te_uncond, time, mask, extra,
-              adaln_mods=None, activation_constraint=None):
+              adaln_mods=None, activation_constraint=None, block_scan=None):
     """The (guided) flow at ``x`` and per-row ``time``."""
     bb = get_backbone(cfg)
     kw = dict(extra) if adaln_mods is None else dict(extra, adaln_mods=adaln_mods)
     if activation_constraint is not None:
         kw["activation_constraint"] = activation_constraint
+    if block_scan is not None:
+        kw["block_scan"] = block_scan
     if te_uncond is not None:
         pred, null = bb.forward_cfg(model, cfg, x, step_cond, te_cond, te_uncond, time,
                                     mask=mask, backend=backend, **kw)
@@ -237,7 +246,8 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
            duration: torch.Tensor, noise: torch.Tensor, lens: torch.Tensor | None = None,
            opts: SampleOptions = SampleOptions(), edit_mask: torch.Tensor | None = None,
            no_ref_audio: bool = False, backend="auto", duplicate_test: bool = False,
-           return_info: bool = False, activation_constraint=None):
+           return_info: bool = False, activation_constraint=None, block_scan=None,
+           time_parallel_mesh=None):
     """CFM.sample (reference cfm.py:83-229) -> generated mel [b, n, d].
 
     cond [b, n, d]: reference mel zero-padded to the bucket length n;
@@ -246,16 +256,19 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
     reference audio is kept.  Frames past ``duration`` come back zero and the
     reference region is overwritten with ``cond``.  ``return_info`` also
     returns {"sweeps": forwards in sequence, "window": W} (the sequential
-    sampler: one forward per step, W = 1).
+    sampler: one forward per step, W = 1).  ``block_scan``: the pipeline's
+    hook (DiT; the AdaLN tables are then not precomputed, as in JAX);
+    ``time_parallel_mesh``: Picard over that mesh's ``data`` axis (module
+    docstring).
     """
     if opts.ode_method not in ("euler", "midpoint"):
         raise ValueError(f"ode_method must be euler or midpoint, got {opts.ode_method!r}")
     if opts.time_parallel_window > 0:
-        if activation_constraint is not None:
-            raise ValueError("the Picard sampler runs on one device (JAX asserts the same, "
-                             "cfm.py:292)")
+        if activation_constraint is not None or block_scan is not None:
+            raise ValueError("the Picard sampler takes no sequence or pipeline hook (JAX "
+                             "asserts the same, cfm.py:292)")
         run = picard_begin(model, cfg, cond, text_ids, duration, noise, lens, opts, edit_mask,
-                           no_ref_audio, backend, duplicate_test)
+                           no_ref_audio, backend, duplicate_test, mesh=time_parallel_mesh)
         while int(run.s) < run.T:  # the host's stop test: one 4-byte read per sweep
             picard_sweep(model, cfg, run)
         out = picard_finish(run)
@@ -273,13 +286,14 @@ def sample(model: nn.Module, cfg: ArchConfig, cond: torch.Tensor, text_ids: torc
     def velocity(x, t_k, adaln_mods=None):
         time = torch.full((b,), float(t_k), dtype=torch.float32, device=dev).to(compute_dtype)
         return _velocity(model, cfg, opts, backend, x, su.step_cond, su.te_cond, su.te_uncond,
-                         time, su.mask, su.extra, adaln_mods, activation_constraint)
+                         time, su.mask, su.extra, adaln_mods, activation_constraint, block_scan)
 
     # the schedule is known ahead: every Euler step's AdaLN modulations in one
     # go, where the backbone has them as tables (DiT)
     bb = get_backbone(cfg)
     tables = None
-    if opts.precompute_adaln and opts.ode_method == "euler" and hasattr(bb, "precompute_adaln"):
+    if (opts.precompute_adaln and opts.ode_method == "euler" and block_scan is None
+            and hasattr(bb, "precompute_adaln")):
         tables = bb.precompute_adaln(model, cfg, t_dev, dtype=compute_dtype)
 
     x = su.y0
@@ -328,14 +342,18 @@ class PicardRun:
     W: int
     opts: SampleOptions
     backend: str
+    rows: tuple | None = None  # over a mesh: (first row, rows, data group) of this rank
 
 
 @torch.inference_mode()
 def picard_begin(model, cfg, cond, text_ids, duration, noise, lens=None,
                  opts: SampleOptions = SampleOptions(), edit_mask=None, no_ref_audio=False,
-                 backend="auto", duplicate_test=False) -> PicardRun:
+                 backend="auto", duplicate_test=False, mesh=None) -> PicardRun:
     """The Picard sampler's prelude (JAX ``sample`` :286-413): masks, text
-    embeddings, y0, the window's tiled conditioning and AdaLN tables."""
+    embeddings, y0, the window's tiled conditioning and AdaLN tables.  Over
+    ``mesh`` (JAX ``time_parallel_mesh``, :296-300, 372-375) this rank keeps
+    its contiguous rows of the W*b window rows, which must divide over the
+    ``data`` axis, and of the conditioning and the tables."""
     if opts.ode_method != "euler":
         raise ValueError("the time-parallel (Picard) sampler is Euler-only")
     b, n, d = cond.shape
@@ -355,14 +373,30 @@ def picard_begin(model, cfg, cond, text_ids, duration, noise, lens=None,
         mods = (torch.cat([blk, blk[-1:].expand(W, *blk.shape[1:])]),
                 torch.cat([fin, fin[-1:].expand(W, *fin.shape[1:])]))
     fmask = su.mask[..., None].float()
+    cond_r, te_r, mask_r = su.step_cond.repeat(W, 1, 1), su.te_cond.repeat(W, 1, 1), \
+        su.mask.repeat(W, 1)
+    teu_r = None if su.te_uncond is None else su.te_uncond.repeat(W, 1, 1)
+    rows = None
+    if mesh is not None:
+        from f5_tts_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, data_rank_and_size
+
+        rank, dp = data_rank_and_size(mesh)
+        if (W * b) % dp:
+            raise ValueError(f"window rows {W}x{b} must divide over the data axis ({dp}); pick "
+                             f"time_parallel_window as a multiple of {dp}//b (JAX cfm.py:296-300)")
+        per = W * b // dp
+        rows = (rank * per, per, axis_group(mesh, DATA_AXIS))
+        sl = slice(rank * per, (rank + 1) * per)
+        cond_r, te_r, mask_r = cond_r[sl], te_r[sl], mask_r[sl]
+        teu_r = None if teu_r is None else teu_r[sl]
+        extra_r = {k: v[sl] for k, v in extra_r.items()}
     return PicardRun(
         setup=su, Y=su.y0[None].repeat(T + W + 1, 1, 1, 1),
         s=torch.zeros((), dtype=torch.int64, device=dev),
         sweeps=torch.zeros((), dtype=torch.int64, device=dev), t_pad=t_pad, dt_pad=dt_pad,
-        cond_r=su.step_cond.repeat(W, 1, 1), te_r=su.te_cond.repeat(W, 1, 1),
-        teu_r=None if su.te_uncond is None else su.te_uncond.repeat(W, 1, 1),
-        mask_r=su.mask.repeat(W, 1), extra_r=extra_r, mods=mods, fmask=fmask,
-        denom=torch.clamp(fmask.sum() * d, min=1.0), T=T, W=W, opts=opts, backend=backend)
+        cond_r=cond_r, te_r=te_r, teu_r=teu_r, mask_r=mask_r, extra_r=extra_r, mods=mods,
+        fmask=fmask, denom=torch.clamp(fmask.sum() * d, min=1.0), T=T, W=W, opts=opts,
+        backend=backend, rows=rows)
 
 
 @torch.inference_mode()
@@ -371,7 +405,9 @@ def picard_sweep(model, cfg, run: PicardRun) -> None:
     Y'[s+j+1] = Y[s] + sum_{m<=j} dt_{s+m} v(Y[s+m], t_{s+m}) for the W window
     entries as one forward over W*b rows; freeze the longest prefix whose
     masked RMS change is below ``picard_tol`` after the always-exact first
-    entry; warm-start the entries past the window from the new frontier."""
+    entry; warm-start the entries past the window from the new frontier.
+    Over a mesh this rank evaluates its rows of the window, and the
+    velocities are all-gathered over ``data`` before the update."""
     Y, W = run.Y, run.W
     _, b, n, d = Y.shape
     dev, dtype = Y.device, Y.dtype
@@ -382,8 +418,18 @@ def picard_sweep(model, cfg, run: PicardRun) -> None:
     if run.mods is not None:  # w-major rows, as the reshape: [depth, W*b, 6 dim], [W*b, 2 dim]
         mods = (run.mods[0].index_select(0, win).transpose(0, 1).repeat_interleave(b, dim=1),
                 run.mods[1].index_select(0, win).repeat_interleave(b, dim=0))
+    if run.rows is not None:  # this rank's rows, the padded ones' mods with them
+        start, per, _ = run.rows
+        x_rows, t_rows = x_rows[start:start + per], t_rows[start:start + per]
+        if mods is not None:
+            mods = (mods[0][:, start:start + per], mods[1][start:start + per])
     v = _velocity(model, cfg, run.opts, run.backend, x_rows, run.cond_r, run.te_r, run.teu_r,
-                  t_rows, run.mask_r, run.extra_r, mods).reshape(W, b, n, d)
+                  t_rows, run.mask_r, run.extra_r, mods)
+    if run.rows is not None and run.rows[2] is not None:
+        from f5_tts_tpu_torch.parallel.mesh import gather_dim
+
+        v = gather_dim(v, 0, run.rows[2])
+    v = v.reshape(W, b, n, d)
     dw = run.dt_pad.index_select(0, win)
     incr = torch.cumsum(dw[:, None, None, None].to(dtype) * v, dim=0)
     y_new = Y.index_select(0, run.s.view(1)) + incr  # new guesses of Y[s+1 .. s+W]
@@ -441,7 +487,7 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
          cond_drop_prob: float = 0.2, frac_lengths_mask=(0.7, 1.0),
          backend="train_auto", valid: torch.Tensor | None = None,
          inject: dict | None = None, activation_constraint=None, rows=None,
-         count_group=None) -> torch.Tensor:
+         count_group=None, block_scan=None) -> torch.Tensor:
     """CFM training loss (reference cfm.py:231-302): flow-matching MSE over a
     random infilling span, with CFG condition drops.
 
@@ -456,7 +502,7 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
     one-process run for these rows; ``count_group`` sums the count of
     selected elements over the data ranks, so the return value is this
     rank's share of the global mean.  ``activation_constraint``: the
-    sequence-parallel hook.
+    sequence-parallel hook; ``block_scan``: the pipeline's (DiT).
     """
     b, n, d = mel.shape
     dev = mel.device
@@ -503,6 +549,8 @@ def loss(model: nn.Module, cfg: ArchConfig, mel: torch.Tensor, text_ids: torch.T
     kw = _stream_kwargs(cfg, text_ids)
     if activation_constraint is not None:
         kw["activation_constraint"] = activation_constraint
+    if block_scan is not None:
+        kw["block_scan"] = block_scan
     pred = bb.forward(model, cfg, phi, cond_in, te, time, mask=mask, backend=backend, **kw)
 
     sq = (pred - flow).square()

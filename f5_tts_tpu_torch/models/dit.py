@@ -19,6 +19,12 @@ computes the input embedding on all frames, calls the hook once to keep
 this rank's frames, runs the blocks on them with the mask and the RoPE
 table sliced alike (RoPE at global positions), and all-gathers the output
 frames (``hook.gather``).  The blocks' attention is then the ring backend.
+
+``block_scan`` (JAX :219-256) replaces the loop over the blocks, called as
+``block_scan(blocks, h, t_emb, mask, rope) -> h``: the GPipe pipeline's
+hook (``parallel/pipeline.make_dit_block_scan``).  Under tensor parallelism
+(``parallel/mesh.shard_params``) every block's attention and feed-forward
+run their share of the heads and columns; the rest is replicated.
 """
 
 from __future__ import annotations
@@ -162,13 +168,14 @@ def precompute_adaln(model: DiT, cfg: DiTConfig, times: torch.Tensor, dtype=torc
 
 def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
             drop_audio_cond: bool = False, backend="auto", adaln_mods=None,
-            activation_constraint=None):
+            activation_constraint=None, block_scan=None):
     """DiT forward with the text embedding precomputed -> flow [b, n, mel_dim].
 
     ``adaln_mods``: optional (block_mods [depth, 6 dim], final_mod [2 dim])
     from ``precompute_adaln`` for one shared timestep, or per row
     ([depth, b, 6 dim], [b, 2 dim]); ``time`` is then unused.
-    ``activation_constraint``: the sequence-parallel hook (module docstring).
+    ``activation_constraint``: the sequence-parallel hook, ``block_scan``
+    the pipeline's (module docstring).
     """
     b, n, _ = x.shape
     if adaln_mods is None:
@@ -190,10 +197,13 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
         return L.dit_block(blk, h, t_emb, cfg.heads, mask=mask, rope_freqs=rope,
                            pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod)
 
-    run = remat.block_runner(cfg, b * n)  # checkpointed under checkpoint_activations
-    for i, blk in enumerate(model.transformer_blocks):
-        mod = None if adaln_mods is None else adaln_mods[0][i].to(h.dtype)
-        h = run(blk, block, h, t_emb, mod)
+    if block_scan is not None:
+        h = block_scan(model.transformer_blocks, h, t_emb, mask, rope)
+    else:
+        run = remat.block_runner(cfg, b * n)  # checkpointed under checkpoint_activations
+        for i, blk in enumerate(model.transformer_blocks):
+            mod = None if adaln_mods is None else adaln_mods[0][i].to(h.dtype)
+            h = run(blk, block, h, t_emb, mod)
     if residual is not None:
         h = L.linear(model.long_skip_connection, torch.cat([h, residual], dim=-1))
     if adaln_mods is not None:
@@ -206,17 +216,18 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
 
 def forward_with_text(model: DiT, cfg: DiTConfig, x, cond, text_ids, time, mask=None, lens=None,
                       drop_audio_cond: bool = False, drop_text: bool = False,
-                      backend="auto", activation_constraint=None):
+                      backend="auto", activation_constraint=None, block_scan=None):
     """Training-path forward (JAX ``forward_with_text``, dit.py:293-316):
     the text encoder runs inline with the drop flags."""
     te = text_embedding(model, cfg, text_ids, x.shape[1], lens=lens, drop_text=drop_text)
     return forward(model, cfg, x, cond, te.to(x.dtype), time, mask=mask,
                    drop_audio_cond=drop_audio_cond, backend=backend,
-                   activation_constraint=activation_constraint)
+                   activation_constraint=activation_constraint, block_scan=block_scan)
 
 
 def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_emb_uncond, time,
-                mask=None, backend="auto", adaln_mods=None, activation_constraint=None):
+                mask=None, backend="auto", adaln_mods=None, activation_constraint=None,
+                block_scan=None):
     """Fused classifier-free guidance: cond and uncond rows as one 2B batch
     (reference cfg_infer, dit.py:337-346).  Returns (pred, null_pred)."""
     b = x.shape[0]
@@ -233,7 +244,8 @@ def forward_cfg(model: DiT, cfg: DiTConfig, x, step_cond, text_emb_cond, text_em
         adaln_mods = (torch.cat([adaln_mods[0], adaln_mods[0]], dim=1),
                       torch.cat([adaln_mods[1], adaln_mods[1]], dim=0))
     out = forward(model, cfg, x2, cond2, te2, t2, mask=mask2, backend=backend,
-                  adaln_mods=adaln_mods, activation_constraint=activation_constraint)
+                  adaln_mods=adaln_mods, activation_constraint=activation_constraint,
+                  block_scan=block_scan)
     return out[:b], out[b:]
 
 

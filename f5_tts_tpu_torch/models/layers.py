@@ -27,6 +27,7 @@ from f5_tts_tpu_torch.ops.attention import attention
 from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused, kernel_taps
 from f5_tts_tpu_torch.ops.quant import linear_w8a8
 from f5_tts_tpu_torch.ops.rope import apply_rotary
+from f5_tts_tpu_torch.parallel.tensor import rotary_heads, tp_of
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -37,6 +38,15 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     if w_q is not None:  # W8A8 serving (EngineOptions.quantize)
         return linear_w8a8(x, w_q, p.w_scale, p.bias)
     return F.linear(x, p.weight, p.bias)
+
+
+def row_linear(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel linear: this rank's input features times its weight
+    columns, summed over the ``model`` ranks, then the bias once."""
+    if tp is None:
+        return linear(p, x)
+    y = tp.reduce(F.linear(x, p.weight))
+    return y if p.bias is None else y + p.bias
 
 
 def embedding(p: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
@@ -256,7 +266,12 @@ class FeedForward(nn.Module):
 
 
 def feedforward(p: FeedForward, x):
-    return linear(p.ff[2], F.gelu(linear(p.ff[0][0], x), approximate="tanh"))
+    """Under tensor parallelism (``p.tp``) this rank's ``inner / tp``
+    columns: ``ff.0.0`` column-, ``ff.2`` row-parallel."""
+    tp = tp_of(p)
+    if tp is not None:
+        x = tp.copy_in(x)
+    return row_linear(p.ff[2], F.gelu(linear(p.ff[0][0], x), approximate="tanh"), tp)
 
 
 class Attention(nn.Module):
@@ -298,8 +313,15 @@ def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: i
         backend: str = "auto"):
     """Self-attention with rotary embedding (AttnProcessor, modules.py:451-556):
     rotary on the first ``pe_attn_head`` heads when set; padding keys masked
-    and the output re-masked."""
+    and the output re-masked.  ``heads`` is the model's; under tensor
+    parallelism (``p.tp``) this rank runs its ``heads / tp`` of them, the
+    rotary on those among the first ``pe_attn_head`` global heads, and the
+    re-mask comes after the all-reduce and the single bias."""
     b, n, _ = x.shape
+    tp = tp_of(p)
+    if tp is not None:
+        heads = tp.local_heads(heads)
+        x = tp.copy_in(x)
     if p.qkv_weight_q is not None:
         q, k, v = linear_w8a8(x, p.qkv_weight_q, p.qkv_w_scale, p.qkv_bias).chunk(3, dim=-1)
     elif p.qkv_weight is not None:
@@ -314,7 +336,7 @@ def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: i
         k = rms_norm(p.k_norm, k)
     if rope_freqs is not None:
         if pe_attn_head is not None:
-            pn = pe_attn_head
+            pn = rotary_heads(pe_attn_head, tp, heads)
             q = torch.cat([apply_rotary(q[:, :pn], rope_freqs), q[:, pn:]], dim=1)
             k = torch.cat([apply_rotary(k[:, :pn], rope_freqs), k[:, pn:]], dim=1)
         else:
@@ -322,7 +344,7 @@ def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: i
             k = apply_rotary(k, rope_freqs)
     o = attention(q, k, v, mask=mask, backend=backend)
     o = o.transpose(1, 2).reshape(b, n, -1)
-    o = linear(p.to_out[0], o)
+    o = row_linear(p.to_out[0], o, tp)
     if mask is not None:
         o = o * mask[..., None].to(o.dtype)
     return o

@@ -26,7 +26,11 @@ attention goes through ``ops/attention.attention`` with ``mask=None``
 The text stream keeps its own length and adds the ``text_max_pos`` absolute
 table; a longer text raises ``ValueError``, where the JAX function fails on
 a broadcast (the serving engine pads the text to the bucket width, so MMDiT
-serves buckets of at most ``text_max_pos`` frames).  With
+serves buckets of at most ``text_max_pos`` frames).  Under tensor
+parallelism (``parallel/mesh.shard_params``) the joint attention runs
+``heads / tp`` heads of both streams, the text stream's ``*_c`` projections
+split as the audio ones, and F (or C, D, E in the two-segment mode) at
+those heads; the feed-forwards split their columns.  With
 ``checkpoint_activations`` each block runs under activation checkpointing
 with the config's ``remat_policy`` (``models/remat.py``).
 """
@@ -43,6 +47,7 @@ from f5_tts_tpu_torch.ops.attention import attention, sdpa
 from f5_tts_tpu_torch.ops.flash_attention import (flash_attention_two_segment,
                                                   flash_attention_two_segment_trainable)
 from f5_tts_tpu_torch.ops.rope import apply_rotary, device_table
+from f5_tts_tpu_torch.parallel.tensor import tp_of
 
 _TRAIN_BACKENDS = ("flash_train", "train_auto")
 
@@ -153,9 +158,16 @@ def audio_embedding(model: MMDiT, x, cond, drop_audio_cond: bool = False) -> tor
 def joint_attention(p: JointAttention, xn, cn, heads: int, rope_a, rope_t, mask, c_mask,
                     attn_mask_enabled: bool, backend: str):
     """-> (audio out [b, n, dim], text out [b, nt, dim] or None for the last
-    block), both re-masked by their stream's mask."""
+    block), both re-masked by their stream's mask.  Under tensor parallelism
+    (``p.tp``) this rank runs its ``heads / tp`` heads of both streams (the
+    ``*_c`` projections split as the audio ones) and the two ``to_out``
+    projections are row-parallel."""
     b, n, _ = xn.shape
     nt = cn.shape[1]
+    tp = tp_of(p)
+    if tp is not None:
+        heads = tp.local_heads(heads)
+        xn, cn = tp.copy_in(xn), tp.copy_in(cn)
 
     def split(t):
         return t.reshape(b, -1, heads, t.shape[-1] // heads).transpose(1, 2)
@@ -185,8 +197,8 @@ def joint_attention(p: JointAttention, xn, cn, heads: int, rope_a, rope_t, mask,
     else:
         out = attention(Q, K, V, mask=None, backend=backend)
     out = out.transpose(1, 2).reshape(b, n + nt, -1)
-    xo = L.linear(p.to_out[0], out[:, :n])
-    co = L.linear(p.to_out_c, out[:, n:]) if hasattr(p, "to_out_c") else None
+    xo = L.row_linear(p.to_out[0], out[:, :n], tp)
+    co = L.row_linear(p.to_out_c, out[:, n:], tp) if hasattr(p, "to_out_c") else None
     if mask is not None:
         xo = xo * mask[..., None].to(xo.dtype)
     if co is not None and c_mask is not None:

@@ -19,7 +19,10 @@ kernels take any length, so it does not pad, which gives the same output.
 The rotary table covers the n + 1 tokens even past ``max_pos`` (:155-157).
 With ``checkpoint_activations`` each layer, its skip merge included, runs
 under activation checkpointing with the config's ``remat_policy``
-(``models/remat.py``).
+(``models/remat.py``).  Under tensor parallelism
+(``parallel/mesh.shard_params``, as JAX serves UNetT over ``model``) each
+layer's attention and feed-forward run their share of the heads and
+columns (``layers.mha``, ``layers.feedforward``); the rest is replicated.
 """
 
 from __future__ import annotations

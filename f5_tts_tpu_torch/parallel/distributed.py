@@ -14,6 +14,12 @@ coordinator's address, the process count and this process's index from its
 caller, as JAX's does.  It binds ``cuda:LOCAL_RANK`` and returns JAX's
 topology dict.  Without a GPU it raises, as every entry point of the port
 does, unless the caller names the CPU (gloo).
+
+``p2p`` posts point-to-point transfers on a group for the ring
+(``parallel/ring.py``) and the pipeline (``parallel/pipeline.py``).  gloo
+carries no CUDA tensor point-to-point, so on gloo a CUDA tensor goes
+through host memory (a copy to the host, the transfer, a copy back at the
+wait); on NCCL it goes device to device.
 """
 
 from __future__ import annotations
@@ -94,3 +100,41 @@ def process_batch_slice(global_batch: int, mesh=None) -> tuple[int, int]:
         raise ValueError(f"batch {global_batch} does not divide over {size} data ranks")
     per = global_batch // size
     return rank * per, per
+
+
+class Transfers:
+    """Point-to-point transfers in flight (``p2p``): ``wait()`` waits for
+    them and, where they went through host memory, copies each received
+    host buffer into its tensor.  The host buffers live until then."""
+
+    def __init__(self, works, sends, pairs):
+        self.works, self.sends, self.pairs = works, sends, pairs
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        for dst, src in self.pairs:
+            dst.copy_(src)
+        self.works, self.sends, self.pairs = [], [], []
+
+
+def p2p(group, sends=(), recvs=()) -> Transfers:
+    """Post ``isend`` for each (tensor, global peer rank, tag) of ``sends``
+    and ``irecv`` into each (tensor, peer, tag) of ``recvs`` on ``group``
+    (several as one ``batch_isend_irecv``).  The received tensors are
+    filled once the returned ``Transfers`` is waited on."""
+    staged = (any(t.is_cuda for t, _, _ in (*sends, *recvs))
+              and dist.get_backend(group) != "nccl")
+    host_sends = [(t.cpu() if staged else t, peer, tag) for t, peer, tag in sends]
+    host_recvs = [(torch.empty(t.shape, dtype=t.dtype) if staged else t, peer, tag)
+                  for t, peer, tag in recvs]
+    ops = ([(dist.isend, *x) for x in host_sends]
+           + [(dist.irecv, *x) for x in host_recvs])
+    if len(ops) == 1:
+        op, t, peer, tag = ops[0]
+        works = [op(t, peer, group, tag)]
+    else:
+        works = dist.batch_isend_irecv([dist.P2POp(op, t, peer, group, tag)
+                                        for op, t, peer, tag in ops])
+    pairs = [(t, h) for (t, _, _), (h, _, _) in zip(recvs, host_recvs)] if staged else []
+    return Transfers(works, [t for t, _, _ in host_sends], pairs)

@@ -5,14 +5,17 @@ JAX counterpart: ``f5_tts_tpu/parallel/mesh.py``.  A mesh is a
 from ``data``, ``seq`` and ``model`` (outer to inner), over the processes of
 the default group: one device per process.  Where JAX gives a leaf a
 ``PartitionSpec`` and lets GSPMD place it, the port states the same rule as
-DTensor placements per tensor and applies it by hand:
+DTensor placements per tensor and applies it by hand (axes, outer to inner:
+``data``, ``pipe``, ``seq``, ``model``):
 
 - ``backbone_param_specs``: JAX's Megatron column / row rule, written in the
   port's ``state_dict`` keys and torch's ``[out, in]`` layout: ``Shard(0)``
   for the weight and bias of a column-parallel linear (attention q, k, v,
   also MMDiT's ``*_c``; the FF input), ``Shard(1)`` for the weight of a
   row-parallel one (``to_out``, ``to_out_c``, the FF output), ``Replicate()``
-  elsewhere.  Applying it is tensor parallelism, the next slice.
+  elsewhere.  ``shard_params`` applies it: this rank's slices, and a
+  ``parallel/tensor.TensorParallel`` on every attention and feed-forward
+  module, which then runs its share of the heads and columns.
 - ``zero1_state_specs`` / ``shard_opt_state``: ZeRO-1, "shard the leading
   axis over ``data`` where it divides, else replicate", on the port's own
   tensor layout (``train/step.py`` updates each rank's shard).
@@ -30,7 +33,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-PIPE_AXIS = "pipe"  # the pipeline stages (the next slice)
+PIPE_AXIS = "pipe"  # the pipeline stages (parallel/pipeline.py)
 SEQ_AXIS = "seq"  # sequence parallelism (parallel/sequence.py)
 
 
@@ -66,13 +69,14 @@ def make_train_mesh(data: int | None = None, model: int = 1, pipe: int = 1, seq:
                     device_type: str | None = None) -> DeviceMesh:
     """Training mesh, outer to inner: data, (pipe), (seq), model; ``pipe``
     and ``seq`` exist only above 1, so the two-axis case is ``make_mesh``'s
-    (JAX ``make_train_mesh``)."""
-    if pipe > 1:
-        raise NotImplementedError("the pipeline axis is the next slice of the port "
-                                  "(tensor parallel and the pipeline; see ROADMAP.md)")
+    (JAX ``make_train_mesh``).  The tensor-parallel collectives ride the
+    innermost axis, the pipeline's point-to-point transfers sit outside."""
     if data is None:
-        data = dist.get_world_size() // (model * seq)
+        data = dist.get_world_size() // (model * pipe * seq)
     shape, names = [data], [DATA_AXIS]
+    if pipe > 1:
+        shape.append(pipe)
+        names.append(PIPE_AXIS)
     if seq > 1:
         shape.append(seq)
         names.append(SEQ_AXIS)
@@ -108,9 +112,41 @@ def data_rank_and_size(mesh: DeviceMesh | None) -> tuple[int, int]:
     return 0, 1
 
 
+def axis_rank(mesh: DeviceMesh | None, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (0 without a mesh or the axis)."""
+    if axis_size(mesh, axis) == 1:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def axes_group(mesh: DeviceMesh, axes: tuple[str, ...]):
+    """The process group of the ranks that share this rank's coordinates on
+    every axis but ``axes`` (e.g. ``(data, seq)``: the gradient sum), or
+    None when it holds one rank.  Every rank makes every such group, in one
+    order, at its first call on the mesh (kept on the mesh): call it at the
+    same point on every rank."""
+    names = list(mesh.mesh_dim_names or ())
+    sel = [names.index(a) for a in axes if a in names]
+    size = 1
+    for i in sel:
+        size *= mesh.size(i)
+    if size == 1:
+        return None
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    if tuple(sel) not in cache:
+        rest = [i for i in range(len(names)) if i not in sel]
+        lines = mesh.mesh.permute(*rest, *sel).reshape(-1, size).tolist()
+        me = dist.get_rank()
+        for ranks in lines:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                cache[tuple(sel)] = g
+    return cache[tuple(sel)]
+
+
 def mesh_group(mesh: DeviceMesh):
-    """The group of all of the mesh's ranks (the data x seq gradient sum):
-    the default group when the mesh spans it."""
+    """The group of all of the mesh's ranks: the default group when the
+    mesh spans it."""
     ranks = sorted(mesh.mesh.flatten().tolist())
     if ranks == list(range(dist.get_world_size())):
         return dist.group.WORLD
@@ -144,6 +180,60 @@ def backbone_param_specs(params) -> dict:
 dit_param_specs = backbone_param_specs  # JAX's historical name
 
 
+def shard_params(backbone: torch.nn.Module, mesh: DeviceMesh, specs: dict | None = None
+                 ) -> torch.nn.Module:
+    """Turn ``backbone`` into this rank's tensor-parallel shard, in place
+    (JAX ``shard_params`` under ``backbone_param_specs``): each ``Shard(d)``
+    tensor becomes its slice along ``d`` for the rank's coordinate on
+    ``model``, each ``Replicate()`` one stays whole, and every attention and
+    feed-forward module gets the ``TensorParallel`` that makes it run its
+    share.  A module holding W8A8 weights stays whole on every rank, as
+    JAX's replicated ``kernel_q`` (module docstring of ``infer/serve.py``).
+    A fused qkv is rebuilt from this rank's q, k and v slices.  Returns
+    ``backbone``; with one rank on ``model`` it is unchanged."""
+    from f5_tts_tpu_torch.models.layers import Attention
+    from f5_tts_tpu_torch.parallel.tensor import TensorParallel
+
+    group = axis_group(mesh, MODEL_AXIS)
+    if group is None:
+        return backbone
+    tp = TensorParallel(group)
+    specs = specs if specs is not None else backbone_param_specs(backbone)
+    whole = set()  # W8A8 modules: every tensor below them stays whole
+    for name, m in backbone.named_modules():
+        if _tp_module(m) and any(getattr(c, "weight_q", None) is not None
+                                 or getattr(c, "qkv_weight_q", None) is not None
+                                 for c in m.modules()):
+            whole.add(name)
+
+    def kept(key: str) -> bool:
+        return any(key.startswith(w + ".") for w in whole if w)
+
+    named = dict(backbone.named_parameters())
+    with torch.no_grad():
+        for key, spec in specs.items():
+            if isinstance(spec, Shard) and key in named and not kept(key):
+                p = named[key]
+                per = p.shape[spec.dim] // tp.size
+                if per * tp.size != p.shape[spec.dim]:
+                    raise ValueError(f"{key} {tuple(p.shape)}: dim {spec.dim} does not divide "
+                                     f"over the model axis {tp.size}")
+                p.data = p.data.narrow(spec.dim, tp.rank * per, per).clone()
+    for name, m in backbone.named_modules():
+        if _tp_module(m) and name not in whole:
+            m.tp = tp
+            if isinstance(m, Attention) and m.qkv_weight is not None:
+                m.fuse_qkv()
+    return backbone
+
+
+def _tp_module(m) -> bool:
+    from f5_tts_tpu_torch.models.layers import Attention, FeedForward
+    from f5_tts_tpu_torch.models.mmdit import JointAttention
+
+    return isinstance(m, (Attention, FeedForward, JointAttention))
+
+
 def zero1_state_specs(opt_state, mesh: DeviceMesh | None = None, dp: int | None = None):
     """ZeRO-1 placement over ``data`` of each optimizer-state tensor (a list
     or a dict of tensors): ``Shard(0)`` where the leading axis divides by the
@@ -165,6 +255,14 @@ def shard_rows(t: torch.Tensor, rank: int, dp: int) -> torch.Tensor:
     """Rank ``rank``'s rows of ``t`` under ``Shard(0)`` over ``dp`` ranks: a view."""
     per = t.shape[0] // dp
     return t.narrow(0, rank * per, per)
+
+
+def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor of ``group``'s slices of ``t`` along ``dim``, rank r's
+    the r-th (an all-gather)."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def shard_opt_state(opt_state, mesh: DeviceMesh):

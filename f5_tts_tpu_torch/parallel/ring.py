@@ -29,8 +29,10 @@ a valid key, so the two agree wherever the row has one.
 
 The rotation over a process group is a ``torch.autograd.Function``: its
 forward sends k and v to rank ``(r + 1) % sp`` and receives from ``(r - 1)
-% sp`` (``batch_isend_irecv``, which gloo has too), its backward sends the
-cotangent the other way; JAX gets this from autodiff through ``ppermute``.
+% sp`` (``parallel/distributed.p2p``: one ``batch_isend_irecv``, through
+host copies on gloo, which has no CUDA point-to-point), its backward sends
+the cotangent the other way; JAX gets this from autodiff through
+``ppermute``.
 As JAX does, the next chunk's send and receive are issued before the
 current block's compute and waited for after it.  ``ring_attention_in_process``
 runs the same per-shard body for all ``sp`` shards in one process, the
@@ -43,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from f5_tts_tpu_torch.ops.flash_attention import flash_attention_with_stats
+from f5_tts_tpu_torch.parallel.distributed import p2p
 
 NEG_BIG = -1e30
 
@@ -130,12 +133,13 @@ class _GroupRing:
         self.my = dist.get_rank(group)
         self.next = ranks[(self.my + 1) % self.sp]
         self.prev = ranks[(self.my - 1) % self.sp]
-        self.pending: list = []
+        self.pending = None  # the forward rotation's transfers in flight
 
-    def exchange(self, sends, recvs, to: int, frm: int) -> list:
-        ops = [dist.P2POp(dist.isend, t, to, self.group, tag=i) for i, t in enumerate(sends)]
-        ops += [dist.P2POp(dist.irecv, t, frm, self.group, tag=i) for i, t in enumerate(recvs)]
-        return dist.batch_isend_irecv(ops)
+    def exchange(self, sends, recvs, to: int, frm: int):
+        """Post the sends to ``to`` and the receives from ``frm``; returns
+        the ``Transfers`` to wait on (``parallel/distributed.p2p``)."""
+        return p2p(self.group, sends=[(t, to, i) for i, t in enumerate(sends)],
+                   recvs=[(t, frm, i) for i, t in enumerate(recvs)])
 
 
 class _Rotate(torch.autograd.Function):
@@ -157,9 +161,7 @@ class _Rotate(torch.autograd.Function):
         ring = ctx.ring
         gk, gv = gk.contiguous(), gv.contiguous()
         out_k, out_v = torch.empty_like(gk), torch.empty_like(gv)
-        for w in ring.exchange((gk, gv), (out_k, out_v),
-                               ring.prev, ring.next):
-            w.wait()
+        ring.exchange((gk, gv), (out_k, out_v), ring.prev, ring.next).wait()
         return None, out_k, out_v
 
 
@@ -171,9 +173,8 @@ def group_shift(group):
         k_nxt, v_nxt = _Rotate.apply(ring, k_cur, v_cur)
 
         def wait():
-            for w in ring.pending:
-                w.wait()
-            ring.pending = []
+            ring.pending.wait()
+            ring.pending = None
             return k_nxt, v_nxt
 
         return wait

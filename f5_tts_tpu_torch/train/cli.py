@@ -5,13 +5,17 @@ YAML schema (``configs/*.yaml``) through a stdlib subset parser, or a
 builtin config, applies hydra-style dotted overrides and runs the
 ``Trainer`` on the card (``--device cuda``, the default).  Under
 ``torchrun`` (``WORLD_SIZE`` > 1) every process joins the group
-(``parallel/distributed.init_distributed``) and the trainer gets a mesh of
-``WORLD_SIZE / S`` data ranks by ``S = --sequence_parallel`` seq ranks, as
-JAX :159-190; ``--zero1`` shards AdamW's moments over the data ranks.
-``--tensor_parallel`` and ``--pipeline_parallel`` above 1 (and
-``--pipeline_microbatches``) are the next slice and raise.
+(``parallel/distributed.init_distributed``) and the trainer gets the mesh
+``make_train_mesh(data=WORLD_SIZE / (T * P * S), pipe=P, seq=S, model=T)``
+of ``T = --tensor_parallel``, ``P = --pipeline_parallel`` and ``S =
+--sequence_parallel``, as JAX :158-190: tensor parallelism over ``model``,
+a GPipe pipeline of ``--pipeline_microbatches`` microbatches (default 4 x
+P) over ``pipe``, ring attention over ``seq``; ``--zero1`` shards the
+optimizer's state (AdamW's or Adafactor's) over the data ranks.
 
     torchrun --nproc_per_node=4 -m f5_tts_tpu_torch.train.cli --sequence_parallel 2 --zero1
+    torchrun --nproc_per_node=8 -m f5_tts_tpu_torch.train.cli --tensor_parallel 2 \
+        --pipeline_parallel 2 --zero1
 
 ``--pretrain`` loads a
 reference ``.pt`` / ``.safetensors`` checkpoint or a JAX-layout ``.npz``.
@@ -115,26 +119,29 @@ def main(argv=None):
     p.add_argument("--batch_size_per_gpu", type=int, default=None)
     p.add_argument("--max_samples", type=int, default=None)
     p.add_argument("--num_warmup_updates", type=int, default=None)
-    p.add_argument("--tensor_parallel", type=int, default=1)
-    p.add_argument("--pipeline_parallel", type=int, default=1)
-    p.add_argument("--pipeline_microbatches", type=int, default=0)
-    p.add_argument("--sequence_parallel", type=int, default=1)
-    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="Megatron TP degree (mesh 'model' axis)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="pipeline stages over the DiT depth (mesh 'pipe' axis)")
+    p.add_argument("--pipeline_microbatches", type=int, default=0,
+                   help="GPipe microbatches (default 4x pipeline stages)")
+    p.add_argument("--sequence_parallel", type=int, default=1,
+                   help="context-parallel degree over mel frames (mesh 'seq' axis)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer state over the data axis (ZeRO-1)")
     p.add_argument("--pretrain", type=str, default=None,
                    help="init weights (.pt / .safetensors / .npz)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*", metavar="[++]section.key=value",
                    help="hydra-style dotted overrides over the YAML / builtin config")
     args = p.parse_args(argv)
-    if args.tensor_parallel > 1 or args.pipeline_parallel > 1 or args.pipeline_microbatches:
-        raise SystemExit("tensor and pipeline parallel training are not ported yet: they are the "
-                         "next slice of the port (see ROADMAP.md)")
     import os
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world % args.sequence_parallel:
-        raise SystemExit(f"--sequence_parallel {args.sequence_parallel} needs a multiple of "
-                         f"{args.sequence_parallel} processes (torchrun --nproc_per_node); "
+    par = args.tensor_parallel * args.pipeline_parallel * args.sequence_parallel
+    if world % par:
+        raise SystemExit(f"--tensor_parallel x --pipeline_parallel x --sequence_parallel = {par} "
+                         f"needs a multiple of {par} processes (torchrun --nproc_per_node); "
                          f"WORLD_SIZE is {world}")
 
     import torch
@@ -165,7 +172,10 @@ def main(argv=None):
         from f5_tts_tpu_torch.parallel.mesh import make_train_mesh
 
         init_distributed(device=args.device)
-        mesh = make_train_mesh(data=world // args.sequence_parallel, seq=args.sequence_parallel)
+        mesh = make_train_mesh(data=world // par, model=args.tensor_parallel,
+                               pipe=args.pipeline_parallel, seq=args.sequence_parallel)
+    n_micro = args.pipeline_microbatches or (4 * args.pipeline_parallel
+                                             if args.pipeline_parallel > 1 else 0)
     dataset_name = datasets_cfg.get("name", args.dataset_name)
     vocab, vocab_size = get_tokenizer(dataset_name, model_cfg.tokenizer)
     model_cfg = with_vocab_size(model_cfg, vocab_size)
@@ -176,6 +186,7 @@ def main(argv=None):
         max_grad_norm=optim.get("max_grad_norm", 1.0),
         grad_accumulation_steps=optim.get("grad_accumulation_steps", 1),
         mixed_precision=optim.get("mixed_precision", False),
+        optimizer=optim.get("optimizer", "adamw"),  # optim.optimizer=adafactor
     )
     trainer = Trainer(
         model_cfg, vocab, opt_cfg,
@@ -191,6 +202,8 @@ def main(argv=None):
         mesh=mesh,
         seed=666,
         zero1=args.zero1,
+        tensor_parallel=args.tensor_parallel > 1,
+        pipeline_microbatches=n_micro,
         sequence_parallel=args.sequence_parallel > 1,
         device=args.device,
     )

@@ -33,6 +33,17 @@ gathers the moments into the one-device layout, and ``load_state_dict``
 takes that layout and keeps this rank's rows, so a checkpoint resumes under
 any data-parallel size.  The EMA runs on every rank, on identical
 parameters.
+
+ZeRO-1 with Adafactor (JAX ``zero1_state_specs`` on its state: ``v_row``,
+``v_col`` and ``v`` shard their leading axis where it divides): each rank
+keeps its rows of each such statistic; an update gathers them, runs
+Adafactor's rule on the whole tensor (every rank holds the whole summed
+gradients) and keeps its rows of the new statistics, so the update is the
+one-device one and every rank applies it whole.  Under tensor parallelism
+the clip reads the logical global norm (``parallel/layout.py``), AdamW
+updates each rank's slice (its rule is per element), and Adafactor, whose
+statistics and clip span the whole tensor, gathers a slice and its gradient
+over ``model``, updates the whole and keeps its slice.
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.distributed.tensor import Shard
 
-from f5_tts_tpu_torch.parallel.mesh import shard_rows, zero1_state_specs
+from f5_tts_tpu_torch.parallel.mesh import gather_dim, shard_rows, zero1_state_specs
 
 
 @dataclass(frozen=True)
@@ -96,9 +107,11 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([n.float() for n in torch._foreach_norm(tensors)]))
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm in place, with no host sync; returns the norm."""
-    norm = global_norm(grads)
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, norm_fn=None
+                         ) -> torch.Tensor:
+    """optax.clip_by_global_norm in place, with no host sync; returns the
+    norm (``norm_fn``'s, else ``global_norm``'s)."""
+    norm = (norm_fn or global_norm)(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
     return norm
@@ -119,6 +132,11 @@ class Adafactor(torch.optim.Optimizer):
     - p -= u + wd * p: optax adds the decay after the learning rate, so it
       is not scaled by it.  No momentum.
 
+    The two rms are over a leaf of JAX's tree, and JAX stacks the blocks of
+    a backbone into one leaf per tensor name: ``stacks`` maps each block
+    tensor to its stack (``utils/ckpt.stacked_leaf``), whose blocks share
+    one rms of u and one of p (``_block_rms``).
+
     The factored axes depend only on the parameter's sizes, so the torch
     layout (a linear's [out, in]) factors as JAX's ([in, out]) does.  Not
     ``torch.optim.Adafactor``, whose update rule differs.
@@ -130,8 +148,14 @@ class Adafactor(torch.optim.Optimizer):
     MIN_SCALE = 1e-3  # the floor of rms(p) in multiply_by_parameter_scale
     EPS = 1e-30
 
-    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, zero1_group=None,
+                 tp_dims: dict | None = None, stacks: dict | None = None, stack_group=None):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.zero1_group = zero1_group
+        self.tp_dims = tp_dims or {}  # param -> (dim, model group) of a tensor-parallel slice
+        self.stacks = stacks or {}  # param -> the JAX leaf it is a depth slice of
+        self.stack_group = stack_group  # the pipe ranks a stack's slices spread over
+        self.sharded: dict = {}  # param -> the state keys held as this rank's rows
 
     @classmethod
     def factored_dims(cls, shape) -> tuple[int, int] | None:
@@ -145,21 +169,41 @@ class Adafactor(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self):
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    self._update(p, p.grad, group)
+        work = [(p, group, *self._direction(p)) for group in self.param_groups
+                for p in group["params"] if p.grad is not None]
+        rms = self._block_rms([(self.stacks.get(p), full_p, u) for p, _, full_p, u, _ in work])
+        for (p, group, full_p, u, state), (rms_u, rms_p) in zip(work, rms):
+            u = u / torch.clamp(rms_u / self.CLIP, min=1.0)
+            u = u * group["lr"] * torch.clamp(rms_p, min=self.MIN_SCALE)
+            if group["weight_decay"]:
+                u = u + group["weight_decay"] * full_p
+            full_p.sub_(u)
+            self._keep(p, full_p, state)
 
-    def _update(self, p, g, group):
+    def _direction(self, p):
+        """One parameter's second moments and its update direction g /
+        sqrt(moment) on its logical (whole) tensor: a tensor-parallel slice
+        and its gradient are gathered over ``model`` first, and ZeRO-1's
+        state rows over ``data``.  Returns (whole parameter, direction,
+        whole state)."""
+        full_p, g = p, p.grad
+        tp = self.tp_dims.get(p)
+        if tp is not None:
+            full_p, g = (gather_dim(t, *tp) for t in (p.detach(), g))
         state = self.state[p]
-        dims = self.factored_dims(tuple(p.shape))
+        if self.zero1_group is not None:
+            state = {k: gather_shard(v, self.zero1_group) if k in self.sharded.get(p, ()) else v
+                     for k, v in state.items()}
+        dims = self.factored_dims(tuple(full_p.shape))
         if not state:
             state["step"] = 0
             if dims is None:
-                state["v"] = torch.zeros_like(p)
+                state["v"] = torch.zeros_like(full_p)
             else:
-                state["v_row"] = p.new_zeros([s for i, s in enumerate(p.shape) if i != dims[1]])
-                state["v_col"] = p.new_zeros([s for i, s in enumerate(p.shape) if i != dims[0]])
+                state["v_row"] = full_p.new_zeros([s for i, s in enumerate(full_p.shape)
+                                                   if i != dims[1]])
+                state["v_col"] = full_p.new_zeros([s for i, s in enumerate(full_p.shape)
+                                                   if i != dims[0]])
         t = state["step"]
         decay = 1.0 - float(np.float32(t + 1) ** np.float32(-self.DECAY_RATE))
         g2 = g.square() + self.EPS
@@ -173,17 +217,69 @@ class Adafactor(torch.optim.Optimizer):
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
             u = g * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-        u = u / torch.clamp(u.square().mean().sqrt() / self.CLIP, min=1.0)
-        u = u * group["lr"] * torch.clamp(p.square().mean().sqrt(), min=self.MIN_SCALE)
-        if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        p.sub_(u)
         state["step"] = t + 1
+        return full_p, u, state
+
+    def _block_rms(self, items) -> list:
+        """(rms(u), rms(p)) for each (stack, whole parameter, direction) of
+        ``items``.  optax's ``clip_by_block_rms`` and
+        ``scale_by_param_block_rms`` read each leaf of JAX's tree whole, and
+        JAX stacks a backbone's blocks into one leaf per tensor name
+        (``utils/ckpt.stacked_leaf``): the blocks of a stack share its rms,
+        their sums added over ``stack_group`` where the pipeline spreads
+        them over stages.  Any other tensor is its own leaf."""
+        sums = {}
+        for key, p, u in items:
+            if key is not None:
+                part = torch.stack([u.square().sum(), p.square().sum()]).double()
+                part = torch.cat([part, part.new_tensor([float(u.numel())])])
+                sums[key] = part if key not in sums else sums[key] + part
+        keys = sorted(sums)  # one order on every rank of the group
+        if keys and self.stack_group is not None:
+            buf = torch.stack([sums[k] for k in keys])
+            dist.all_reduce(buf, group=self.stack_group)
+            sums = dict(zip(keys, buf))
+        out = []
+        for key, p, u in items:
+            if key is None:
+                out.append((u.square().mean().sqrt(), p.square().mean().sqrt()))
+            else:
+                su, sq, n = sums[key]
+                out.append(((su / n).sqrt().float(), (sq / n).sqrt().float()))
+        return out
+
+    def _keep(self, p, full_p, state):
+        """This rank's slice of the updated whole parameter, and its rows of
+        the state under ZeRO-1."""
+        tp = self.tp_dims.get(p)
+        if tp is not None:
+            dim, grp = tp
+            per = p.shape[dim]
+            p.copy_(full_p.narrow(dim, dist.get_rank(grp) * per, per))
+        if self.zero1_group is not None:
+            dp, rank = dist.get_world_size(self.zero1_group), dist.get_rank(self.zero1_group)
+            specs = zero1_state_specs(state, dp=dp)
+            self.sharded[p] = {k for k, v in state.items()
+                               if torch.is_tensor(v) and isinstance(specs[k], Shard)}
+            self.state[p] = {k: shard_rows(v, rank, dp).clone() if k in self.sharded[p] else v
+                             for k, v in state.items()}
+        else:
+            self.state[p] = state
 
     def state_bytes(self) -> int:
         """Bytes the optimizer state holds on the device."""
         return sum(t.numel() * t.element_size() for st in self.state.values()
                    for t in st.values() if torch.is_tensor(t))
+
+
+def gather_shard(part: torch.Tensor, group) -> torch.Tensor:
+    """The whole tensor of ``group``'s row blocks ``part`` (rank r's is the
+    r-th, ``parallel/mesh.shard_rows``)."""
+    dp = dist.get_world_size(group)
+    full = part.new_empty((part.shape[0] * dp, *part.shape[1:]))
+    shard_rows(full, dist.get_rank(group), dp).copy_(part)
+    gather_rows_(full, group)
+    return full
 
 
 def all_reduce_sum_(tensors, group, bucket_elems: int = 1 << 24) -> None:
@@ -223,23 +319,29 @@ def gather_rows_(full: torch.Tensor, group) -> None:
 class Optimizer:
     """Clip + AdamW or Adafactor with gradient accumulation (``make_optimizer``'s
     chain).  ``inner`` is the torch optimizer, ``scheduler`` its LambdaLR.
-    ``zero1_group``: the data ranks' group, for ZeRO-1 (module docstring;
-    AdamW only)."""
+    ``zero1_group``: the data ranks' group, for ZeRO-1 (module docstring).
+    ``norm_fn``: the global norm of the gradients (the logical one under
+    tensor or pipeline parallelism, ``parallel/layout.ModelLayout``);
+    ``tp_dims``: {parameter index: (dim, model group)} of the tensor-parallel
+    slices, which Adafactor updates on their whole tensor; ``stacks``: per
+    parameter, the JAX leaf it is a depth slice of (or None), which
+    Adafactor's rms spans, over ``stack_group`` (the pipe ranks) where the
+    pipeline spreads the slices."""
 
-    def __init__(self, params: list[nn.Parameter], cfg: OptimConfig, zero1_group=None):
+    def __init__(self, params: list[nn.Parameter], cfg: OptimConfig, zero1_group=None,
+                 norm_fn=None, tp_dims: dict | None = None, stacks=None, stack_group=None):
         self.cfg = cfg
         self.params = list(params)
         self.k = max(cfg.grad_accumulation_steps, 1)
+        self.norm_fn = norm_fn or global_norm
         self.zero1_group = zero1_group if (zero1_group is not None
                                            and dist.get_world_size(zero1_group) > 1) else None
         targets = self.params
+        self.row_sharded = self.zero1_group is not None and cfg.optimizer == "adamw"
         if self.zero1_group is not None:
-            if cfg.optimizer != "adamw":
-                raise NotImplementedError(
-                    "ZeRO-1 shards AdamW's moments; Adafactor's factored moments are rows and "
-                    "columns of whole matrices, and its ZeRO-1 is not ported (see ROADMAP.md)")
             self.dp = dist.get_world_size(self.zero1_group)
             self.rank = dist.get_rank(self.zero1_group)
+        if self.row_sharded:
             self.sharded = [isinstance(sp, Shard)
                             for sp in zero1_state_specs(self.params, dp=self.dp)]
             # leaf views of each parameter's rows: AdamW updates them in place
@@ -251,7 +353,11 @@ class Optimizer:
                                            eps=cfg.eps, weight_decay=cfg.weight_decay)
         elif cfg.optimizer == "adafactor":
             self.inner = Adafactor(self.params, lr=cfg.learning_rate,
-                                   weight_decay=cfg.weight_decay)
+                                   weight_decay=cfg.weight_decay, zero1_group=self.zero1_group,
+                                   tp_dims={self.params[i]: v for i, v in (tp_dims or {}).items()},
+                                   stacks={p: k for p, k in zip(self.params, stacks or ())
+                                           if k is not None},
+                                   stack_group=stack_group)
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r} (adamw | adafactor)")
         sched, base = lr_schedule(cfg), cfg.learning_rate
@@ -274,13 +380,13 @@ class Optimizer:
         acc = [p.grad for p in self.params]
         if self.k > 1:
             torch._foreach_div_(acc, float(self.k))
-        clip_by_global_norm_(acc, self.cfg.max_grad_norm)
-        if self.zero1_group is not None:
+        clip_by_global_norm_(acc, self.cfg.max_grad_norm, self.norm_fn)
+        if self.row_sharded:
             for t, p, sh in zip(self.targets, self.params, self.sharded):
                 t.grad = shard_rows(p.grad, self.rank, self.dp) if sh else p.grad
         self.inner.step()
         self.scheduler.step()
-        if self.zero1_group is not None:
+        if self.row_sharded:
             for t, p, sh in zip(self.targets, self.params, self.sharded):
                 t.grad = None
                 if sh:
@@ -289,36 +395,47 @@ class Optimizer:
             p.grad = None
         return True
 
+    def _sharded_keys(self, i: int) -> tuple:
+        """The state keys of parameter ``i`` held as this rank's rows."""
+        if self.zero1_group is None:
+            return ()
+        if self.row_sharded:
+            return ("exp_avg", "exp_avg_sq") if self.sharded[i] else ()
+        # sorted: a set's order differs between processes, a collective's may not
+        return tuple(sorted(self.inner.sharded.get(self.params[i], ())))
+
     def state_dict(self) -> dict:
         """The inner optimizer's state dict in the one-device layout: under
-        ZeRO-1 the moments' rows gathered from every data rank (a collective:
+        ZeRO-1 the state's rows gathered from every data rank (a collective:
         every rank calls it)."""
         sd = self.inner.state_dict()
         if self.zero1_group is None:
             return sd
         state = dict(sd["state"])
-        for i, sh in enumerate(self.sharded):
-            if sh and i in state:
-                st = dict(state[i])
-                for key in ("exp_avg", "exp_avg_sq"):
-                    part = st[key]
-                    full = part.new_empty((part.shape[0] * self.dp, *part.shape[1:]))
-                    shard_rows(full, self.rank, self.dp).copy_(part)
-                    gather_rows_(full, self.zero1_group)
-                    st[key] = full
-                state[i] = st
+        for i in range(len(self.params)):
+            keys = self._sharded_keys(i)
+            if keys and i in state:
+                state[i] = dict(state[i], **{k: gather_shard(state[i][k], self.zero1_group)
+                                             for k in keys})
         return dict(sd, state=state)
 
     def load_state_dict(self, sd: dict) -> None:
         """Load a one-device-layout state dict (``state_dict``'s); under
-        ZeRO-1 this rank keeps its rows of each sharded moment."""
+        ZeRO-1 this rank keeps its rows of each sharded tensor."""
         if self.zero1_group is not None:
             state = dict(sd["state"])
-            for i, sh in enumerate(self.sharded):
-                if sh and i in state:
-                    state[i] = dict(state[i], **{
-                        key: shard_rows(state[i][key], self.rank, self.dp).clone()
-                        for key in ("exp_avg", "exp_avg_sq")})
+            for i in range(len(self.params)):
+                if i not in state:
+                    continue
+                if self.row_sharded:
+                    keys = self._sharded_keys(i)
+                else:  # Adafactor: the rule its step applies
+                    specs = zero1_state_specs(state[i], dp=self.dp)
+                    keys = tuple(k for k, v in state[i].items()
+                                 if torch.is_tensor(v) and isinstance(specs[k], Shard))
+                    self.inner.sharded[self.params[i]] = set(keys)
+                state[i] = dict(state[i], **{
+                    k: shard_rows(state[i][k], self.rank, self.dp).clone() for k in keys})
             sd = dict(sd, state=state)
         self.inner.load_state_dict(sd)
 
@@ -340,8 +457,14 @@ class Optimizer:
             p.grad = None if state is None else state["grads"][i].to(p.device)
 
 
-def make_optimizer(params, cfg: OptimConfig, zero1_group=None) -> Optimizer:
-    return Optimizer(params, cfg, zero1_group=zero1_group)
+def make_optimizer(params, cfg: OptimConfig, zero1_group=None, layout=None,
+                   stacks=None) -> Optimizer:
+    """``Optimizer`` over ``params``.  ``layout`` (``parallel/layout.
+    ModelLayout``, whose ``live`` parameters ``params`` are) gives the
+    logical norm, the tensor-parallel slices and the pipe group;
+    ``stacks``: per parameter, ``utils/ckpt.stacked_leaf`` of its name."""
+    kw = {} if layout is None else layout.optimizer_kwargs()
+    return Optimizer(params, cfg, zero1_group=zero1_group, stacks=stacks, **kw)
 
 
 @torch.no_grad()
@@ -376,7 +499,7 @@ def batch_mel(batch: dict, mel_cfg=None) -> torch.Tensor:
 def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, micro: int,
                batch: dict, seed: int, opt_cfg: OptimConfig, backend="train_auto",
                mel_cfg=None, activation_constraint=None, rows=None, data_group=None,
-               grad_group=None):
+               grad_group=None, block_scan=None, layout=None):
     """One micro-step on ``model`` (a ``models.cfm.CFM``): loss and gradients,
     the optimizer (an update on every k-th micro-step) and the EMA.
 
@@ -390,7 +513,11 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, mic
     Over a mesh: ``rows`` and ``data_group`` go to ``cfm.loss`` (its
     ``rows`` and ``count_group``); ``grad_group`` (data x seq) sums the
     gradients; the reported loss is summed over ``data_group``, the global
-    mean.  ``activation_constraint``: the sequence-parallel hook.
+    mean.  ``activation_constraint``: the sequence-parallel hook;
+    ``block_scan`` the pipeline's.  ``layout`` (``parallel/layout.ModelLayout``,
+    under tensor or pipeline parallelism): the gradients are taken for its
+    ``live`` parameters (the optimizer's), and the reported norm is the
+    logical one.
     """
     mel = batch_mel(batch, mel_cfg)
     gen = torch.Generator(device=mel.device).manual_seed(seed)
@@ -399,21 +526,26 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, mic
     args = (batch["text_ids"], batch["lens"])
     kw = dict(generator=gen, drop_generator=drop_gen, backend=backend, valid=batch.get("valid"),
               activation_constraint=activation_constraint, rows=rows, count_group=data_group)
+    if block_scan is not None:
+        kw["block_scan"] = block_scan
     if opt_cfg.mixed_precision:
         low = {k: p.to(torch.bfloat16) if p.is_floating_point() else p for k, p in named.items()}
         loss = torch.func.functional_call(model, low, (mel.to(torch.bfloat16), *args), kw)
     else:
         loss = model(mel, *args, **kw)
-    params = list(named.values())
+    live = list(named) if layout is None else layout.live
+    params = [named[k] for k in live]
     grads = torch.autograd.grad(loss, params)
     loss = loss.detach()
     if grad_group is not None:
         all_reduce_sum_(grads, grad_group)
         if data_group is not None:
             dist.all_reduce(loss, group=data_group)
-    gnorm = global_norm(grads)
+    gnorm = optimizer.norm_fn(grads)
     did_update = optimizer.step(grads)
     micro += 1
     if did_update:
-        ema_update(list(ema_model.parameters()), params, micro // optimizer.k, opt_cfg)
+        ema = list(ema_model.parameters()) if layout is None else \
+            [dict(ema_model.named_parameters())[k] for k in live]
+        ema_update(ema, params, micro // optimizer.k, opt_cfg)
     return micro, {"loss": loss, "grad_norm": gnorm}

@@ -41,8 +41,21 @@ started by ``parallel/distributed.init_distributed``), as JAX :121-125,
   width, so every rank has the same shapes and draws for its rows what the
   one-process run draws there (``cfm.loss`` ``rows``); the gradients are
   summed over the data (and seq) ranks before the clip (``train/step.py``);
-- ``zero1`` shards AdamW's moments over ``data`` (``train/step.Optimizer``);
-  a checkpoint holds them gathered, so it resumes under any data size;
+- ``zero1`` shards the optimizer's state over ``data``: AdamW's moments or
+  Adafactor's statistics (``train/step.Optimizer``); a checkpoint holds them
+  gathered, so it resumes under any data size;
+- ``tensor_parallel`` (a ``model`` axis) splits every block's attention
+  heads and feed-forward columns over ``model`` (``parallel/tensor.py``),
+  and ``pipeline_microbatches = M`` (a ``pipe`` axis; DiT) runs the blocks
+  as a GPipe pipeline of M microbatches over ``pipe``
+  (``parallel/pipeline.py``), JAX :117-181, 354-369: the rows of each
+  global batch are padded to a multiple of data x M; the parameters are
+  placed by ``parallel/layout.ModelLayout`` (each rank its slices and its
+  stage's blocks), the gradients summed over data x seq alone, the clip
+  reads the logical global norm, and every checkpoint is written in the
+  one-device layout, gathered from the shards, so a model trained under
+  tp x pp loads into a one-device ``F5TTS``, and resumes under any mesh;
+  with ``seq`` too the pipeline runs ring attention in each tick (pp x sp);
 - ``sequence_parallel`` splits the frames over ``seq`` on ring attention
   (``parallel/sequence.py``, ``parallel/ring.py``): DiT only, as in JAX,
   whose UNetT and MMDiT take no activation constraint;
@@ -51,9 +64,6 @@ started by ``parallel/distributed.init_distributed``), as JAX :121-125,
   version already compute (``models/layers.conv_pos_embed_taps``);
 - rank 0 writes the checkpoints, the JSONL log and the loggers; a SIGTERM
   on any rank makes every rank save and stop at the same micro-step.
-
-``tensor_parallel`` and ``pipeline_microbatches`` are the next slice and
-raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,12 +87,8 @@ from f5_tts_tpu_torch.parallel.distributed import process_batch_slice
 from f5_tts_tpu_torch.train.dataset import (DynamicBatchSampler, SampleBatchSampler,
                                             collate_batch, collate_wav_batch, pad_frames_to)
 from f5_tts_tpu_torch.train.step import OptimConfig, make_optimizer, train_step
-from f5_tts_tpu_torch.utils.ckpt import CheckpointWriter, train_checkpoint
+from f5_tts_tpu_torch.utils.ckpt import CheckpointWriter, stacked_leaf, train_checkpoint
 from f5_tts_tpu_torch.utils.device import resolve_device
-
-_NEXT_SLICE = ("is the next slice of the port (tensor parallel, the pipeline and Picard over a "
-               "mesh; see ROADMAP.md)")
-
 
 def micro_step_seed(seed: int, micro: int) -> int:
     """The generator seed of micro-step ``micro`` of a run seeded ``seed``."""
@@ -118,10 +124,6 @@ class Trainer:
         device: str | None = None,
         log_every_updates: int = 10,  # the JSONL log's cadence (and update 1)
     ):
-        for name, value in (("tensor_parallel", tensor_parallel),
-                            ("pipeline_microbatches", pipeline_microbatches)):
-            if value:
-                raise NotImplementedError(f"Trainer({name}=...) {_NEXT_SLICE}")
         if mesh is not None:
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -129,14 +131,19 @@ class Trainer:
                 raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py), "
                                 f"got {type(mesh).__name__}")
         mesh_axes = set(mesh.mesh_dim_names) if mesh is not None else set()
-        if M.axis_size(mesh, M.MODEL_AXIS) > 1 or M.PIPE_AXIS in mesh_axes:
-            raise NotImplementedError(f"a mesh with a model or pipe axis {_NEXT_SLICE}")
         self.mesh = mesh
         self.dp = M.axis_size(mesh, M.DATA_AXIS)
         self.sequence_parallel = bool(sequence_parallel) and M.SEQ_AXIS in mesh_axes
         if self.sequence_parallel and model_cfg.arch.backbone != "DiT":
             raise ValueError(f"sequence_parallel runs DiT only ({model_cfg.arch.backbone} takes "
                              "no activation constraint, in JAX either)")
+        self.tensor_parallel = bool(tensor_parallel) and M.axis_size(mesh, M.MODEL_AXIS) > 1
+        # JAX :121: the microbatches count only with a pipe axis
+        self.pipeline_microbatches = (int(pipeline_microbatches) if M.PIPE_AXIS in mesh_axes
+                                      else 0)
+        if self.pipeline_microbatches and model_cfg.arch.backbone != "DiT":
+            raise ValueError(f"the pipeline runs DiT only ({model_cfg.arch.backbone}'s forward "
+                             "takes no block_scan, in JAX either)")
         self.zero1 = bool(zero1) and self.dp > 1
         self.convpos_taps = bool(convpos_taps)  # routes nothing (module docstring)
         self.is_main = mesh is None or torch.distributed.get_rank() == 0
@@ -162,7 +169,8 @@ class Trainer:
         self.log_every_updates = log_every_updates
         self.mel_in_graph = mel_in_graph
         self.writer = CheckpointWriter()
-        self._groups = None  # (data, data x seq) process groups, made in train()
+        self._groups = None  # (data, data x seq, all) process groups, made in train()
+        self.layout = None  # parallel/layout.ModelLayout under tensor or pipeline parallelism
         os.makedirs(ckpt_dir, exist_ok=True)
         self.log_file = log_file or os.path.join(ckpt_dir, "train_log.jsonl")
         self.wandb = None
@@ -198,6 +206,14 @@ class Trainer:
         the rotation of the numbered files runs after it, on the writer."""
         acc = optimizer.accumulation_state()
         opt_state = optimizer.state_dict()  # under ZeRO-1 a gather: every rank calls it
+        lay = self.layout
+        if lay is not None:  # the one-device layout, gathered from the shards (collectives)
+            dev = next(model.parameters()).device
+            opt_state = lay.full_optimizer_state(
+                opt_state, whole_tp_state=self.opt_cfg.optimizer == "adafactor")
+            model, ema_model = lay.full_state_dict(model), lay.full_state_dict(ema_model)
+            if acc is not None:
+                acc = dict(acc, grads=lay.gather_live(acc["grads"], dev))
         if not self.is_main:
             return
         obj = train_checkpoint(model, ema_model, opt_state,
@@ -282,24 +298,45 @@ class Trainer:
         model = model.to(self.device)
         ema_model = copy.deepcopy(model).requires_grad_(False)
         if self.mesh is not None and self._groups is None:
-            self._groups = (M.axis_group(self.mesh, M.DATA_AXIS), M.mesh_group(self.mesh))
-        data_group, grad_group = self._groups or (None, None)
-        optimizer = make_optimizer(list(model.parameters()), self.opt_cfg,
-                                   zero1_group=data_group if self.zero1 else None)
+            self._groups = (M.axis_group(self.mesh, M.DATA_AXIS),
+                            M.axes_group(self.mesh, (M.DATA_AXIS, M.SEQ_AXIS)),
+                            M.mesh_group(self.mesh))
+        data_group, grad_group, all_group = self._groups or (None, None, None)
+        ckpt = self.load_checkpoint() if resume else None
+        if ckpt is not None:  # the one-device layout, before any sharding
+            model.load_state_dict(ckpt["model_state_dict"])
+            ema_model.load_state_dict({k[len("ema_model."):]: v
+                                       for k, v in ckpt["ema_model_state_dict"].items()
+                                       if k.startswith("ema_model.")})
+        lay = None
+        if self.tensor_parallel or self.pipeline_microbatches:  # JAX :354-369
+            from f5_tts_tpu_torch.parallel.layout import ModelLayout
+
+            lay = ModelLayout(model, self.mesh, tensor_parallel=self.tensor_parallel,
+                              pipeline=bool(self.pipeline_microbatches))
+            lay.apply_(model)
+            lay.apply_(ema_model)
+        self.layout = lay
+        names = [n for n, _ in model.named_parameters()] if lay is None else lay.live
+        params = list(model.parameters()) if lay is None else lay.live_params(model)
+        optimizer = make_optimizer(params, self.opt_cfg,
+                                   zero1_group=data_group if self.zero1 else None, layout=lay,
+                                   stacks=[stacked_leaf(n, self.model_cfg.arch) for n in names])
         self.optimizer = optimizer  # the last run's, for inspection
         micro = 0
-        if resume:
-            ckpt = self.load_checkpoint()
-            if ckpt is not None:
-                model.load_state_dict(ckpt["model_state_dict"])
-                ema_model.load_state_dict({k[len("ema_model."):]: v
-                                           for k, v in ckpt["ema_model_state_dict"].items()
-                                           if k.startswith("ema_model.")})
-                optimizer.load_state_dict(ckpt["optimizer_state_dict"])
-                optimizer.scheduler.load_state_dict(ckpt["scheduler_state_dict"])
-                optimizer.load_accumulation_state(ckpt.get("grad_accumulation"))
-                micro = int(ckpt["step"])
-                print(f"resumed at micro-step {micro} (update {micro // optimizer.k})")
+        if ckpt is not None:
+            opt_sd, acc = ckpt["optimizer_state_dict"], ckpt.get("grad_accumulation")
+            if lay is not None:
+                opt_sd = lay.live_optimizer_state(
+                    opt_sd, whole_tp_state=self.opt_cfg.optimizer == "adafactor")
+                if acc is not None:
+                    full = dict(zip(lay.names, acc["grads"]))
+                    acc = dict(acc, grads=[lay.local(n, full[n]) for n in lay.live])
+            optimizer.load_state_dict(opt_sd)
+            optimizer.scheduler.load_state_dict(ckpt["scheduler_state_dict"])
+            optimizer.load_accumulation_state(acc)
+            micro = int(ckpt["step"])
+            print(f"resumed at micro-step {micro} (update {micro // optimizer.k})")
         k_accum = optimizer.k
         update = micro // k_accum
         batches_per_epoch = max(len(sampler), 1)
@@ -329,6 +366,8 @@ class Trainer:
             return collate_batch([dataset[i] for i in idx], self.vocab,
                                  self.model_cfg.tokenizer, **kw)
 
+        rows_multiple = self.dp * max(1, self.pipeline_microbatches)
+
         def produce(skip_n: int, out_q: queue.Queue):
             for bi, idx in enumerate(sampler):
                 if bi < skip_n:
@@ -339,8 +378,9 @@ class Trainer:
                 # this data rank's rows of the global batch (JAX :434-470):
                 # padded to a multiple of dp with valid = 0 duplicates, at the
                 # global padded width from the sampler's metadata
+                # rows divide over data and the GPipe microbatches (JAX :446-451)
                 b_real, idx = len(idx), list(idx)
-                idx += [idx[i % b_real] for i in range(-b_real % self.dp)]
+                idx += [idx[i % b_real] for i in range(-b_real % rows_multiple)]
                 n_global = pad_frames_to(
                     max(int(math.ceil(dataset.get_frame_len(i))) for i in idx), 256)
                 start, size = process_batch_slice(len(idx), self.mesh)
@@ -371,13 +411,22 @@ class Trainer:
                 out_q.put((tensors, b_real, n_frames, valid_frames, rows))
 
         state = (model, ema_model, optimizer)
-        seq, backend = None, "train_auto"
+        seq, backend, block_scan, ring_in_pipe = None, "train_auto", None, None
         if self.sequence_parallel:  # JAX :148-170: the seq hook and ring attention
             from f5_tts_tpu_torch.parallel.ring import make_ring_attention
             from f5_tts_tpu_torch.parallel.sequence import make_seq_constraint
 
             seq = make_seq_constraint(self.mesh)
-            backend = make_ring_attention(self.mesh, block_impl="auto")
+            if self.pipeline_microbatches:  # pp x sp: the ring inside every tick
+                ring_in_pipe = "auto"
+            else:
+                backend = make_ring_attention(self.mesh, block_impl="auto")
+        if self.pipeline_microbatches:
+            from f5_tts_tpu_torch.parallel.pipeline import make_dit_block_scan
+
+            block_scan = make_dit_block_scan(self.model_cfg.arch, self.mesh,
+                                             self.pipeline_microbatches, backend=backend,
+                                             ring_sequence=ring_in_pipe)
         for epoch in range(start_epoch, epochs):
             sampler.set_epoch(epoch)
             q1: queue.Queue = queue.Queue(maxsize=4)
@@ -397,7 +446,8 @@ class Trainer:
                                             micro_step_seed(self.seed, micro), self.opt_cfg,
                                             mel_cfg=mel_cfg, rows=rows, data_group=data_group,
                                             grad_group=grad_group, backend=backend,
-                                            activation_constraint=seq)
+                                            activation_constraint=seq, block_scan=block_scan,
+                                            layout=lay)
                 did_update = micro % k_accum == 0
                 if did_update:
                     update = micro // k_accum
@@ -420,7 +470,7 @@ class Trainer:
                             print(f"log_samples failed at update {update}: {e}")
                 if did_update and update % self.last_per_updates == 0:
                     self.save_checkpoint(*state, micro, update, last=True)
-                if self._agree(preempt["hit"], grad_group):
+                if self._agree(preempt["hit"], all_group):
                     self.save_checkpoint(*state, micro, update, last=True, block=True)
                     self._log({"preempted": True, "update": update, "micro_step": micro})
                     print(f"SIGTERM: model_last.pt at micro-step {micro}; exiting")

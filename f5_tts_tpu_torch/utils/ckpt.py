@@ -33,7 +33,8 @@ backbone to the DiT, UNetT and MMDiT converters),
 the JAX package's canonical (unfused) parameter pytree, as nested dicts of
 numpy arrays, into the port's reference-named state dict;
 ``jax_params_from_state``, ``vocos_jax_params_from_state`` and
-``bigvgan_jax_params_from_state`` go the other way.  ``save_pytree`` /
+``bigvgan_jax_params_from_state`` go the other way; ``stacked_leaf`` names
+the stacked leaf a block's tensor lands in.  ``save_pytree`` /
 ``load_pytree`` write and read the JAX package's ``.npz`` snapshots (keyed
 by each leaf's ``keystr`` path), so either package loads the other's.
 ``export_safetensors`` writes a reference release file
@@ -44,6 +45,7 @@ the text table for a larger vocabulary; ``params_astype`` casts.
 from __future__ import annotations
 
 import os
+import re
 import threading
 
 import numpy as np
@@ -134,7 +136,7 @@ def load_dit_state(cfm: nn.Module, state: dict) -> nn.Module:
     return load_into(cfm.transformer, state)
 
 
-def train_checkpoint(model: nn.Module, ema_model: nn.Module, optimizer_state: dict,
+def train_checkpoint(model: nn.Module | dict, ema_model: nn.Module | dict, optimizer_state: dict,
                      scheduler_state: dict, step: int, update: int,
                      extra: dict | None = None) -> dict:
     """A training checkpoint in the reference trainer's ``.pt`` layout, which
@@ -142,10 +144,14 @@ def train_checkpoint(model: nn.Module, ema_model: nn.Module, optimizer_state: di
     ``model_state_dict``, ``ema_model_state_dict`` (ema_pytorch's keys:
     ``ema_model.``-prefixed weights plus ``initted`` and ``step``),
     ``optimizer_state_dict``, ``scheduler_state_dict`` and ``step``
-    (micro-steps taken), plus ``extra``'s keys."""
+    (micro-steps taken), plus ``extra``'s keys.  ``model`` and ``ema_model``
+    may be given as their state dicts."""
+    def sd(m):
+        return m if isinstance(m, dict) else m.state_dict()
+
     ema = {"initted": torch.tensor(True), "step": torch.tensor(update)}
-    ema.update({f"ema_model.{k}": v for k, v in ema_model.state_dict().items()})
-    return {"model_state_dict": model.state_dict(), "ema_model_state_dict": ema,
+    ema.update({f"ema_model.{k}": v for k, v in sd(ema_model).items()})
+    return {"model_state_dict": sd(model), "ema_model_state_dict": ema,
             "optimizer_state_dict": optimizer_state, "scheduler_state_dict": scheduler_state,
             "step": step, **(extra or {})}
 
@@ -602,6 +608,27 @@ def mmdit_jax_params_from_state(state: dict, cfg) -> dict:
 
 _TREES = {"DiT": dit_jax_params_from_state, "UNetT": unett_jax_params_from_state,
           "MMDiT": mmdit_jax_params_from_state}
+
+
+_BLOCK_KEY = re.compile(r"(^|\.)transformer_blocks\.(\d+)\.(.+)$")
+
+
+def stacked_leaf(name: str, cfg) -> str | None:
+    """The leaf of the JAX package's tree that the state-dict tensor
+    ``name`` is one depth slice of, where ``jax_params_from_state`` stacks
+    blocks on a leading axis: every DiT block into ``blocks``, UNetT's two
+    halves into ``first`` and ``second``, all of MMDiT's blocks but the last
+    into ``blocks``.  None for a tensor that is a leaf of its own."""
+    m = _BLOCK_KEY.search(name)
+    if m is None:
+        return None
+    i, rest = int(m.group(2)), m.group(3)
+    backbone = getattr(cfg, "backbone", "DiT")
+    if backbone == "UNetT":
+        return ("first." if i < cfg.depth // 2 else "second.") + rest
+    if backbone == "MMDiT" and i == cfg.depth - 1:
+        return None
+    return "blocks." + rest
 
 
 def jax_params_from_state(state: dict, cfg) -> dict:

@@ -45,7 +45,9 @@ def test_import_every_submodule_loads_no_jax():
             "f5_tts_tpu_torch.scripts.quant_ab", "f5_tts_tpu_torch.scripts.exp_pipelined_flash",
             "f5_tts_tpu_torch.scripts.exp_fused_ln_matmul", "f5_tts_tpu_torch.parallel.mesh",
             "f5_tts_tpu_torch.parallel.ring", "f5_tts_tpu_torch.parallel.sequence",
-            "f5_tts_tpu_torch.parallel.distributed"} | SERVING <= set(out)
+            "f5_tts_tpu_torch.parallel.distributed", "f5_tts_tpu_torch.parallel.tensor",
+            "f5_tts_tpu_torch.parallel.pipeline",
+            "f5_tts_tpu_torch.parallel.layout"} | SERVING <= set(out)
     # optional packages load inside the functions that need them
     assert not {"datasets", "safetensors"} & set(out)
     bad = [m for m in out if _forbidden(m)]

@@ -449,15 +449,17 @@ def test_batch_server_over_a_mesh_matches_mesh_none(serve_case, layout, mel_tol,
 
 
 def test_batch_server_refuses_tensor_parallel_and_a_foreign_mesh():
-    """Tensor-parallel serving and Picard over a mesh raise, naming the next
-    slice; a mesh is a DeviceMesh."""
+    """Tensor-parallel serving without a model axis leaves the engine whole
+    (JAX shards only over a model axis above 1; the sharded case is in
+    test_torch_tp.py); Picard over a mesh refuses an engine without a
+    window, as JAX asserts; a mesh is a DeviceMesh."""
     from f5_tts_tpu_torch.infer.api import F5TTS
     from f5_tts_tpu_torch.infer.serve import BatchServer
 
     eng = F5TTS(model="F5TTS_Tiny", init_random=True, device="cpu", nfe_step=2).engine
-    with pytest.raises(NotImplementedError, match="next slice"):
-        BatchServer(eng, tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    BatchServer(eng, tensor_parallel=True)
+    assert not eng.tensor_parallel and not eng._collective()
+    with pytest.raises(ValueError, match="time_parallel_window"):
         eng.enable_time_parallel(object())
     with pytest.raises(TypeError, match="DeviceMesh"):
         BatchServer(eng, mesh=object())
@@ -467,12 +469,14 @@ def test_batch_server_refuses_tensor_parallel_and_a_foreign_mesh():
 
 
 def test_cli_parallel_flags(monkeypatch):
-    """Tensor and pipeline parallel raise, naming the next slice;
-    ``--sequence_parallel`` needs a world it divides (the multi-rank run with
-    ``--sequence_parallel 2 --zero1`` is in test_torch_parallel_train.py)."""
+    """``--tensor_parallel``, ``--pipeline_parallel`` and
+    ``--sequence_parallel`` need a world their product divides (the
+    multi-rank runs are in test_torch_parallel_train.py and
+    test_torch_model_parallel_train.py)."""
     for flags in (["--tensor_parallel", "2"], ["--pipeline_parallel", "2"],
-                  ["--pipeline_microbatches", "4"]):
-        with pytest.raises(SystemExit, match="next slice"):
+                  ["--tensor_parallel", "2", "--pipeline_parallel", "2",
+                   "--pipeline_microbatches", "4"]):
+        with pytest.raises(SystemExit, match="torchrun"):
             TCLI.main(flags)
     monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(SystemExit, match="torchrun"):

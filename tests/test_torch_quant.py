@@ -408,15 +408,20 @@ def test_w8a8_engine_matches_jax(family):
         TE.InferenceEngine(cfm, TModelConfig(name="small", arch=tarch))
 
 
-def test_engine_options_take_quantize_and_still_refuse_later_fields():
+def test_engine_options_take_quantize_and_still_refuse_later_fields(monkeypatch):
     """The time-parallel window is ported (it reaches the sampler's
-    options); so are the mesh-serving convpos taps, and a pipeline block
-    scan in the engine's hooks still raises (the next slice)."""
+    options); so are the mesh-serving convpos taps, and the engine's hooks
+    (a pipeline block scan, the seq hook, Picard's mesh) reach the sampler."""
     assert TE.EngineOptions(quantize=True).quantize
     opts = TE.EngineOptions(time_parallel_window=2, picard_tol=0.0).sample_opts()
     assert (opts.time_parallel_window, opts.picard_tol) == (2, 0.0)
     assert TE.EngineOptions(convpos_taps=True).convpos_taps
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TE.sample_and_decode(None, None, None, TE.EngineOptions(), None, None, None, None, None,
-                             hooks=(object(), None))
+    seen = {}
+    monkeypatch.setattr(TE.cfm, "sample", lambda *a, **k: seen.update(k))
+    hooks = (object(), object(), object())
+    TE.sample_and_decode(None, None, MODEL_CONFIGS["F5TTS_Tiny"], TE.EngineOptions(),
+                         torch.zeros(1), None, None, None, torch.zeros(1), decode=False,
+                         hooks=hooks)
+    assert (seen["block_scan"], seen["activation_constraint"],
+            seen["time_parallel_mesh"]) == hooks
     assert dataclasses.replace(TE.EngineOptions(quantize=True), nfe_step=8).quantize

@@ -426,8 +426,8 @@ def test_batch_server_equals_engine(tts):
     for a, b in zip(serial, wavs):
         np.testing.assert_array_equal(a, b)
     srv.warmup_all(buckets=(256,))
-    with pytest.raises(NotImplementedError):  # the next slice
-        TS.BatchServer(eng, tensor_parallel=True)
+    TS.BatchServer(eng, tensor_parallel=True)  # no model axis: the engine stays whole, as JAX
+    assert not eng.tensor_parallel
     with pytest.raises(TypeError):  # a mesh is a torch DeviceMesh
         TS.BatchServer(eng, mesh=object())
 

@@ -223,13 +223,13 @@ def test_producer_exception_reaches_the_step_loop(tmp_path):
                          ids=["mesh", "zero1", "sequence_parallel",
                               "tensor_parallel", "pipeline_microbatches", "convpos_taps"])
 def test_unported_trainer_options_raise(tmp_path, kw):
-    """Tensor parallel and the pipeline still raise, naming ROADMAP's next
-    slice; a mesh must be a torch DeviceMesh; ZeRO-1, sequence parallel and
-    the per-tap convpos are ported (ZeRO-1 and sequence parallel need a mesh
-    axis and are off without one, as in JAX)."""
+    """A mesh must be a torch DeviceMesh; ZeRO-1, sequence parallel, tensor
+    parallel, the pipeline and the per-tap convpos are ported, and each
+    needs its mesh axis: without one it is off, as in JAX (the sharded runs
+    are in test_torch_model_parallel_train.py)."""
     if "tensor_parallel" in kw or "pipeline_microbatches" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _trainer(tmp_path / "ck", **kw)
+        tr = _trainer(tmp_path / "ck", **kw)
+        assert not tr.tensor_parallel and tr.pipeline_microbatches == 0
     elif "mesh" in kw:
         with pytest.raises(TypeError, match="DeviceMesh"):
             _trainer(tmp_path / "ck", **kw)
@@ -299,5 +299,6 @@ def test_cli_trains_from_the_builtin_config(tmp_path, monkeypatch):
 
 
 def test_cli_rejects_parallel_layouts():
-    with pytest.raises(SystemExit, match="not ported"):
+    """A parallel layout the world does not hold is refused."""
+    with pytest.raises(SystemExit, match="torchrun"):
         TCLI.main(["--tensor_parallel", "2"])

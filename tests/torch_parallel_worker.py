@@ -9,6 +9,7 @@ in any rank fails the spawn.  Nothing here imports JAX: the parent holds
 the results against the JAX package.
 """
 
+import importlib
 import os
 
 import torch
@@ -16,16 +17,19 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def spawn(case: str, world: int, tmp: str, timeout: float = 240.0) -> list[dict]:
-    """Run ``case`` on ``world`` gloo ranks; returns each rank's outputs."""
-    ctx = mp.start_processes(_entry, args=(case, world, str(tmp)), nprocs=world, join=False,
-                             start_method="spawn")
+def spawn(case: str, world: int, tmp: str, timeout: float = 240.0,
+          module: str = "torch_parallel_worker") -> list[dict]:
+    """Run ``case`` (a function of ``module``, this one by default) on
+    ``world`` gloo ranks; returns each rank's outputs."""
+    ctx = mp.start_processes(_entry, args=(case, world, str(tmp), module), nprocs=world,
+                             join=False, start_method="spawn")
     while not ctx.join(timeout=timeout):
         pass
     return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False) for r in range(world)]
 
 
-def _entry(rank: int, case: str, world: int, tmp: str) -> None:
+def _entry(rank: int, case: str, world: int, tmp: str,
+           module: str = "torch_parallel_worker") -> None:
     torch.set_num_threads(1)
     os.environ["WORLD_SIZE"] = str(world)
     os.environ["RANK"] = str(rank)
@@ -36,7 +40,7 @@ def _entry(rank: int, case: str, world: int, tmp: str) -> None:
     assert topo["process_count"] == world and topo["backend"] == "gloo", topo
     try:
         inputs = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
-        out = globals()[case](rank, world, tmp, inputs)
+        out = getattr(importlib.import_module(module), case)(rank, world, tmp, inputs)
         torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
         dist.barrier()
     finally:
