@@ -216,7 +216,23 @@ Run from the repository root:  python3 chip_smoke.py
     (its state bytes per rank).  The ranks' collectives are gloo's, CUDA
     tensors staged through host memory, and the calls run eagerly: the
     ranks share one card, so no wall time of the phase is a scaling figure.
-25. Prints the kernels' JSON line, then the result line.
+25. The tooling slice, F5TTS_v1_Base at full width and depth, seeded
+    weights with the AdaLN gates and ``proj_out`` filled: one Picard AOT
+    bundle per ``picard_tol`` in ``TOOL_TOLS`` (W = 4, batch 1, bucket 512;
+    wav and mel entries at tol 0, wav at 1e-3), exported with weights W1
+    and served with W2
+    against the live Picard engine on W2 (mel and int16 wav bitwise, equal
+    sweeps, A and B launches equal to the live call's, A 22 and B 1 per
+    sweep, no Python backbone forward at load or in a served call; export
+    seconds, bundle bytes, the replayed wall of both); ``eval_infer_batch``
+    on a seeded four-utterance seedtts list (NFE 32, batch 2): four wavs
+    and ``rtf.txt``, each file bitwise what ``BatchServer(mesh=None)`` gives
+    for the same requests, ``eval_infer_batch``'s own A and B launches depth x NFE
+    and NFE per engine call, each capture's eager call counted; one seeded
+    ECAPA-TDNN forward on the card against the CPU (cosine per embedding
+    at least ``ECAPA_COS_MIN``); ``scripts/profile_request`` at bucket 512
+    (assemble, upload, compute, fetch; device time under the profiler).
+26. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -4348,6 +4364,309 @@ def phase_model_parallel(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+# the tooling slice: Picard AOT bundles, the eval batch synthesis, ECAPA on
+# the card, the request profile
+TOOL_BUCKET = 512  # the Picard bundle's bucket and the profiled request's
+TOOL_REF_BUCKET = 256  # the wav entry's ref bucket
+TOOL_TOLS = (0.0, 1e-3)  # picard_tol: exact steps, and JAX's default
+TOOL_ENTRIES = {0.0: ("wav", "mel"), 1e-3: ("wav",)}  # the entries each bundle holds
+EVAL_UTTS, EVAL_BATCH = 4, 2
+ECAPA_COS_MIN = 0.9999  # per embedding, card against the CPU
+
+
+def _tool_requests(np):
+    """The wav request (250 ref frames: ref bucket 256) and mel request of
+    the Picard bundle, both at bucket 512."""
+    from f5_tts_tpu_torch.audio.io import load_wav
+
+    wav, _ = load_wav(REF_WAV)
+    wav = np.tile(wav, -(-250 * 256 // len(wav)))[: 250 * 256]
+    rng = np.random.default_rng(25)
+    ids = rng.integers(0, 2545, 120).astype(np.int32)
+    mel_ref = rng.standard_normal((200, 100)).astype(np.float32)
+    return {"wav": lambda eng: eng.generate_batch_from_wav(wav, [ids], [500], seeds=[3]),
+            "mel": lambda eng: eng.generate_batch([mel_ref], [ids], [500], seeds=[3])}
+
+
+def _counting(owner, *names):
+    """Count every call of ``owner``'s functions ``names`` (a module's or a
+    class's); returns (the list the calls append to, the undo)."""
+    calls, saved = [], {n: getattr(owner, n) for n in names}
+    for n, fn in saved.items():
+        setattr(owner, n, lambda *a, fn=fn, **k: calls.append(1) or fn(*a, **k))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(owner, n, fn)
+
+    return calls, undo
+
+
+def _backbone_calls():
+    """Count every Python DiT forward (``dit.forward``, ``dit.forward_cfg``)."""
+    from f5_tts_tpu_torch.models import dit
+
+    return _counting(dit, "forward", "forward_cfg")
+
+
+def _picard_bundles(torch, root: str) -> dict:
+    """One Picard bundle per tolerance (the entries of ``TOOL_ENTRIES``),
+    exported with W1, served with W2 against the live Picard engine on W2:
+    mel and int16 wav bitwise, equal sweeps and A / B launches, no backbone
+    forward at load or serve; the export seconds, bundle bytes and
+    replayed walls."""
+    import copy
+    import gc
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import _seeded
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+    from f5_tts_tpu_torch.models.vocos import Vocos
+    from f5_tts_tpu_torch.runtime import aot
+
+    cfg = MODEL_CONFIGS["F5TTS_v1_Base"]
+    depth = cfg.arch.depth
+    w1, w2 = _w(torch, cfg, 0), _w(torch, cfg, 5)
+    voc = _seeded(Vocos, 1).cuda()
+    reqs = _tool_requests(np)
+    spec = {"wav": ("wav", 1, TOOL_BUCKET, TOOL_REF_BUCKET), "mel": ("mel", 1, TOOL_BUCKET, None)}
+
+    def options(tol):
+        return EngineOptions(nfe_step=NFE, time_parallel_window=PICARD_W, picard_tol=tol)
+
+    # one engine per weight set; each tolerance is its options (a key of its own)
+    e1, live = (InferenceEngine(copy.deepcopy(w).cuda(), cfg, vocoder=voc, dtype=torch.bfloat16,
+                                options=options(TOOL_TOLS[0])) for w in (w1, w2))
+    out = {}
+    for tol in TOOL_TOLS:
+        d = os.path.join(root, f"picard_tol{tol:g}")
+        e1.options = live.options = options(tol)
+        t0 = time.perf_counter()
+        aot.export_engine(e1, d, [spec[e] for e in TOOL_ENTRIES[tol]])
+        export_s = time.perf_counter() - t0
+        meta = aot.read_meta(d)
+        calls, undo = _backbone_calls()
+        try:
+            t0 = time.perf_counter()
+            bundle = aot.AotEngine(d, copy.deepcopy(w2).cuda(), cfg, vocoder=voc)
+            load_s = time.perf_counter() - t0
+            load_forwards = len(calls)
+            r = {"export_s": export_s, "load_s": load_s, "bundle_bytes": aot.bundle_bytes(d),
+                 "export_seconds": meta["export_seconds"],
+                 "program_bytes": {k: v["bytes"] for k, v in meta["programs"].items()},
+                 "load_forwards": load_forwards}
+            for entry in TOOL_ENTRIES[tol]:
+                req = reqs[entry]
+                n0 = len(calls)
+                req(bundle)  # the key's first hit: the eager call and the capture
+                capture_forwards = len(calls) - n0
+                req(live)
+                n0 = len(calls)
+                got = req(bundle)
+                serve_forwards = len(calls) - n0
+                want = req(live)
+                same = bool(np.array_equal(got[0], want[0])
+                            and np.array_equal(got[1][0], want[1][0]) and got[2] == want[2])
+                launches = {}
+                for tag, eng in (("live", live), ("aot", bundle)):
+                    reset_counts()
+                    req(eng)
+                    torch.cuda.synchronize()
+                    c = counts()
+                    launches[tag] = {"A": c["A"], "B": c["B"], "sweeps": eng.last_sweeps}
+                sweeps = launches["live"]["sweeps"]
+                r[entry] = {"bitwise": same, "sweeps": sweeps, "launches": launches,
+                            "capture_forwards": capture_forwards, "serve_forwards": serve_forwards,
+                            "mel_max_abs": float(np.abs(got[0] - want[0]).max())}
+                print(f"phase 25 Picard bundle tol {tol:g} {entry} entry (W1 bundle served with "
+                      f"W2 vs the live Picard engine on W2): bitwise {same}, sweeps "
+                      f"{launches['aot']['sweeps']} / {sweeps}, launches {launches}, backbone "
+                      f"forwards at load {load_forwards}, at the capture {capture_forwards}, in a "
+                      f"replayed call {serve_forwards}",
+                      flush=True)
+                if not same or launches["aot"] != launches["live"] \
+                        or launches["aot"]["A"] != depth * sweeps \
+                        or launches["aot"]["B"] != sweeps or load_forwards or serve_forwards \
+                        or capture_forwards \
+                        or (tol == 0.0 and sweeps != NFE):
+                    fail(f"Picard bundle tol {tol:g} {entry}: {r[entry]}, load forwards "
+                         f"{load_forwards}")
+            walls = {tag: _wall_ms(torch, lambda e=eng: reqs["wav"](e))
+                     for tag, eng in (("live", live), ("aot", bundle))}
+            r["wall_ms"] = walls
+            print(f"phase 25 Picard bundle tol {tol:g}: export {export_s:.1f} s (per program "
+                  f"{({k: round(v, 1) for k, v in meta['export_seconds'].items()})}), "
+                  f"{r['bundle_bytes']} bytes, load {load_s:.2f} s; wav request wall (ms, 3 "
+                  f"replays) bundle {[round(x, 1) for x in walls['aot']]} against live "
+                  f"{[round(x, 1) for x in walls['live']]}", flush=True)
+        finally:
+            undo()
+        out[f"tol_{tol:g}"] = r
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    del e1, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _eval_meta(np, root: str) -> str:
+    """A seeded seedtts ``meta.lst`` of ``EVAL_UTTS`` utterances under
+    ``root/seedtts_testset/en`` (prompts cut from the example clip, one
+    made quiet so the RMS rescale runs); returns the metalist root."""
+    from f5_tts_tpu_torch.audio.io import load_wav, save_wav
+
+    d = os.path.join(root, "data", "seedtts_testset", "en")
+    os.makedirs(d)
+    speech, sr = load_wav(REF_WAV)
+    words = ["morning", "river", "quiet", "signal", "garden", "window", "bright", "answer"]
+    rng = np.random.default_rng(25)
+    lines = []
+    for i in range(EVAL_UTTS):
+        clip = speech[i * sr // 3: i * sr // 3 + int((2.0 + 0.3 * i) * sr)]
+        save_wav(os.path.join(d, f"p{i}.wav"), clip * (0.3 if i == 1 else 1.0), sr)
+        text = " ".join(words[j] for j in rng.integers(0, len(words), 8 + 2 * i))
+        lines.append(f"utt{i}|{REF_TEXT}|p{i}.wav|{text}.\n")
+    with open(os.path.join(d, "meta.lst"), "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    return os.path.join(root, "data")
+
+
+def _eval_batch(torch, root: str) -> tuple:
+    """``eval_infer_batch.main`` on the seeded list (F5TTS_v1_Base, seeded,
+    NFE 32, batch 2) against ``BatchServer(mesh=None)`` on the same
+    requests and weights: four wavs and ``rtf.txt``, each file bitwise; A
+    and B launches of its own run, depth x NFE and NFE per engine
+    call (each replay, and the eager call of each key's capture).  Returns
+    (the record, the reference ``F5TTS``)."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.audio.io import save_wav
+    from f5_tts_tpu_torch.eval import eval_infer_batch
+    from f5_tts_tpu_torch.eval.testsets import get_seedtts_testset_metainfo, prepare_eval_prompts
+    from f5_tts_tpu_torch.infer.api import F5TTS
+    from f5_tts_tpu_torch.infer.engine import InferenceEngine
+    from f5_tts_tpu_torch.infer.serve import BatchServer, Request
+
+    data = _eval_meta(np, root)
+    captures, undo = _counting(InferenceEngine, "_capture", "_capture_picard")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out_dir = eval_infer_batch.main(["-t", "seedtts_test_en", "-n", "F5TTS_v1_Base",
+                                         "--init_random", "-nfe", str(NFE), "-s", "7",
+                                         "--metalst_root", data, "--batch_size", str(EVAL_BATCH),
+                                         "--results_root", os.path.join(root, "results")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        undo()
+    n_calls = -(-EVAL_UTTS // EVAL_BATCH)  # BatchServer's batches: one engine call each
+    runs = n_calls + len(captures)
+    per_call = {"A": c["A"] / runs, "B": c["B"] / runs}
+    files = sorted(os.listdir(out_dir))
+    want_files = ["rtf.txt"] + [f"utt{i}.wav" for i in range(EVAL_UTTS)]
+    tts = F5TTS(model="F5TTS_v1_Base", init_random=True, nfe_step=NFE)
+    depth = tts.model_cfg.arch.depth
+    prompts = prepare_eval_prompts(
+        get_seedtts_testset_metainfo(os.path.join(data, "seedtts_testset", "en", "meta.lst")),
+        tts.engine, tts.vocab, tts.tokenizer)
+    reqs = [Request(ref_mel=p.ref_mel, text_ids=p.text_ids, duration=p.duration, seed=7)
+            for p in prompts]
+    wavs, _ = BatchServer(tts.engine, mesh=None, batch_size=EVAL_BATCH).run(reqs)
+    ref_dir = os.path.join(root, "reference")
+    os.makedirs(ref_dir)
+    same = []
+    for p, wav in zip(prompts, wavs):
+        if 0 < p.ref_rms < 0.1:
+            wav = wav * (p.ref_rms / 0.1)
+        save_wav(os.path.join(ref_dir, p.utt + ".wav"), wav, tts.target_sample_rate)
+        with open(os.path.join(ref_dir, p.utt + ".wav"), "rb") as a, \
+                open(os.path.join(out_dir, p.utt + ".wav"), "rb") as b:
+            same.append(a.read() == b.read())
+    rtf = open(os.path.join(out_dir, "rtf.txt")).read().splitlines()
+    launches = {"A": c["A"], "B": c["B"]}
+    r = {"files": files, "bitwise": same, "wall_s": wall, "launches": launches,
+         "engine_calls": n_calls, "captures": len(captures), "launches_per_call": per_call,
+         "durations": [p.duration for p in prompts], "rtf_txt": rtf}
+    print(f"phase 25 eval_infer_batch (F5TTS_v1_Base, NFE {NFE}, batch {EVAL_BATCH}, "
+          f"{EVAL_UTTS} utterances, durations {r['durations']}): {wall:.1f} s, files {files}, "
+          f"each wav bitwise BatchServer(mesh=None)'s: {same}; its launches {launches} (want "
+          f"{depth} x {NFE} and {NFE} x ({n_calls} engine calls + {len(captures)} captures' "
+          f"eager calls)), per call {per_call}; rtf.txt {rtf}", flush=True)
+    if files != want_files or not all(same) or not captures \
+            or launches != {"A": depth * NFE * runs, "B": NFE * runs}:
+        fail(f"eval batch: {r}")
+    return r, tts
+
+
+def _ecapa(torch) -> dict:
+    """One seeded ECAPA-TDNN forward (``feat_type`` features, random BN
+    statistics) on the card and on the CPU: cosine similarity per embedding."""
+    from f5_tts_tpu_torch.eval.ecapa_tdnn import ECAPA_TDNN_SMALL
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(25)
+        model = ECAPA_TDNN_SMALL(feat_dim=1024, feat_type="features").eval()
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 2.0)
+        feats = torch.randn(4, 300, 1024)
+    with torch.no_grad():
+        cpu = model(feats)
+        card = model.cuda()(feats.cuda()).cpu()
+    cos = torch.nn.functional.cosine_similarity(card, cpu, dim=-1).tolist()
+    print(f"phase 25 ECAPA-TDNN (features [4, 300, 1024], emb 256) card vs CPU: cosine per "
+          f"embedding {cos}, max abs {(card - cpu).abs().max().item():.3e}", flush=True)
+    if not (card.shape == (4, 256) and min(cos) >= ECAPA_COS_MIN):
+        fail(f"ECAPA card vs CPU: cosine {cos} < {ECAPA_COS_MIN}")
+    return {"cosine": cos, "max_abs": (card - cpu).abs().max().item()}
+
+
+def phase_tooling(torch) -> dict:
+    """Phase 25 (module docstring): Picard bundles, the eval batch driver,
+    ECAPA on the card, the request profile."""
+    import gc
+    import shutil
+    import tempfile
+
+    from f5_tts_tpu_torch.scripts import profile_request
+
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tool_", dir=os.path.join(REPO, ".cache"))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["picard_bundle"] = _picard_bundles(torch, root)
+        out["picard_bundle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["eval"], tts = _eval_batch(torch, root)
+        out["eval_s"] = time.perf_counter() - t0
+        out["ecapa"] = _ecapa(torch)
+        t0 = time.perf_counter()
+        prof = profile_request.profile(tts.engine, TOOL_BUCKET, 1, reps=3,
+                                       trace_dir=os.path.join(root, "trace"))
+        out["profile_s"] = time.perf_counter() - t0
+        print(f"phase 25 profile_request (F5TTS_v1_Base, bucket {TOOL_BUCKET}, batch 1, NFE "
+              f"{NFE}, replayed graph; medians of 3): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in prof.items() if v is not None), flush=True)
+        if not (prof["compute_ms"] > 0 and prof["device_ms"]):
+            fail(f"profile_request: {prof}")
+        out["profile"] = prof
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -4492,6 +4811,9 @@ def main() -> int:
     mpar = phase_model_parallel(torch)  # counts set to 0 before each step, request and CLI run
     lap("24 (model parallel: NCCL at world 1, TP serving, Picard over data, tp x pp step, CLI)")
     print(f"summary: model parallel {json.dumps(mpar, default=str)}", flush=True)
+    tool = phase_tooling(torch)  # counts set to 0 before each counted call
+    lap("25 (Picard AOT bundles, eval batch, ECAPA, request profile)")
+    print(f"summary: tooling {json.dumps(tool, default=str)}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
@@ -4679,6 +5001,17 @@ def main() -> int:
                 "tp2_pp2_step": [x["launches"][key] for x in mpar["step"]["ranks"]],
                 **{n: [x["launches"][key] for x in mpar[n]["ranks"]]
                    for n in ("pp_sp", "zero1_adafactor")}}
+    # phase 25: launches per call of the Picard bundles (and their sweeps)
+    # and of the eval batch synthesis
+    for entry_ in kernels:
+        key = {"flash_attention_fwd": "A", "fused_convpos_fwd": "B"}.get(entry_["name"])
+        if key:
+            entry_["picard_bundle_launches_per_call"] = {
+                f"{t}_{e}": {"launches": tool["picard_bundle"][t][e]["launches"]["aot"][key],
+                             "sweeps": tool["picard_bundle"][t][e]["sweeps"]}
+                for t, tol in (("tol_0", 0.0), ("tol_0.001", 1e-3)) for e in TOOL_ENTRIES[tol]}
+            entry_["eval_batch_launches"] = tool["eval"]["launches"][key]
+            entry_["eval_batch_launches_per_call"] = tool["eval"]["launches_per_call"][key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

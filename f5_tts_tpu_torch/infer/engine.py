@@ -44,7 +44,10 @@ prelude (ref mel, text embeddings, AdaLN tables, y0, the window's tiled
 conditioning), one sweep, and the epilogue (the masks and the decode).  A
 call replays the prelude, then the sweep until the frozen count ``s``,
 read by the host after each sweep, reaches the step count, then the
-epilogue (``last_sweeps`` keeps the count).
+epilogue (``last_sweeps`` keeps the count).  A CPU engine runs the same
+three parts eagerly with the same host loop (``picard_loop``), so it keeps
+``last_sweeps`` too; ``runtime/aot.AotEngine`` hands its exported
+programs to the same loop and captures.
 
 Target durations round up to frame buckets; every dynamic length is a mask.
 The text ids are padded to the bucket width, so MMDiT, whose text stream
@@ -231,14 +234,40 @@ class CapturedGraph:
 @dataclass
 class CapturedPicard:
     """One Picard engine call as three CUDA graphs on the same static
-    tensors: ``prelude`` (the inputs -> the ``cfm.PicardRun`` state),
-    ``sweep`` (one sweep, in place) and ``epilogue`` (-> mel, int16 wav)."""
+    tensors: ``prelude`` (the inputs -> the Picard state, a ``cfm.PicardRun``
+    or an AOT bundle's), ``sweep`` (one sweep, in place) and ``epilogue``
+    (-> mel, int16 wav)."""
 
     inputs: tuple
     prelude: CapturedGraph
     sweep: CapturedGraph
     epilogue: CapturedGraph
     seconds: float
+
+
+@dataclass
+class PicardParts:
+    """A Picard call's three functions: ``prelude(*xs)`` -> a state with
+    ``s`` (the frozen count, a device tensor) and ``T`` (the step count),
+    ``sweep(state)`` (one sweep, in place) and ``epilogue(state, *xs)`` ->
+    (mel, int16 wav | None), ``xs`` being the request tensors."""
+
+    prelude: object
+    sweep: object
+    epilogue: object
+
+
+def picard_loop(state, sweep) -> int:
+    """Sweeps until the frozen count reaches the step count (the host reads
+    it after each sweep; at most T sweeps) -> the sweeps run.  ``sweep()``
+    runs one (an eager sweep or a graph replay)."""
+    sweeps = 0
+    while sweeps < state.T:
+        sweep()
+        sweeps += 1
+        if int(state.s) >= state.T:
+            break
+    return sweeps
 
 
 def _ref_mel_bucket_pad(wav: np.ndarray, mel_cfg: MelConfig, S: int) -> np.ndarray:
@@ -280,7 +309,7 @@ class InferenceEngine:
         # exact-bytes cache of device-resident int16 ref uploads (see _ref_wav_device)
         self._ref_dev_cache: OrderedDict[tuple, torch.Tensor] = OrderedDict()
         self.graphs: dict[tuple, CapturedGraph | CapturedPicard] = {}  # CUDA: one per call key
-        self.last_sweeps: int | None = None  # the sweeps of the last Picard call on the card
+        self.last_sweeps: int | None = None  # the sweeps of the last Picard call
         self._graph_lock = threading.Lock()
         # (block_scan, activation_constraint, time_parallel_mesh) for mesh
         # serving, set by BatchServer and enable_time_parallel; in every
@@ -331,7 +360,7 @@ class InferenceEngine:
         with self._graph_lock, torch.inference_mode():
             g = self.graphs.get(key)
             if g is None:
-                g = self.graphs[key] = (self._capture_picard(call, entry, args, decode)
+                g = self.graphs[key] = (self._capture_picard(call, args)
                                         if opts.time_parallel_window else
                                         self._capture(call, args))
             self._stream.wait_stream(cur)  # the request's inputs are ready
@@ -354,11 +383,14 @@ class InferenceEngine:
     def _call(self, entry: str, args: tuple, decode: bool):
         """The function of one engine call on the request tensors ``args``
         (see ``_run``): the module-level ``sample_and_decode`` or
-        ``sample_and_decode_from_wav`` on the engine's model (``AotEngine``
-        returns its exported programs' instead)."""
+        ``sample_and_decode_from_wav`` on the engine's model, or with no
+        hook the Picard parts (``_picard_parts``) under ``picard_call``
+        (``AotEngine`` returns its exported programs' instead)."""
         opts, n = self.options, args[-1].shape[1]
         model, voc, vt = self.model.transformer, self.vocoder, self.vocoder_type
         hooks = self.parallel_hooks
+        if opts.time_parallel_window and all(h is None for h in hooks):
+            return self.picard_call(self._picard_parts(entry, decode, n))
 
         def call(*xs):
             if entry == "mel":
@@ -411,12 +443,12 @@ class InferenceEngine:
         g.seconds = time.perf_counter() - t0
         return g
 
-    def _capture_picard(self, call, entry, args, decode) -> CapturedPicard:
-        """The Picard call's prelude, sweep and epilogue recorded as three
-        graphs over one set of static tensors, after one eager call."""
-        t0 = time.perf_counter()
+    def _picard_parts(self, entry: str, decode: bool, n: int) -> PicardParts:
+        """The live Picard call's parts on the engine's model: the prelude
+        (``cfm.picard_begin``, after the ref mel of the wav entry), the
+        in-place ``cfm.picard_sweep`` and the epilogue (``picard_finish``,
+        then the vocoder)."""
         model, cfg, opts = self.model.transformer, self.model_cfg, self.options
-        n = args[-1].shape[1]
 
         def prelude(*xs):
             if entry == "wav":
@@ -435,26 +467,41 @@ class InferenceEngine:
                 return mel_out, None
             return mel_out, decode_wav(self.vocoder, self.vocoder_type, mel_out, lens, duration)
 
+        return PicardParts(prelude, lambda run: cfm.picard_sweep(model, cfg.arch, run), epilogue)
+
+    def picard_call(self, parts: PicardParts):
+        """One Picard call run eagerly: the prelude, ``picard_loop`` over the
+        sweep, the epilogue; it sets ``last_sweeps``.  The parts ride on the
+        function (``.picard_parts``) for ``_capture_picard``."""
+
+        def call(*xs):
+            with torch.inference_mode():
+                run = parts.prelude(*xs)
+                self.last_sweeps = picard_loop(run, lambda: parts.sweep(run))
+                return parts.epilogue(run, *xs)
+
+        call.picard_parts = parts
+        return call
+
+    def _capture_picard(self, call, args) -> CapturedPicard:
+        """The Picard call's prelude, sweep and epilogue (``call.picard_parts``)
+        recorded as three graphs over one set of static tensors, after one
+        eager call."""
+        t0 = time.perf_counter()
+        parts = call.picard_parts
         inputs, token = self._warm(call, args)
         with workspace.scope(token):
-            pre = self._record(prelude, *inputs)
-            sweep = self._record(lambda run: cfm.picard_sweep(model, cfg.arch, run), pre.outputs)
-            epi = self._record(epilogue, pre.outputs, *inputs)
+            pre = self._record(parts.prelude, *inputs)
+            sweep = self._record(parts.sweep, pre.outputs)
+            epi = self._record(parts.epilogue, pre.outputs, *inputs)
         torch.cuda.current_stream(self.device).wait_stream(self._capture_stream)
         return CapturedPicard(inputs, pre, sweep, epi, time.perf_counter() - t0)
 
     def _replay_picard(self, g: CapturedPicard):
-        """Prelude, then sweeps until the frozen count reaches the step count
-        (the host reads it after each sweep; at most T sweeps), then the
-        epilogue -> (outputs, launches of the whole call)."""
-        run = g.prelude.outputs
+        """The prelude, ``picard_loop`` over sweep replays, the epilogue ->
+        (outputs, launches of the whole call)."""
         g.prelude.graph.replay()
-        sweeps = 0
-        while sweeps < run.T:
-            g.sweep.graph.replay()
-            sweeps += 1
-            if int(run.s) >= run.T:
-                break
+        sweeps = picard_loop(g.prelude.outputs, g.sweep.graph.replay)
         g.epilogue.graph.replay()
         self.last_sweeps = sweeps
         launches = [p + sweeps * w + e for p, w, e in

@@ -14,6 +14,21 @@ artifacts plus serialized PJRT executables).  Here an operating point (kind
 - ``epilogue`` (the reference region restored, the frames past the
   duration zeroed, the vocoder and the int16 wire format).
 
+A Picard operating point (``EngineOptions(time_parallel_window=W)``) is
+three programs like the live engine's three CUDA graphs: ``picard_prelude``
+(inputs -> the ``cfm.PicardRun`` state: the guesses ``Y``, the frozen count
+``s``, the window's tiled conditioning and padded AdaLN tables, and the
+epilogue's masks), ``sweep`` (one ``cfm.picard_sweep`` as a function of the
+state: it returns the new ``Y``, ``s`` and sweep count, which ``AotEngine``
+copies back into the state, so a sweep graph replays in place) and the
+same ``epilogue`` on ``Y[T]``.  ``AotEngine`` drives the sweeps with the
+live engine's host loop (``engine.picard_loop``).  The state's Python ints
+(``T``, ``W``) and the options (``picard_tol``) are constants of the
+programs, recorded in the meta's ``options``; JAX's ``export_engine`` likewise traces the
+Picard while-loop under ``engine.options`` (``f5_tts_tpu/runtime/aot.py``
+:183-215).  Picard over a mesh stays live-only: JAX exports with no mesh
+hook, and ``AotEngine.enable_time_parallel`` raises.
+
 The step is one program for every step, so a bundle's size and its export
 time do not grow with NFE, where one program over the whole loop would
 hold NFE unrolled forwards; the engine's live Picard path splits its graphs
@@ -69,6 +84,7 @@ import torch.nn as nn
 from f5_tts_tpu_torch.infer.engine import (
     EngineOptions,
     InferenceEngine,
+    PicardParts,
     _clamp_duration,
     decode_wav,
     ref_cond,
@@ -83,8 +99,6 @@ from f5_tts_tpu_torch.ops import quant as _q  # noqa: F401
 
 _META = "engine_meta.json"
 _KERNELS = "kernels"
-_NO_PICARD = ("AOT bundles of the Picard sampler (time_parallel_window > 0) are not "
-              "ported yet; see ROADMAP.md")
 
 
 def default_specs(batch_sizes=(1, 2), buckets=(1024,), ref_buckets=(512,)):
@@ -212,6 +226,56 @@ def _step_fn(cfg, opts: EngineOptions):
     return fn
 
 
+_PICARD_STATE = ("Y", "s", "sweeps", "t_pad", "dt_pad", "cond_r", "te_r", "teu_r", "mask_r",
+                 "extra_r", "fmask", "denom")
+
+
+def _picard_prelude_fn(cfg, opts: EngineOptions, kind: str, n: int, dtype):
+    """(backbone, *inputs) -> (the Picard state's tensors, the epilogue's
+    setup fields): ``cfm.picard_begin`` after the wav entry's ref mel."""
+    sopts = opts.sample_opts()
+
+    def fn(model, *xs):
+        if kind == "wav":
+            wav_i16, wav_scale, lens, text_ids, duration, noise = xs
+            cond = ref_cond(cfg, wav_i16, wav_scale, lens, n, dtype)
+        else:
+            cond, text_ids, lens, duration, noise = xs
+        run = cfm.picard_begin.__wrapped__(model, cfg.arch, cond, text_ids, duration,
+                                           noise.to(cond.dtype), lens, sopts,
+                                           backend=opts.backend)
+        st = {k: getattr(run, k) for k in _PICARD_STATE if getattr(run, k) is not None}
+        st["extra_r"] = dict(run.extra_r)
+        if run.mods is not None:
+            st["mods"] = {"blk": run.mods[0], "fin": run.mods[1]}
+        su = run.setup
+        return st, {"cond": su.cond, "cond_mask": su.cond_mask, "mask": su.mask}
+
+    return fn
+
+
+def _picard_sweep_fn(cfg, opts: EngineOptions):
+    """(backbone, state) -> the state's new (Y, s, sweeps) after one
+    ``cfm.picard_sweep``, which runs on copies of them (the program takes
+    its state as inputs and does not write them)."""
+    sopts = opts.sample_opts()
+    T = sopts.n_steps
+    W = min(opts.time_parallel_window, T)
+
+    def fn(model, st):
+        mods = st.get("mods")
+        run = cfm.PicardRun(
+            setup=None, Y=st["Y"].clone(), s=st["s"].clone(), sweeps=st["sweeps"].clone(),
+            t_pad=st["t_pad"], dt_pad=st["dt_pad"], cond_r=st["cond_r"], te_r=st["te_r"],
+            teu_r=st.get("teu_r"), mask_r=st["mask_r"], extra_r=st["extra_r"],
+            mods=None if mods is None else (mods["blk"], mods["fin"]), fmask=st["fmask"],
+            denom=st["denom"], T=T, W=W, opts=sopts, backend=opts.backend)
+        cfm.picard_sweep.__wrapped__(model, cfg.arch, run)
+        return run.Y, run.s, run.sweeps
+
+    return fn
+
+
 def _epilogue_fn(vocoder_type: str, decode: bool):
     """(vocoder, x, setup, lens, duration) -> (mel, int16 wav or None)."""
 
@@ -290,6 +354,37 @@ class _Driver:
         return self.epilogue(wv, {}, x, _part(su, _EPILOGUE_KEYS), lens, duration)
 
 
+class _PicardState:
+    """A Picard bundle's state between its programs: the tensors (``st``),
+    the epilogue's setup fields, and what ``engine.picard_loop`` reads."""
+
+    def __init__(self, st: dict, epi: dict, T: int):
+        self.st, self.epi, self.T = st, epi, T
+        self.s = st["s"]
+
+
+class _PicardDriver:
+    """One Picard operating point's three programs as the engine's
+    ``PicardParts`` on the weights given."""
+
+    def __init__(self, prelude, sweep, epilogue, T: int):
+        self.prelude, self.sweep, self.epilogue, self.T = prelude, sweep, epilogue, T
+
+    def parts(self, wb, taps, wv) -> PicardParts:
+        def prelude(*xs):
+            return _PicardState(*self.prelude(wb, taps, *xs), self.T)
+
+        def sweep(state):
+            for k, v in zip(("Y", "s", "sweeps"), self.sweep(wb, taps, state.st)):
+                state.st[k].copy_(v)
+
+        def epilogue(state, *xs):
+            lens, duration = xs[2], xs[-2]
+            return self.epilogue(wv, {}, state.st["Y"][self.T], state.epi, lens, duration)
+
+        return PicardParts(prelude, sweep, epilogue)
+
+
 def _dummy_inputs(engine: InferenceEngine, kind: str, b: int, n: int, rb: int | None):
     """Request tensors of one operating point, as the engine's public
     methods build them (zeros, a few reference frames, full duration)."""
@@ -315,9 +410,12 @@ def export_engine(engine: InferenceEngine, out_dir: str, specs=None) -> list[str
     ref_bucket) operating points into ``out_dir`` and write
     ``engine_meta.json``.  Returns the operating points' names.  Each
     program is first run eagerly on the example inputs (the lazily built
-    tables then exist as real tensors), then exported on them."""
-    if engine.options.time_parallel_window:
-        raise NotImplementedError(_NO_PICARD)
+    tables then exist as real tensors), then exported on them.  A Picard
+    engine (``time_parallel_window > 0``, no mesh) exports its prelude,
+    sweep and epilogue (module docstring)."""
+    if engine._collective():
+        raise ValueError("export_engine takes a one-device engine: mesh hooks and tensor "
+                         "parallelism stay live (JAX exports with hooks=(None, None))")
     specs = default_specs() if specs is None else specs
     os.makedirs(out_dir, exist_ok=True)
     mc, opts = engine.model_cfg, engine.options
@@ -358,6 +456,12 @@ def export_engine(engine: InferenceEngine, out_dir: str, specs=None) -> list[str
         if kind == "wav" and rb is None:
             raise ValueError(f"a wav operating point needs a ref bucket: {(kind, b, n, rb)}")
         xs = _dummy_inputs(engine, kind, b, n, None if kind == "mel" else rb)
+        if opts.time_parallel_window:
+            points[_spec_name(kind, b, n, rb)] = {"kind": kind, "b": b, "n": n,
+                                                  "ref_bucket": rb,
+                                                  **_export_picard(export, engine, kind, b, n,
+                                                                   rb, xs, (wb, taps, wv))}
+            continue
         pre = _prelude_fn(mc, opts, kind, n, engine.dtype)
         step = _step_fn(mc, opts)
         epi = _epilogue_fn(engine.vocoder_type, decode)
@@ -394,6 +498,29 @@ def export_engine(engine: InferenceEngine, out_dir: str, specs=None) -> list[str
     with open(os.path.join(out_dir, _META), "w") as f:
         json.dump(meta, f, indent=1)
     return list(points)
+
+
+def _export_picard(export, engine: InferenceEngine, kind: str, b: int, n: int, rb, xs,
+                   weights) -> dict:
+    """Export one Picard operating point's prelude, sweep and epilogue
+    (each run eagerly first) through ``export``; returns their file names."""
+    mc, opts = engine.model_cfg, engine.options
+    wb, taps, wv = weights
+    bb_mod, voc_mod = engine.model.transformer, engine.vocoder
+    pre = _picard_prelude_fn(mc, opts, kind, n, engine.dtype)
+    sweep = _picard_sweep_fn(mc, opts)
+    epi = _epilogue_fn(engine.vocoder_type, engine.vocoder is not None)
+    with torch.no_grad():
+        st, epi_su = _Bound(pre, bb_mod)(taps, *xs)
+        Y = _Bound(sweep, bb_mod)(taps, st)[0]
+        epi_args = (Y[opts.sample_opts().n_steps], epi_su, xs[2], xs[-2])
+        _Bound(epi, voc_mod)({}, *epi_args)
+    names = {"prelude": f"picard_prelude_{_spec_name(kind, b, n, rb)}.pt2",
+             "sweep": f"sweep_b{b}_n{n}.pt2", "epilogue": f"epilogue_b{b}_n{n}.pt2"}
+    export(names["prelude"], pre, bb_mod, (wb, taps, *xs))
+    export(names["sweep"], sweep, bb_mod, (wb, taps, st))
+    export(names["epilogue"], epi, voc_mod, (wv, {}, *epi_args))
+    return names
 
 
 def bundle_bytes(artifact_dir: str) -> int:
@@ -443,11 +570,13 @@ class AotEngine(InferenceEngine):
     code is traced or run at serving time.  Weights come from the caller's
     ``model`` (the export-time engine's shapes); options, dtype, buckets
     and vocoder type come from the bundle.  A key no program covers, or
-    per-call options other than the exported ones, raise ``KeyError``; with
-    ``fallback=True`` they run the live engine instead, on the same device
-    and kernels.  On the card each key's programs are captured as one CUDA
-    graph at its first call, or at load (``warmup``: by default when the
-    kernels came from the bundle)."""
+    per-call options other than the exported ones (a Picard bundle's
+    ``time_parallel_window`` and ``picard_tol`` among them), raise
+    ``KeyError``; with ``fallback=True`` they run the live engine instead,
+    on the same device and kernels.  On the card each key's programs are
+    captured as one CUDA graph at its first call (a Picard key as the live
+    engine's three), or at load (``warmup``: by default when the kernels
+    came from the bundle)."""
 
     def __init__(self, artifact_dir: str, model, model_cfg, vocoder=None, fallback: bool = False,
                  warmup: bool | None = None, **kw):
@@ -462,8 +591,6 @@ class AotEngine(InferenceEngine):
             raise RuntimeError(f"artifacts built against kernel sources {meta['kernel_digest']}, "
                                f"this package's are {digest}: rebuild them")
         opts = EngineOptions(**meta["options"])
-        if opts.time_parallel_window:
-            raise NotImplementedError(_NO_PICARD)
         kw.setdefault("options", opts)
         kw.setdefault("dtype", getattr(torch, meta["dtype"]))
         kw.setdefault("buckets", tuple(meta["buckets"]))
@@ -483,10 +610,15 @@ class AotEngine(InferenceEngine):
         self._schedule = _schedule(opts, self.dtype, self.device)
         hop, n_fft = model_cfg.mel.hop_length, model_cfg.mel.n_fft
         t0 = time.perf_counter()
-        self._programs: dict[tuple, _Driver] = {}
+        self._programs: dict[tuple, _Driver | _PicardDriver] = {}
         for p in meta["points"].values():
-            drv = _Driver(*(load_program(os.path.join(artifact_dir, p[part]))
-                            for part in ("prelude", "step", "epilogue")), self._schedule)
+            if "sweep" in p:
+                drv = _PicardDriver(*(load_program(os.path.join(artifact_dir, p[part]))
+                                      for part in ("prelude", "sweep", "epilogue")),
+                                    opts.sample_opts().n_steps)
+            else:
+                drv = _Driver(*(load_program(os.path.join(artifact_dir, p[part]))
+                                for part in ("prelude", "step", "epilogue")), self._schedule)
             if p["kind"] == "wav":
                 key = ("wav", p["b"], p["ref_bucket"] * hop + n_fft, p["n"])
             else:
@@ -496,6 +628,12 @@ class AotEngine(InferenceEngine):
         self.meta = meta
         if warmup or (warmup is None and self.loaded_kernels and self.device.type == "cuda"):
             self.warmup()
+
+    def enable_time_parallel(self, mesh) -> None:
+        """Picard over a mesh stays live-only: JAX's bundles carry no mesh
+        hook (``f5_tts_tpu/runtime/aot.py:194``)."""
+        raise NotImplementedError("an AOT bundle serves Picard on one device only; build a "
+                                  "live InferenceEngine for Picard over a mesh")
 
     def warmup(self, n_frames: int = 1024, text_len: int = 64) -> int:
         """Run (on the card: capture) every exported key once on dummy
@@ -531,6 +669,8 @@ class AotEngine(InferenceEngine):
                                "fallback=True for the live engine")
             return super()._call(entry, args, decode)
         (wb, taps), wv = self._weights, self._voc_weights
+        if isinstance(drv, _PicardDriver):
+            return self.picard_call(drv.parts(wb, taps, wv))
 
         def call(*xs):
             with torch.inference_mode():

@@ -269,13 +269,6 @@ def test_warm_artifacts_packages_and_loads_without_nvcc(tmp_path, monkeypatch):
         cuda_build.KernelLibrary(str(csrc), str(build)).use_prebuilt(str(bundle / "kernels"))
 
 
-def test_picard_options_are_not_exported(tmp_path):
-    eng = InferenceEngine(_model(0), CFG, vocoder=_vocoder(), buckets=BUCKETS,
-                          options=EngineOptions(nfe_step=2, time_parallel_window=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_engine(eng, str(tmp_path), [("mel", 1, 256, None)])
-
-
 def test_f5tts_api_serves_from_artifacts(built):
     """F5TTS(artifacts=dir) serves through an AotEngine and gives the live
     F5TTS's audio; a per-call option the bundle does not hold raises."""

@@ -20,6 +20,19 @@ SERVING = {f"f5_tts_tpu_torch.{m}" for m in (
     "infer.cli", "infer.speech_edit", "infer.speech_edit_cli", "infer.batcher", "infer.serve",
     "infer.socket_server", "infer.socket_client", "infer.http_server", "utils.hub",
     "utils.seed")}
+# eval, gRPC, the Gradio shells and logic, the finetune toolkit, the
+# measurement scripts and the import alias
+TOOLING = {f"f5_tts_tpu_torch.{m}" for m in (
+    "eval.testsets", "eval.metrics", "eval.ecapa_tdnn", "eval.eval_infer_batch",
+    "eval.eval_testset", "eval.eval_seedtts_testset", "eval.eval_librispeech_test_clean",
+    "eval.eval_utmos", "runtime.grpc_api", "runtime.grpc_api.f5tts_pb2",
+    "runtime.grpc_api.stubs", "runtime.grpc_server", "runtime.grpc_client",
+    "infer.gradio_logic", "infer.gradio_app", "train.finetune_gradio",
+    "scripts.profile_request", "scripts.count_params_gflops", "scripts.picard_ab",
+    "scripts.parity_vs_released", "compat", "compat.api", "compat.socket_server",
+    "compat.infer.utils_infer", "compat.infer.infer_cli", "compat.model",
+    "compat.model.utils", "compat.model.dataset", "compat.train.train",
+    "compat.train.finetune_cli", "compat.eval.utils_eval")}
 
 
 def _forbidden(name: str) -> bool:
@@ -47,9 +60,10 @@ def test_import_every_submodule_loads_no_jax():
             "f5_tts_tpu_torch.parallel.ring", "f5_tts_tpu_torch.parallel.sequence",
             "f5_tts_tpu_torch.parallel.distributed", "f5_tts_tpu_torch.parallel.tensor",
             "f5_tts_tpu_torch.parallel.pipeline",
-            "f5_tts_tpu_torch.parallel.layout"} | SERVING <= set(out)
+            "f5_tts_tpu_torch.parallel.layout"} | SERVING | TOOLING <= set(out)
     # optional packages load inside the functions that need them
-    assert not {"datasets", "safetensors"} & set(out)
+    assert not {"datasets", "safetensors", "gradio", "s3prl", "faster_whisper",
+                "funasr"} & set(out)
     bad = [m for m in out if _forbidden(m)]
     assert not bad, bad
 
@@ -86,7 +100,7 @@ def test_every_submodule_is_walked():
             "f5_tts_tpu_torch.scripts", "f5_tts_tpu_torch.scripts.quant_ab",
             "f5_tts_tpu_torch.scripts.exp_pipelined_flash",
             "f5_tts_tpu_torch.scripts.exp_fused_ln_matmul", "f5_tts_tpu_torch.models.bigvgan",
-            "f5_tts_tpu_torch.audio.asr"} | SERVING <= names
+            "f5_tts_tpu_torch.audio.asr"} | SERVING | TOOLING <= names
 
 
 def test_f5tts_without_device_requires_cuda():
