@@ -232,7 +232,20 @@ Run from the repository root:  python3 chip_smoke.py
     ECAPA-TDNN forward on the card against the CPU (cosine per embedding
     at least ``ECAPA_COS_MIN``); ``scripts/profile_request`` at bucket 512
     (assemble, upload, compute, fetch; device time under the profiler).
-26. Prints the kernels' JSON line, then the result line.
+26. The narrow configurations and the last scripts: F5TTS_v1_Small
+    (dh 64, 48-channel groups) serves one replayed request at NFE 32 (A 18
+    per NFE step, B 0, a finite wav, no tap copies frozen); F5TTS_v1_Small
+    and E2TTS_Small fp32 ``forward_cfg`` at n 256, card against CPU
+    (``FULL_WIDTH_REL_TOL``; A depth, B 0); ``scripts/smoke.py --device
+    cuda`` (F5TTS_Tiny: A, no B); ``bench_step_breakdown`` ``step`` (A, B),
+    ``profile`` and ``profile_train 8 1024`` (B, C, D, E) with their kernel
+    tables; the speak probe at ``--heads 2`` (``SPEAK_ARGS``: C, D, E
+    depth per update, no B, A in its eval and engine pass, the JSON line,
+    the weights file, a finite engine CER) and the Picard probe at
+    ``--epochs 2`` (``PICARD_ARGS``: F5TTS_v1_Base at full width; B 1, C
+    depth or 2 x depth, D and E depth per micro-step; at tol 1e-3 A depth
+    and B 1 per sweep, sweeps at most NFE).
+27. Prints the kernels' JSON line, then the result line.
 
 Every time of a kernel, its plain version and its library yardstick is
 device time per call, from CUDA-graph replays (``utils.device.device_ms``).
@@ -527,14 +540,15 @@ def phase_convpos(torch):
     return rows, worst
 
 
-def _full_width_dit(torch):
-    """(cfg, seeded F5TTS_v1_Base DiT on the CPU with its gates randomized,
-    run(model, device) -> its fp32 forward_cfg output on fixed inputs)."""
+def _full_width_dit(torch, name: str = "F5TTS_v1_Base"):
+    """(cfg, seeded DiT of configuration ``name`` on the CPU with its gates
+    randomized, run(model, device) -> its fp32 forward_cfg output on fixed
+    inputs)."""
     from f5_tts_tpu_torch.models import dit as D
     from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
 
-    cfg = MODEL_CONFIGS["F5TTS_v1_Base"].arch
+    cfg = MODEL_CONFIGS[name].arch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.random.fork_rng(devices=[]):
@@ -4667,6 +4681,221 @@ def phase_tooling(torch) -> dict:
     return out
 
 
+NARROW_DEPTH = {"F5TTS_v1_Small": 18, "E2TTS_Small": 20}
+SPEAK_ARGS = ["--heads", "2", "--files", "128", "--max-updates", "24", "--eval-every", "24",
+              "--n-eval", "8", "--fresh"]
+PICARD_ARGS = ["--epochs", "2", "--tols", "1e-3", "--iters", "2"]
+
+
+def _narrow_serving(torch) -> dict:
+    """F5TTS_v1_Small (dh 64, 48-channel groups) serves one replayed request:
+    A depth x NFE per engine call, B none, no tap copies frozen."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.infer.api import F5TTS
+
+    tts = F5TTS(model="F5TTS_v1_Small", init_random=True)
+    depth = tts.model_cfg.arch.depth
+    quiet = lambda *a, **k: None  # noqa: E731
+    t0 = time.perf_counter()
+    tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)  # captures the key
+    first_s = time.perf_counter() - t0
+    calls = _recorded_run(tts.engine)
+    reset_counts()
+    t0 = time.perf_counter()
+    wav, sr, _ = tts.infer(REF_WAV, REF_TEXT, SHORT_TEXT, show_info=quiet, seed=7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = counts()
+    del tts.engine._run
+    taps = [m.taps for m in tts.engine.model.modules() if hasattr(m, "freeze_taps")]
+    out = dict(depth=depth, engine_calls=len(calls), launches=la, graphs=len(tts.engine.graphs),
+               audio_s=len(wav) / sr, first_s=first_s, replayed_s=wall,
+               a_per_step=la["A"] / max(len(calls) * NFE, 1))
+    print(f"phase 26 F5TTS_v1_Small request (bf16, NFE {NFE}, replayed): {len(calls)} engine "
+          f"call(s), A {la['A']} ({out['a_per_step']:.0f} per NFE step), B {la['B']}, "
+          f"{out['audio_s']:.2f} s of audio, first hit {first_s:.2f} s, replayed {wall:.3f} s",
+          flush=True)
+    if not calls or la["A"] != depth * NFE * len(calls) or la["B"] != 0:
+        fail(f"F5TTS_v1_Small request launches {la} over {len(calls)} calls, want A "
+             f"{depth} x {NFE} per call and no B")
+    if not np.isfinite(wav).all() or not len(wav) or any(t is not None for t in taps):
+        fail("F5TTS_v1_Small request: non-finite wav, or tap copies frozen for a plain width")
+    del tts
+    torch.cuda.empty_cache()
+    return out
+
+
+def _narrow_forwards(torch) -> dict:
+    """F5TTS_v1_Small forward_cfg and E2TTS_Small forward_cfg, fp32, n 256:
+    card (A, the plain ConvPositionEmbedding) against the CPU."""
+    import copy
+
+    from f5_tts_tpu_torch.models import unett as U
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    out = {}
+    cfg, model, run = _full_width_dit(torch, "F5TTS_v1_Small")
+    got, want, la, t_card, t_cpu = _card_vs_cpu(torch, copy.deepcopy(model).cuda(), run)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    out["F5TTS_v1_Small"] = dict(rel=rel, launches={k: la[k] for k in ("A", "B")})
+    gen = torch.Generator().manual_seed(41)
+    b, n = 2, 256
+    mask = torch.arange(n)[None, :] < torch.tensor([[256], [201]])
+    x, cond = (torch.randn((b, n, 100), generator=gen) for _ in range(2))
+    times = torch.tensor([0.3, 0.7])
+    ucfg = MODEL_CONFIGS["E2TTS_Small"].arch
+    text = torch.randint(0, ucfg.text_num_embeds, (b, 90), generator=gen).to(torch.int32)
+
+    def run_unett(m, dev):
+        with torch.inference_mode():
+            tt, xx, cc, ts, mm = (t.to(dev) for t in (text, x, cond, times, mask))
+            te_c = U.text_embedding(m, ucfg, tt, n)
+            te_u = U.text_embedding(m, ucfg, tt, n, drop_text=True)
+            pred, null = U.forward_cfg(m, ucfg, xx, cc, te_c, te_u, ts, mask=mm)
+            return torch.cat([pred, null]).float().cpu()
+
+    ugot, uwant, ula, ut_card, ut_cpu = _card_vs_cpu(torch, _fresh_backbone(torch, ucfg, 43),
+                                                     run_unett)
+    urel = ((ugot - uwant).abs().max() / uwant.abs().max()).item()
+    out["E2TTS_Small"] = dict(rel=urel, launches={k: ula[k] for k in ("A", "B")})
+    for name, (r, launched, ok) in {"F5TTS_v1_Small": (rel, la, torch.isfinite(got).all()),
+                                    "E2TTS_Small": (urel, ula, torch.isfinite(ugot).all())}.items():
+        print(f"phase 26 {name} forward_cfg fp32 n={n}: rel err {r:.3e} (tol "
+              f"{FULL_WIDTH_REL_TOL}); launches A {launched['A']} B {launched['B']}", flush=True)
+        if (launched["A"], launched["B"]) != (NARROW_DEPTH[name], 0):
+            fail(f"{name} forward launches {launched}, want A {NARROW_DEPTH[name]}, B 0")
+        if not ok or r > FULL_WIDTH_REL_TOL:
+            fail(f"{name} forward: card and CPU disagree (rel {r})")
+    return out
+
+
+def _narrow_smoke(torch, root: str) -> dict:
+    """``scripts/smoke.py --device cuda``: F5TTS_Tiny end to end."""
+    from f5_tts_tpu_torch.scripts import smoke
+
+    reset_counts()
+    res = smoke.main([os.path.join(root, "smoke.wav"), "--device", "cuda"])
+    la = res["launches"]
+    a, b = la.get("flash_attention_fwd", 0), la.get("fused_convpos_fwd", 0)
+    print(f"phase 26 smoke.py --device cuda (F5TTS_Tiny, dh 64, 4-channel groups): A {a}, B {b}",
+          flush=True)
+    if not a or b or not len(res["wav"]):
+        fail(f"smoke on the card: launches {la}, want A and no B")
+    return dict(launches=la, audio_s=len(res["wav"]) / res["sr"])
+
+
+def _narrow_breakdown(torch, root: str) -> dict:
+    """``bench_step_breakdown``: ``step`` (A, B), ``profile`` and
+    ``profile_train 8 1024`` (B, C, D, E), few iterations, both tables."""
+    from f5_tts_tpu_torch.scripts import bench_step_breakdown as BSB
+
+    reset_counts()
+    out = {"step": BSB.bench_step(iters=5)}
+    reset_counts()
+    out["profile"] = BSB.profile_step(iters=3, trace_dir=os.path.join(root, "prof"))
+    reset_counts()
+    out["profile_train"] = BSB.profile_train(8, 1024, "dots_flash", iters=2,
+                                             trace_dir=os.path.join(root, "prof_train"))
+    la, lt = out["step"]["launches"], out["profile_train"]["launches"]
+    if not (la.get("flash_attention_fwd") and la.get("fused_convpos_fwd")):
+        fail(f"bench_step_breakdown step launches {la}, want A and B")
+    want = ("fused_convpos_fwd", "flash_attention_fwd_stats", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+    if not all(lt.get(k) for k in want):
+        fail(f"bench_step_breakdown profile_train launches {lt}, want B, C, D and E")
+    for k in ("profile", "profile_train"):
+        top = out[k]["rows"][:3]
+        out[k] = {key: v for key, v in out[k].items() if key != "rows"}
+        out[k]["top3"] = [(r["name"][:60], round(r["ms"], 3), r["count"]) for r in top]
+    return out
+
+
+def _narrow_probes(torch, root: str) -> dict:
+    """The speak probe at dh 64 (C, D, E in training, A in its evals and the
+    engine pass) and the Picard probe at full width (B, C, D, E per
+    micro-step; A depth and B one per sweep; sweeps at most NFE)."""
+    import math
+
+    from f5_tts_tpu_torch.scripts import train_picard_probe as PP
+    from f5_tts_tpu_torch.scripts import train_speak_probe as SP
+
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    sp = SP.main(SPEAK_ARGS + ["--ckpt-dir", os.path.join(root, "sp_ck"), "--out",
+                               os.path.join(root, "sp.pt"), "--data-dir",
+                               os.path.join(root, "sp_ds")])
+    out["speak_s"] = time.perf_counter() - t0
+    la, depth, ups = sp["launches"], sp["arch"]["depth"], sp["launches"]["train_updates"]
+    tr, eng = la["train"], la["engine"]
+    out["speak"] = {k: sp[k] for k in ("cer_curve", "engine_cer", "order_sensitivity_mse")}
+    out["speak"]["launches"] = la
+    print(f"phase 26 speak probe --heads 2: {ups} updates in {la['train_wall_s']:.1f} s, "
+          f"launches {json.dumps(la)}; CER curve {sp['cer_curve']}, engine CER "
+          f"{sp['engine_cer']}", flush=True)
+    cde = [tr.get(k, 0) for k in ("flash_attention_fwd_stats", "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")]
+    a_eng = eng.get("flash_attention_fwd", 0)
+    if cde != [depth * ups] * 3 or tr.get("fused_convpos_fwd", 0) or not ups:
+        fail(f"speak probe training launches {tr}, want C, D, E {depth} x {ups} and no B")
+    if not a_eng or a_eng % (depth * sp["nfe"]) or not la["eval"].get("flash_attention_fwd"):
+        fail(f"speak probe evals {la['eval']} / engine {eng}: want A in both, depth x NFE "
+             "per engine call")
+    if not os.path.isfile(sp["params"]) or not math.isfinite(sp["engine_cer"]):
+        fail("speak probe: no params file or a non-finite engine CER")
+    reset_counts()
+    t0 = time.perf_counter()
+    pp = PP.main(PICARD_ARGS + ["--out", os.path.join(root, "pp.pt"), "--data-dir",
+                                os.path.join(root, "pp_ds")])
+    out["picard_s"] = time.perf_counter() - t0
+    s, reps = pp["summary"], pp["reports"]
+    la, depth, micro = s["launches"], s["depth"], s["launches"]["train_micro_steps"]
+    per = {k: la["train"].get(n, 0) / micro for k, n in (
+        ("B", "fused_convpos_fwd"), ("C", "flash_attention_fwd_stats"),
+        ("D", "flash_attention_bwd_dq"), ("E", "flash_attention_bwd_dkv"))}
+    out["picard"] = dict(summary=s, reports=reps, per_micro=per)
+    print(f"phase 26 Picard probe --epochs 2: {micro} micro-steps in {la['train_wall_s']:.1f} s, "
+          f"per micro-step {per}; {json.dumps(reps)}", flush=True)
+    if per["B"] != 1 or per["D"] != depth or per["E"] != depth or per["C"] not in (depth,
+                                                                                   2 * depth):
+        fail(f"Picard probe training launches per micro-step {per}, want B 1, C {depth} or "
+             f"{2 * depth}, D and E {depth}")
+    for tol, rec in la["picard"].items():
+        sw = rec["sweeps"]
+        if not 1 <= sw <= s["sequential_worst_case"] or rec.get("flash_attention_fwd") != \
+                depth * sw or rec.get("fused_convpos_fwd") != sw:
+            fail(f"Picard probe at tol {tol}: {rec}, want A {depth} and B 1 per sweep, "
+                 f"sweeps <= NFE")
+    return out
+
+
+def phase_narrow(torch) -> dict:
+    """Phase 26 (module docstring): the narrow configurations on the card,
+    the step breakdown, the two probes."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_narrow_", dir=os.path.join(REPO, ".cache"))
+    out, laps = {}, {}
+    try:
+        for key, fn in (("serving", lambda: _narrow_serving(torch)),
+                        ("forwards", lambda: _narrow_forwards(torch)),
+                        ("smoke", lambda: _narrow_smoke(torch, root)),
+                        ("breakdown", lambda: _narrow_breakdown(torch, root)),
+                        ("probes", lambda: _narrow_probes(torch, root))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            laps[key] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = laps
+    print(f"phase 26 parts (s): {json.dumps(laps)}", flush=True)
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instance from nvcc's -Xptxas=-v log: its
     demangled name (template arguments included), registers and spills, and
@@ -4814,6 +5043,9 @@ def main() -> int:
     tool = phase_tooling(torch)  # counts set to 0 before each counted call
     lap("25 (Picard AOT bundles, eval batch, ECAPA, request profile)")
     print(f"summary: tooling {json.dumps(tool, default=str)}", flush=True)
+    narrow = phase_narrow(torch)  # counts set to 0 before each counted run
+    lap("26 (narrow configurations, step breakdown, speak and Picard probes)")
+    print(f"summary: narrow {json.dumps(narrow, default=str)}", flush=True)
     # the card and the build again, where the end of a long output still shows them
     print(f"card: {smi}; kernels built in {LIBRARY.build_seconds or 0.0:.1f} s; phases done in "
           f"{time.perf_counter() - t_start:.1f} s after the build", flush=True)
@@ -5012,6 +5244,23 @@ def main() -> int:
                 for t, tol in (("tol_0", 0.0), ("tol_0.001", 1e-3)) for e in TOOL_ENTRIES[tol]}
             entry_["eval_batch_launches"] = tool["eval"]["launches"][key]
             entry_["eval_batch_launches_per_call"] = tool["eval"]["launches_per_call"][key]
+    # phase 26: launches on the narrow configurations' paths and the probes
+    sp = narrow["probes"]["speak"]["launches"]
+    pp = narrow["probes"]["picard"]["summary"]["launches"]
+    for entry_ in kernels:
+        name = entry_["name"]
+        if name in ("flash_attention_fwd", "fused_convpos_fwd"):
+            key = "A" if name == "flash_attention_fwd" else "B"
+            entry_["narrow_launches"] = {
+                "F5TTS_v1_Small_request": narrow["serving"]["launches"][key],
+                "F5TTS_Tiny_smoke": narrow["smoke"]["launches"].get(name, 0),
+                "speak_probe_engine": sp["engine"].get(name, 0),
+                "picard_probe_sweeps": {t: r.get(name, 0) for t, r in pp["picard"].items()}}
+        if name in ("fused_convpos_fwd", "flash_attention_fwd_stats", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"):
+            entry_.setdefault("narrow_launches", {}).update(
+                speak_probe_train=sp["train"].get(name, 0),
+                picard_probe_train=pp["train"].get(name, 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

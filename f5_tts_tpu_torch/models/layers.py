@@ -24,7 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from f5_tts_tpu_torch.ops.attention import attention
-from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused, kernel_taps
+from f5_tts_tpu_torch.ops import fused_convpos
+from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused, conv_pos_plain, kernel_taps
 from f5_tts_tpu_torch.ops.quant import linear_w8a8
 from f5_tts_tpu_torch.ops.rope import apply_rotary
 from f5_tts_tpu_torch.parallel.tensor import rotary_heads, tp_of
@@ -159,22 +160,40 @@ class ConvPositionEmbedding(nn.Module):
         """Make the kernel's tap-major weight copies once, from the weights as
         they are now (in their dtype and on their device); every later call
         passes them to the kernel instead of copying per call.  For weights
-        that no longer change: a serving engine calls it after its cast."""
+        that no longer change: a serving engine calls it after its cast.  A
+        width that ``conv_pos_embed`` sends to the plain composition on the
+        card needs no copies, and gets none."""
         c1, c2 = self.conv1d[0], self.conv1d[2]
+        if not conv_pos_takes_kernel(c1.weight.device.type, c1.weight.shape[0], self.groups):
+            self.taps = None
+            return
         self.taps = tuple(kernel_taps(c.weight, self.groups, c.weight.dtype) for c in (c1, c2))
 
     def forward(self, x, mask=None):
         return conv_pos_embed(self, x, mask)
 
 
+def conv_pos_takes_kernel(device_type: str, d: int, groups: int) -> bool:
+    """Whether ``conv_pos_embed`` runs ``conv_pos_fused`` (kernel B on the
+    card, its plain version behind the same op on the CPU) or the plain
+    composition: JAX's gate (:276-290, ``conv_pos_supported``) on the device
+    type and the static width alone.  On the card only a width in
+    64-channel groups takes the kernel; the CPU keeps ``conv_pos_fused``."""
+    return device_type != "cuda" or fused_convpos.kernel_takes(d, groups)
+
+
 def conv_pos_embed(p: ConvPositionEmbedding, x, mask=None):
-    """Runs ``ops/fused_convpos.py``: the CUDA kernel for CUDA tensors."""
-    b, n, _ = x.shape
+    """Runs ``ops/fused_convpos.py``: kernel B for CUDA tensors of a width
+    it takes, the plain composition for other widths on the card (the
+    768-dim Small configurations, as JAX runs XLA's convs there)."""
+    b, n, d = x.shape
     if mask is None:
         lens = torch.full((b,), n, dtype=torch.int32, device=x.device)
     else:
         lens = mask.sum(dim=-1, dtype=torch.int32)
     c1, c2 = p.conv1d[0], p.conv1d[2]
+    if not conv_pos_takes_kernel(x.device.type, d, p.groups):
+        return conv_pos_plain(x, c1.weight, c1.bias, c2.weight, c2.bias, lens, p.groups)
     return conv_pos_fused(x, c1.weight, c1.bias, c2.weight, c2.bias, lens, groups=p.groups,
                           taps=p.taps)
 

@@ -19,9 +19,12 @@ keys are valid in the audio prefix [0, len_a) and the text prefix
 (kernel F) or, on the training backends, its differentiable
 ``flash_attention_two_segment_trainable`` (kernels C, D, E in the
 two-segment mode), with ``seg = n``; ``"sdpa"`` runs the plain einsum with
-the concatenated mask.  Without the mask, every key is valid and the
-attention goes through ``ops/attention.attention`` with ``mask=None``
-(kernel A, or C, D, E when training).
+the concatenated mask, and so do ``"auto"`` and ``"train_auto"`` on the
+card for a head width the kernels do not take (JAX's
+``flash_seg_supported``; ``ops/attention.attention_takes_kernel``).
+Without the mask, every key is valid and the attention goes through
+``ops/attention.attention`` with ``mask=None`` (kernel A, or C, D, E when
+training).
 
 The text stream keeps its own length and adds the ``text_max_pos`` absolute
 table; a longer text raises ``ValueError``, where the JAX function fails on
@@ -43,7 +46,7 @@ import torch.nn as nn
 from f5_tts_tpu_torch.models import layers as L
 from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import MMDiTConfig
-from f5_tts_tpu_torch.ops.attention import attention, sdpa
+from f5_tts_tpu_torch.ops.attention import FLASH_BACKENDS, attention, attention_takes_kernel, sdpa
 from f5_tts_tpu_torch.ops.flash_attention import (flash_attention_two_segment,
                                                   flash_attention_two_segment_trainable)
 from f5_tts_tpu_torch.ops.rope import apply_rotary, device_table
@@ -184,16 +187,16 @@ def joint_attention(p: JointAttention, xn, cn, heads: int, rope_a, rope_t, mask,
     if attn_mask_enabled and mask is not None:
         cm = c_mask if c_mask is not None else torch.ones((b, nt), dtype=torch.bool,
                                                           device=xn.device)
-        if backend == "sdpa":
-            out = sdpa(Q, K, V, torch.cat([mask, cm], dim=1))
-        elif backend in ("auto", "flash") + _TRAIN_BACKENDS:
+        if backend not in ("sdpa",) + FLASH_BACKENDS:
+            raise ValueError(f"unknown attention backend {backend!r}")
+        if backend != "sdpa" and attention_takes_kernel(Q.device.type, backend, Q.shape[-1]):
             # both stream masks are prefixes (length-masked audio, trailing
             # text padding): keys valid in [0, len_a) U [n, n + len_t)
             fn = (flash_attention_two_segment_trainable if backend in _TRAIN_BACKENDS
                   else flash_attention_two_segment)
             out = fn(Q, K, V, mask.sum(dim=-1), cm.sum(dim=-1), seg=n)
-        else:
-            raise ValueError(f"unknown attention backend {backend!r}")
+        else:  # JAX's SDPA where flash_seg_supported fails (:138-152)
+            out = sdpa(Q, K, V, torch.cat([mask, cm], dim=1))
     else:
         out = attention(Q, K, V, mask=None, backend=backend)
     out = out.transpose(1, 2).reshape(b, n + nt, -1)

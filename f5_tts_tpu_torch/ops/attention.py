@@ -7,7 +7,12 @@ go to the serving forward of ``ops/flash_attention.py`` (kernel A for CUDA
 tensors, its plain version for CPU tensors); ``"flash_train"`` and
 ``"train_auto"`` go to its differentiable ``flash_attention_trainable``
 (kernels C, D, E, or their plain versions under the same autograd
-Function); ``"sdpa"`` runs the plain ``sdpa`` only when the caller names it.
+Function); ``"sdpa"`` runs the plain ``sdpa`` when the caller names it.
+On CUDA tensors ``"auto"`` and ``"train_auto"`` take the kernels only for
+a head width they take and ``sdpa`` otherwise, as JAX's take SDPA where
+``flash_supported`` fails; the forced ``"flash"`` and ``"flash_train"``
+always take them, and raise for such a width
+(``attention_takes_kernel``).
 ``"chunked"`` is JAX's ``chunked_attention`` (:39-80): a plain,
 differentiable online-softmax scan over 512-key chunks, which gives
 ``sdpa`` when the chunk does not divide n, as JAX's does.  A callable
@@ -20,7 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from f5_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_trainable
+from f5_tts_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_trainable,
+    kernel_takes,
+)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -61,6 +70,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
+FLASH_BACKENDS = ("auto", "flash", "train_auto", "flash_train")
+FORCED_BACKENDS = ("flash", "flash_train")
+
+
+def attention_takes_kernel(device_type: str, backend: str, head_dim: int) -> bool:
+    """Whether a flash backend sends q, k, v of ``head_dim`` on a
+    ``device_type`` device to the kernels' functions (``flash_attention``,
+    ``flash_attention_trainable``, MMDiT's two-segment pair) rather than to
+    the plain ``sdpa``: JAX's gate (:96-116, ``flash_supported``) on the
+    device type and the static head width alone.  A CPU tensor keeps the
+    kernels' functions, whose CPU implementation is their plain version; on
+    the card the forced names always take the kernels."""
+    if device_type != "cuda" or backend in FORCED_BACKENDS:
+        return True
+    return kernel_takes(head_dim)
+
+
 def attention(q, k, v, mask=None, backend="auto"):
     if callable(backend):
         return backend(q, k, v, mask)
@@ -68,11 +94,13 @@ def attention(q, k, v, mask=None, backend="auto"):
         return sdpa(q, k, v, mask)
     if backend == "chunked":
         return chunked_attention(q, k, v, mask)
-    if backend in ("flash_train", "train_auto"):
-        return flash_attention_trainable(q, k, v, mask)
-    if backend not in ("auto", "flash"):
+    if backend not in FLASH_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r} "
                          "(auto | flash | flash_train | train_auto | sdpa | chunked | a callable)")
+    if not attention_takes_kernel(q.device.type, backend, q.shape[-1]):
+        return sdpa(q, k, v, mask)
+    if backend in ("flash_train", "train_auto"):
+        return flash_attention_trainable(q, k, v, mask)
     b, _, n, _ = q.shape
     if mask is None:
         lens = torch.full((b,), n, dtype=torch.int32, device=q.device)

@@ -152,6 +152,12 @@ def launch_counts() -> list[int]:
     return [k.launches for k in KERNELS]
 
 
+def launches_since(before: list[int]) -> dict[str, int]:
+    """Each kernel's launches since ``before`` (``launch_counts()``), by its
+    C entry point, for the kernels that launched."""
+    return {k.name: k.launches - b for k, b in zip(KERNELS, before) if k.launches != b}
+
+
 def add_launches(counts: list[int]) -> None:
     """Add ``counts`` (in ``KERNELS`` order, as ``launch_counts``) to the
     kernels' ``launches``: the launches of one CUDA graph replay."""

@@ -67,7 +67,16 @@ from f5_tts_tpu_torch.ops.cuda_build import CudaKernel
 from f5_tts_tpu_torch.ops.cuda_build import no_meta as _no_meta
 
 LOG2E = 1.4426950408889634
-HEAD_DIM = 64  # the kernel's head width (every F5-TTS config)
+HEAD_DIM = 64  # the kernels' head width (every Base config, F5TTS_Tiny)
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """Whether the kernels take q, k, v of this head width: the shape half
+    of JAX's ``flash_supported`` / ``flash_seg_supported`` (``dh % 64 ==
+    0``, :528-540), narrowed to the one width built.  The callers that gate
+    on it (``ops/attention.attention_takes_kernel``) send a narrower head to
+    the plain ``sdpa``; the wrappers themselves raise for it."""
+    return head_dim == HEAD_DIM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,7 +197,7 @@ def _check(q, k, v, lens, seg=None):
         raise ValueError(f"q, k, v must share one [b, h, n, dh] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, dh = q.shape
-    if dh != HEAD_DIM:
+    if not kernel_takes(dh):
         raise ValueError(f"flash_attention kernel takes head dim {HEAD_DIM}, got {dh}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, got "

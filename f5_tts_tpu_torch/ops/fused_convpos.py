@@ -15,7 +15,8 @@ conv1d(k=31, bias) -> Mish -> mask``.  Weights arrive in torch's
 Dispatch is by device, through the ``torch.library`` custom op
 ``conv_pos_op``: a CPU tensor runs ``conv_pos_plain``; a CUDA tensor
 launches the kernel, and a shape or dtype it does not take raises (the
-kernel takes 64-channel groups, the F5-TTS width of 1024 / 16).
+kernel takes 64-channel groups, the Base width of 1024 / 16;
+``kernel_takes``).
 
 The kernel reads its weights in a tap-major bf16 layout (``kernel_taps``:
 [parts][groups][31][c_out][c_in], one part for bf16 x, the high and low
@@ -47,6 +48,16 @@ from f5_tts_tpu_torch.ops.cuda_build import no_meta as _no_meta
 
 KSIZE = 31
 GROUP_WIDTH = 64  # channels per group the kernel takes
+
+
+def kernel_takes(d: int, groups: int) -> bool:
+    """Whether the kernel takes a width ``d`` in ``groups`` groups: JAX's
+    ``conv_pos_supported`` group rule (:153-165, a multiple of 64 channels
+    per group) narrowed to the one width built.  ``models/layers.py``
+    ``conv_pos_takes_kernel`` sends a narrower group (the 768-dim Small
+    configurations' 48, F5TTS_Tiny's 4) to ``conv_pos_plain``; the wrapper
+    itself raises for it."""
+    return groups > 0 and d == groups * GROUP_WIDTH
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,7 +125,7 @@ def conv_pos_cuda(x, w1, b1, w2, b2, lens, groups: int, taps=None,
     if x.ndim != 3:
         raise ValueError(f"x must be [b, n, d], got {tuple(x.shape)}")
     b, n, d = x.shape
-    if groups <= 0 or d != groups * GROUP_WIDTH:
+    if not kernel_takes(d, groups):
         raise ValueError(f"fused_convpos kernel takes {GROUP_WIDTH}-channel groups, "
                          f"got d={d}, groups={groups}")
     for name, w in (("w1", w1), ("w2", w2)):

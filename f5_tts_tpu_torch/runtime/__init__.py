@@ -1,3 +1,3 @@
 """The serving runtime (JAX counterpart: ``f5_tts_tpu/runtime/``): the
-offline benchmark (``benchmark``) and AOT serving bundles (``aot``).  The
-gRPC server and client are not ported yet (see ROADMAP.md)."""
+offline benchmark (``benchmark``), AOT serving bundles (``aot``), and the
+gRPC server and client (``grpc_server``, ``grpc_client``, ``grpc_api/``)."""

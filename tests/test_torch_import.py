@@ -21,7 +21,8 @@ SERVING = {f"f5_tts_tpu_torch.{m}" for m in (
     "infer.socket_server", "infer.socket_client", "infer.http_server", "utils.hub",
     "utils.seed")}
 # eval, gRPC, the Gradio shells and logic, the finetune toolkit, the
-# measurement scripts and the import alias
+# measurement scripts, the import alias, and the repo-level scripts (smoke,
+# epoch counts, input and step benches, the two probes)
 TOOLING = {f"f5_tts_tpu_torch.{m}" for m in (
     "eval.testsets", "eval.metrics", "eval.ecapa_tdnn", "eval.eval_infer_batch",
     "eval.eval_testset", "eval.eval_seedtts_testset", "eval.eval_librispeech_test_clean",
@@ -32,7 +33,10 @@ TOOLING = {f"f5_tts_tpu_torch.{m}" for m in (
     "scripts.parity_vs_released", "compat", "compat.api", "compat.socket_server",
     "compat.infer.utils_infer", "compat.infer.infer_cli", "compat.model",
     "compat.model.utils", "compat.model.dataset", "compat.train.train",
-    "compat.train.finetune_cli", "compat.eval.utils_eval")}
+    "compat.train.finetune_cli", "compat.eval.utils_eval", "scripts.smoke",
+    "scripts.count_max_epoch", "scripts.count_max_epoch_precise", "scripts.bench_input_pipeline",
+    "scripts.bench_step_breakdown", "scripts.train_speak_probe", "scripts.train_picard_probe",
+    "scripts.seeded_weights")}
 
 
 def _forbidden(name: str) -> bool:
