@@ -1,0 +1,9 @@
+"""Kernels (``ops/fused_convpos.py``): kernel B's summed roofline bound over
+its summed device time in the traced slice."""
+
+from benchmark.readers import serving_bounds, share
+
+
+def read(ctx):
+    b = serving_bounds(ctx)
+    return None if b is None else share(b[1], ctx["trace"], "convpos_fwd_kernel")
