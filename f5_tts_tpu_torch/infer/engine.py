@@ -78,6 +78,15 @@ gloo collective cannot be captured, and capturing NCCL's waits for a
 multi-card cell.  ``BatchServer`` then runs one batch at a time
 (``infer/serve.py``), since two threads' collectives on one group could
 interleave in another order on each rank.
+
+Each ``generate_batch`` / ``generate_batch_from_wavs`` is an ``engine.call``
+span of the program's tracer (``utils/profiling.py``): ``engine.prepare``
+(the host assembly, with ``engine.upload``: the noise draw and the
+uploads), ``engine.lock_wait``, ``engine.capture`` for a new key,
+``engine.enqueue`` (the input copies, the replay, the output clones),
+``engine.fetch`` (the copies to the host, which wait for the replay) and
+``engine.trim``.  The spans read the host clock only; off, they cost a flag
+read each.
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ from f5_tts_tpu_torch.models.configs import ModelConfig
 from f5_tts_tpu_torch.models.layers import ConvPositionEmbedding
 from f5_tts_tpu_torch.ops import cuda_build, quant, workspace
 from f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, num_frames, stft_pad_amount
+from f5_tts_tpu_torch.utils.profiling import span
 
 SILENCE_FLOOR = float(np.log(1e-5))
 
@@ -353,31 +363,43 @@ class InferenceEngine:
         n = args[-1].shape[1]  # the noise [b, n, d]
         call = self._call(entry, args, decode)
         if self.device.type != "cuda" or self._collective():
-            return call(*args)  # a call with collectives runs eagerly (module docstring)
+            with span("engine.enqueue") as sp:  # eager: the call itself
+                out = call(*args)  # a call with collectives runs eagerly (module docstring)
+                if opts.time_parallel_window:
+                    sp.set(sweeps=self.last_sweeps)
+            return out
         key = (entry, args[0].shape[0], n, args[0].shape[1] if entry == "wav" else None, decode,
                self.dtype, opts, self.parallel_hooks)
         cur = torch.cuda.current_stream(self.device)
-        with self._graph_lock, torch.inference_mode():
-            g = self.graphs.get(key)
-            if g is None:
-                g = self.graphs[key] = (self._capture_picard(call, args)
-                                        if opts.time_parallel_window else
-                                        self._capture(call, args))
-            self._stream.wait_stream(cur)  # the request's inputs are ready
-            with torch.cuda.stream(self._stream):
-                for dst, src in zip(g.inputs, args):
-                    dst.copy_(src)
-                if isinstance(g, CapturedPicard):
-                    outputs, launches = self._replay_picard(g)
-                else:
-                    g.graph.replay()
-                    outputs, launches = g.outputs, g.launches
-                out = tuple(None if o is None else o.clone() for o in outputs)
-            cuda_build.add_launches(launches)
-            cur.wait_stream(self._stream)  # the caller's fetch waits for this replay only
-            for o in out:
-                if o is not None:
-                    o.record_stream(cur)
+        with span("engine.lock_wait"):
+            self._graph_lock.acquire()
+        try:
+            with torch.inference_mode():
+                g = self.graphs.get(key)
+                if g is None:
+                    with span("engine.capture"):
+                        g = self.graphs[key] = (self._capture_picard(call, args)
+                                                if opts.time_parallel_window else
+                                                self._capture(call, args))
+                with span("engine.enqueue") as sp:
+                    self._stream.wait_stream(cur)  # the request's inputs are ready
+                    with torch.cuda.stream(self._stream):
+                        for dst, src in zip(g.inputs, args):
+                            dst.copy_(src)
+                        if isinstance(g, CapturedPicard):
+                            outputs, launches = self._replay_picard(g)
+                            sp.set(sweeps=self.last_sweeps)
+                        else:
+                            g.graph.replay()
+                            outputs, launches = g.outputs, g.launches
+                        out = tuple(None if o is None else o.clone() for o in outputs)
+                    cuda_build.add_launches(launches)
+                    cur.wait_stream(self._stream)  # the caller's fetch waits for this replay only
+                    for o in out:
+                        if o is not None:
+                            o.record_stream(cur)
+        finally:
+            self._graph_lock.release()
         return out
 
     def _call(self, entry: str, args: tuple, decode: bool):
@@ -540,13 +562,18 @@ class InferenceEngine:
         gen_frames = [int(d - ln) for d, ln in zip(duration, lens)]
         wavs = []
         if wav is not None:
-            if gen_frames:
-                crop_f = -(-max(max(gen_frames), 1) // 128) * 128
-                wav = wav[:, : min(crop_f * self.hop, wav.shape[1])]
-            wav_np = wav.cpu().numpy().astype(np.float32) / 32767.0
-            for i, gf in enumerate(gen_frames):
-                n_samp = max(gf - 1, 0) * self.hop if self.vocoder_type == "vocos" else gf * self.hop
-                wavs.append(wav_np[i, :n_samp])
+            with span("engine.fetch") as sp:
+                if gen_frames:
+                    crop_f = -(-max(max(gen_frames), 1) // 128) * 128
+                    wav = wav[:, : min(crop_f * self.hop, wav.shape[1])]
+                wav = wav.cpu()
+                sp.count("bytes", wav.numel() * wav.element_size())
+            with span("engine.trim"):
+                wav_np = wav.numpy().astype(np.float32) / 32767.0
+                for i, gf in enumerate(gen_frames):
+                    n_samp = (max(gf - 1, 0) * self.hop if self.vocoder_type == "vocos"
+                              else gf * self.hop)
+                    wavs.append(wav_np[i, :n_samp])
         return wavs, gen_frames
 
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:
@@ -569,26 +596,38 @@ class InferenceEngine:
     def _to_dev(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device)
 
+    def _fetch_mel(self, mel_out, fetch_mel: bool):
+        if not fetch_mel:
+            return None
+        with span("engine.fetch") as sp:
+            mel_np = mel_out.float().cpu().numpy()
+            sp.count("bytes", mel_np.nbytes)
+        return mel_np
+
     def generate_batch(self, ref_mels, text_ids_list, durations, seeds=None, decode=True,
                        fetch_mel=True):
         """Mel-conditioned generation -> (mels [b, n, d] fp32 | None, wavs, gen_frames)."""
         b = len(ref_mels)
         d = self.model_cfg.mel.n_mel_channels
         n = pick_bucket(max(durations), self.buckets)
-        cond = np.zeros((b, n, d), np.float32)
-        lens = np.zeros((b,), np.int32)
-        for i, m in enumerate(ref_mels):
-            cond[i, : len(m)] = m
-            lens[i] = len(m)
-        text_ids = self._text_matrix(text_ids_list, n)
-        duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
-        noise = draw_noise(self._seeds(seeds, b), n, d, self.device)
-        mel_out, wav = self._run(
-            "mel", (self._to_dev(cond).to(self.dtype), self._to_dev(text_ids),
-                    self._to_dev(lens), self._to_dev(duration), noise),
-            decode and self.vocoder is not None)
-        mel_np = mel_out.float().cpu().numpy() if fetch_mel else None
-        wavs, gen_frames = self._trim_wavs(wav, duration, lens)
+        with span("engine.call", entry="mel", b=b, n=n, durs=durations):
+            with span("engine.prepare"):
+                cond = np.zeros((b, n, d), np.float32)
+                lens = np.zeros((b,), np.int32)
+                for i, m in enumerate(ref_mels):
+                    cond[i, : len(m)] = m
+                    lens[i] = len(m)
+                text_ids = self._text_matrix(text_ids_list, n)
+                duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
+                with span("engine.upload") as up:
+                    noise = draw_noise(self._seeds(seeds, b), n, d, self.device)
+                    args = (self._to_dev(cond).to(self.dtype), self._to_dev(text_ids),
+                             self._to_dev(lens), self._to_dev(duration), noise)
+                    if up:
+                        up.count("bytes", sum(a.numel() * a.element_size() for a in args))
+            mel_out, wav = self._run("mel", args, decode and self.vocoder is not None)
+            mel_np = self._fetch_mel(mel_out, fetch_mel)
+            wavs, gen_frames = self._trim_wavs(wav, duration, lens)
         return mel_np, wavs, gen_frames
 
     def generate_batch_from_wavs(self, ref_wavs, text_ids_list, durations, seeds=None,
@@ -598,31 +637,37 @@ class InferenceEngine:
         b = len(ref_wavs)
         mel_cfg = self.model_cfg.mel
         n = pick_bucket(max(durations), self.buckets)
-        ref_frames = [len(w) // self.hop for w in ref_wavs]
-        S = pick_bucket(min(max(ref_frames) + 1, n), self.buckets) * self.hop + mel_cfg.n_fft
-        shared = all(w is ref_wavs[0] for w in ref_wavs)
-        wavs_i16 = np.zeros((b, S), np.int16)
-        scales = np.zeros((b,), np.float32)
-        for i, w in enumerate(ref_wavs[:1] if shared else ref_wavs):
-            padded = _ref_mel_bucket_pad(w, mel_cfg, S)
-            scale = max(max(float(np.abs(padded).max()), 1e-6), 1.0)  # normalize only if clipping
-            wavs_i16[i] = np.round(padded / scale * 32767.0).astype(np.int16)
-            scales[i] = scale
-        if shared:
-            wav_dev = self._ref_wav_device(wavs_i16[0], b, S)
-            scales[:] = scales[0]
-        else:
-            wav_dev = self._to_dev(wavs_i16)
-        lens = np.asarray([min(rf, n) for rf in ref_frames], np.int32)
-        text_ids = self._text_matrix(text_ids_list, n)
-        duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
-        noise = draw_noise(self._seeds(seeds, b), n, mel_cfg.n_mel_channels, self.device)
-        mel_out, wav = self._run(
-            "wav", (wav_dev, self._to_dev(scales), self._to_dev(lens), self._to_dev(text_ids),
-                    self._to_dev(duration), noise),
-            decode and self.vocoder is not None)
-        mel_np = mel_out.float().cpu().numpy() if fetch_mel else None
-        wavs, gen_frames = self._trim_wavs(wav, duration, lens)
+        with span("engine.call", entry="wav", b=b, n=n, durs=durations):
+            with span("engine.prepare"):
+                ref_frames = [len(w) // self.hop for w in ref_wavs]
+                S = (pick_bucket(min(max(ref_frames) + 1, n), self.buckets) * self.hop
+                     + mel_cfg.n_fft)
+                shared = all(w is ref_wavs[0] for w in ref_wavs)
+                wavs_i16 = np.zeros((b, S), np.int16)
+                scales = np.zeros((b,), np.float32)
+                for i, w in enumerate(ref_wavs[:1] if shared else ref_wavs):
+                    padded = _ref_mel_bucket_pad(w, mel_cfg, S)
+                    # normalize only if clipping
+                    scale = max(max(float(np.abs(padded).max()), 1e-6), 1.0)
+                    wavs_i16[i] = np.round(padded / scale * 32767.0).astype(np.int16)
+                    scales[i] = scale
+                if shared:
+                    scales[:] = scales[0]
+                lens = np.asarray([min(rf, n) for rf in ref_frames], np.int32)
+                text_ids = self._text_matrix(text_ids_list, n)
+                duration = _clamp_duration(np.asarray(durations, np.int32), text_ids, lens, n)
+                with span("engine.upload") as up:
+                    wav_dev = (self._ref_wav_device(wavs_i16[0], b, S) if shared
+                               else self._to_dev(wavs_i16))
+                    noise = draw_noise(self._seeds(seeds, b), n, mel_cfg.n_mel_channels,
+                                       self.device)
+                    args = (wav_dev, self._to_dev(scales), self._to_dev(lens),
+                            self._to_dev(text_ids), self._to_dev(duration), noise)
+                    if up:
+                        up.count("bytes", sum(a.numel() * a.element_size() for a in args))
+            mel_out, wav = self._run("wav", args, decode and self.vocoder is not None)
+            mel_np = self._fetch_mel(mel_out, fetch_mel)
+            wavs, gen_frames = self._trim_wavs(wav, duration, lens)
         return mel_np, wavs, gen_frames
 
     def generate_batch_from_wav(self, ref_wav, text_ids_list, durations, seeds=None, decode=True,

@@ -43,6 +43,12 @@ Build a sequence- or tensor-parallel server before warming the engine: it
 replaces ``engine.options`` and ``engine.parallel_hooks``, or shards the
 model.
 
+Each batch is a ``serve.batch`` span of the program's tracer
+(``utils/profiling.py``), with its ``rows``, ``real_rows`` (the rows that
+are requests, not repeats) and bucket ``n``, and two counters:
+``serve.frame_rows`` (rows x n, the frame-rows the engine runs) and
+``serve.useful_frame_rows`` (each real row's duration, at most n).
+
 ``rtf_report`` is the report in the reference benchmark's format
 (benchmark.py:454-468, client_grpc.py:425-447).
 """
@@ -56,8 +62,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from f5_tts_tpu_torch.infer.engine import InferenceEngine
+from f5_tts_tpu_torch.infer.engine import InferenceEngine, pick_bucket
 from f5_tts_tpu_torch.parallel import mesh as M
+from f5_tts_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -124,11 +131,18 @@ class BatchServer:
 
         def run_group(grp):
             reqs = [requests[i] for i in grp]
+            real = max(0, min(len(reqs), lo + per) - lo)  # this rank's rows that are requests
             reqs = (reqs + [reqs[-1]] * (B - len(reqs)))[lo:lo + per]  # pad with a repeat
+            durs = [r.duration for r in reqs]
+            n = pick_bucket(max(durs), eng.buckets)
             t0 = time.perf_counter()
-            mels, ws, _ = eng.generate_batch(
-                [r.ref_mel for r in reqs], [r.text_ids for r in reqs],
-                [r.duration for r in reqs], seeds=[r.seed for r in reqs], fetch_mel=fetch_mel)
+            with span("serve.batch", rows=len(reqs), real_rows=real, n=n) as sp:
+                if sp:
+                    sp.count("serve.frame_rows", len(reqs) * n)
+                    sp.count("serve.useful_frame_rows", sum(min(int(d), n) for d in durs[:real]))
+                mels, ws, _ = eng.generate_batch(
+                    [r.ref_mel for r in reqs], [r.text_ids for r in reqs], durs,
+                    seeds=[r.seed for r in reqs], fetch_mel=fetch_mel)
             return ws, mels, time.perf_counter() - t0
 
         if eng._collective():

@@ -1,19 +1,29 @@
 """Request-level latency profile: where do the milliseconds of ONE serving
 call go?
 
-JAX counterpart: ``scripts/profile_request.py``.  Phases per request batch,
-on the engine's CUDA graph (its key captured by a first call):
+JAX counterpart: ``scripts/profile_request.py``.  Ordinary
+``engine.generate_batch`` calls (mel entry, wav decoded, on the engine's
+CUDA graph, its key captured by a first call) run with the program's
+tracer on (``utils/profiling.py``), and the phases are the engine's own
+spans (``infer/engine.py``):
 
-  assemble  host numpy batch assembly (pad / bucket / clamp)
-  upload    the request tensors to the card and the seeded noise drawn
-            there, synchronised
-  compute   the engine call (one CUDA-graph replay: sampling and the
-            vocoder), synchronised
-  fetch     the int16 wav copied to the host
+  assemble  ``engine.prepare`` less its ``engine.upload``: the host numpy
+            batch assembly (pad / bucket / clamp)
+  upload    ``engine.upload``: the seeded noise drawn on the device and the
+            request tensors copied there
+  compute   ``engine.lock_wait`` + ``engine.enqueue``: the copies into the
+            graph's inputs and the replay's launch (the CPU runs the call
+            itself here)
+  fetch     ``engine.fetch`` + ``engine.trim``: the copies to the host,
+            which wait for the replay (on the card, its compute lands here:
+            no span synchronises), and the wav's dequantize and crop
+  total     ``engine.call``
 
-One more call runs under ``utils/profiling.device_trace`` (``torch.profiler``),
-which writes ``<trace_dir>/trace.json`` and gives the call's device time:
-the sum of its kernels' times, and the busy share over the traced wall.
+``upload_bytes`` and ``fetch_bytes`` are the two spans' ``bytes`` counters.
+One more call runs under ``utils/profiling.device_trace``
+(``torch.profiler``), which writes ``<trace_dir>/trace.json`` and gives the
+call's device time: the sum of its kernels' times, and the busy share over
+the traced wall.
 
     python -m f5_tts_tpu_torch.scripts.profile_request [--batch 1] [--nfe 32] \
         [--buckets 512 1024] [--device cpu]
@@ -24,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -35,6 +46,25 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def phases(recs) -> dict:
+    """The report's phases (ms) and bytes of the last ``engine.call`` in
+    the tracer's records ``recs``."""
+    from f5_tts_tpu_torch.utils.profiling import children
+
+    call = [r for r in recs if r.name == "engine.call"][-1]
+    kids = children(recs, call)
+    ms, nbytes = Counter(), Counter()
+    for k in kids + [g for k in kids for g in children(recs, k)]:
+        ms[k.name] += (k.end_ns - k.start_ns) * 1e-6
+        nbytes[k.name] += k.counters.get("bytes", 0)
+    return {"assemble_ms": ms["engine.prepare"] - ms["engine.upload"],
+            "upload_ms": ms["engine.upload"],
+            "compute_ms": ms["engine.lock_wait"] + ms["engine.enqueue"],
+            "fetch_ms": ms["engine.fetch"] + ms["engine.trim"],
+            "total_ms": (call.end_ns - call.start_ns) * 1e-6,
+            "upload_bytes": nbytes["engine.upload"], "fetch_bytes": nbytes["engine.fetch"]}
+
+
 def profile(engine, n_bucket: int, batch: int, reps: int = 5, trace_dir: str | None = None,
             seed: int = 0) -> dict:
     """The median phase times (ms) and bytes of ``reps`` wav-decoding
@@ -42,9 +72,7 @@ def profile(engine, n_bucket: int, batch: int, reps: int = 5, trace_dir: str | N
     first call (the key's capture on the card); with ``trace_dir`` one more
     call under ``device_trace`` adds ``device_ms``, ``traced_wall_ms`` and
     ``busy``."""
-    import torch
-
-    from f5_tts_tpu_torch.infer.engine import _clamp_duration, draw_noise
+    from f5_tts_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(seed)
     d = engine.model_cfg.mel.n_mel_channels
@@ -55,36 +83,19 @@ def profile(engine, n_bucket: int, batch: int, reps: int = 5, trace_dir: str | N
              for _ in range(batch)]
     durs = [n_bucket - 10] * batch
 
-    def one():
-        t0 = time.perf_counter()
-        cond = np.zeros((batch, n_bucket, d), np.float32)
-        lens = np.zeros((batch,), np.int32)
-        text_ids = np.full((batch, n_bucket), -1, np.int32)
-        for i, (m, t) in enumerate(zip(ref_mels, texts)):
-            cond[i, : len(m)] = m
-            lens[i] = len(m)
-            text_ids[i, : len(t)] = t
-        duration = _clamp_duration(np.asarray(durs, np.int32), text_ids, lens, n_bucket)
-        t1 = time.perf_counter()
-        args = (torch.as_tensor(cond, device=dev).to(engine.dtype),
-                torch.as_tensor(text_ids, device=dev), torch.as_tensor(lens, device=dev),
-                torch.as_tensor(duration, device=dev),
-                draw_noise(list(range(batch)), n_bucket, d, dev))
-        _sync(dev)
-        t2 = time.perf_counter()
-        _, wav = engine._run("mel", args, True)
-        _sync(dev)
-        t3 = time.perf_counter()
-        wav_np = wav.cpu().numpy()
-        t4 = time.perf_counter()
-        up = sum(int(a.numel() * a.element_size()) for a in args)
-        return {"assemble_ms": (t1 - t0) * 1e3, "upload_ms": (t2 - t1) * 1e3,
-                "compute_ms": (t3 - t2) * 1e3, "fetch_ms": (t4 - t3) * 1e3,
-                "total_ms": (t4 - t0) * 1e3, "upload_bytes": up,
-                "fetch_bytes": int(wav_np.nbytes)}
+    def call():
+        engine.generate_batch(ref_mels, texts, durs, seeds=list(range(batch)), fetch_mel=False)
 
-    one()  # the key's first call: an eager call and the capture on the card
-    rows = [one() for _ in range(reps)]
+    def one():
+        call()
+        return phases(profiling.records())
+
+    call()  # the key's first call: an eager call and the capture on the card
+    profiling.enable()
+    try:
+        rows = [one() for _ in range(reps)]
+    finally:
+        profiling.disable()
     out = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
     if trace_dir:
         from f5_tts_tpu_torch.utils.profiling import device_trace
@@ -92,7 +103,7 @@ def profile(engine, n_bucket: int, batch: int, reps: int = 5, trace_dir: str | N
         _sync(dev)
         t0 = time.perf_counter()
         with device_trace(trace_dir) as prof:
-            one()
+            call()
         wall = (time.perf_counter() - t0) * 1e3
         kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         dev_ms = sum(e.self_device_time_total for e in kern) / 1e3

@@ -44,6 +44,14 @@ the clip reads the logical global norm (``parallel/layout.py``), AdamW
 updates each rank's slice (its rule is per element), and Adafactor, whose
 statistics and clip span the whole tensor, gathers a slice and its gradient
 over ``model``, updates the whole and keeps its slice.
+
+``train_step`` is a ``train.step`` span of the program's tracer
+(``utils/profiling.py``) with its children in order: ``train.mel``,
+``train.cast`` (mixed precision), ``train.forward``, ``train.backward``
+(with the gradients' sum over a mesh), ``train.norm``, ``train.optimizer``
+and ``train.ema`` (on an update).  While the tracer is on, a CUDA step also
+counts the caching allocator's retries, device allocations and frees, and
+all-stream synchronisations over the step (``profiling.ALLOC_COUNTERS``).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch.nn as nn
 from torch.distributed.tensor import Shard
 
 from f5_tts_tpu_torch.parallel.mesh import gather_dim, shard_rows, zero1_state_specs
+from f5_tts_tpu_torch.utils.profiling import alloc_counters, span
 
 
 @dataclass(frozen=True)
@@ -519,33 +528,51 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema_model: nn.Module, mic
     ``live`` parameters (the optimizer's), and the reported norm is the
     logical one.
     """
-    mel = batch_mel(batch, mel_cfg)
-    gen = torch.Generator(device=mel.device).manual_seed(seed)
-    drop_gen = torch.Generator().manual_seed(seed)
-    named = dict(model.named_parameters())
-    args = (batch["text_ids"], batch["lens"])
-    kw = dict(generator=gen, drop_generator=drop_gen, backend=backend, valid=batch.get("valid"),
-              activation_constraint=activation_constraint, rows=rows, count_group=data_group)
-    if block_scan is not None:
-        kw["block_scan"] = block_scan
-    if opt_cfg.mixed_precision:
-        low = {k: p.to(torch.bfloat16) if p.is_floating_point() else p for k, p in named.items()}
-        loss = torch.func.functional_call(model, low, (mel.to(torch.bfloat16), *args), kw)
-    else:
-        loss = model(mel, *args, **kw)
-    live = list(named) if layout is None else layout.live
-    params = [named[k] for k in live]
-    grads = torch.autograd.grad(loss, params)
-    loss = loss.detach()
-    if grad_group is not None:
-        all_reduce_sum_(grads, grad_group)
-        if data_group is not None:
-            dist.all_reduce(loss, group=data_group)
-    gnorm = optimizer.norm_fn(grads)
-    did_update = optimizer.step(grads)
-    micro += 1
-    if did_update:
-        ema = list(ema_model.parameters()) if layout is None else \
-            [dict(ema_model.named_parameters())[k] for k in live]
-        ema_update(ema, params, micro // optimizer.k, opt_cfg)
+    with span("train.step", b=batch["text_ids"].shape[0], micro=micro) as st:
+        before = alloc_counters(batch["lens"].device) if st else None
+        with span("train.mel"):
+            mel = batch_mel(batch, mel_cfg)
+        st.set(n=mel.shape[1])
+        named = dict(model.named_parameters())
+        if opt_cfg.mixed_precision:
+            with span("train.cast"):
+                named_in = {k: p.to(torch.bfloat16) if p.is_floating_point() else p
+                            for k, p in named.items()}
+                mel = mel.to(torch.bfloat16)
+        with span("train.forward"):
+            gen = torch.Generator(device=mel.device).manual_seed(seed)
+            drop_gen = torch.Generator().manual_seed(seed)
+            args = (batch["text_ids"], batch["lens"])
+            kw = dict(generator=gen, drop_generator=drop_gen, backend=backend,
+                      valid=batch.get("valid"), activation_constraint=activation_constraint,
+                      rows=rows, count_group=data_group)
+            if block_scan is not None:
+                kw["block_scan"] = block_scan
+            if opt_cfg.mixed_precision:
+                loss = torch.func.functional_call(model, named_in, (mel, *args), kw)
+            else:
+                loss = model(mel, *args, **kw)
+        live = list(named) if layout is None else layout.live
+        params = [named[k] for k in live]
+        with span("train.backward"):  # and the gradients' sum over the mesh
+            grads = torch.autograd.grad(loss, params)
+            loss = loss.detach()
+            if grad_group is not None:
+                all_reduce_sum_(grads, grad_group)
+                if data_group is not None:
+                    dist.all_reduce(loss, group=data_group)
+        with span("train.norm"):
+            gnorm = optimizer.norm_fn(grads)
+        with span("train.optimizer"):
+            did_update = optimizer.step(grads)
+        micro += 1
+        if did_update:
+            with span("train.ema"):
+                ema = list(ema_model.parameters()) if layout is None else \
+                    [dict(ema_model.named_parameters())[k] for k in live]
+                ema_update(ema, params, micro // optimizer.k, opt_cfg)
+        if before is not None:
+            after = alloc_counters(batch["lens"].device)
+            for k, v in before.items():
+                st.count(k, after[k] - v)
     return micro, {"loss": loss, "grad_norm": gnorm}

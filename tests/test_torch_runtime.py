@@ -16,7 +16,8 @@ from f5_tts_tpu.models.configs import MODEL_CONFIGS as JAX_CONFIGS
 from f5_tts_tpu.utils import flops as JF
 from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
 from f5_tts_tpu_torch.utils import flops as TF
-from f5_tts_tpu_torch.utils.profiling import PhaseTimer, device_trace
+from f5_tts_tpu_torch.utils import profiling
+from f5_tts_tpu_torch.utils.profiling import device_trace
 
 NS = (64, 256, 1000, 1024)
 
@@ -60,18 +61,24 @@ def test_mfu_uses_the_h100_peaks():
 
 
 def test_phase_timer_report(tmp_path):
-    t = PhaseTimer()
-    for _ in range(3):
-        with t.phase("dit"):
+    """JAX's ``PhaseTimer`` report, from the tracer's spans."""
+    profiling.clear()
+    profiling.enable()
+    try:
+        for _ in range(3):
+            with profiling.span("dit"):
+                pass
+        with profiling.span("vocoder"):
             pass
-    with t.phase("vocoder"):
-        pass
-    rep = t.report()
+    finally:
+        profiling.disable()
+    rep = profiling.report()
     assert list(rep) == ["dit", "vocoder"]
     assert rep["dit"]["count"] == 3 and rep["vocoder"]["count"] == 1
     assert rep["dit"]["total_s"] >= 0 and rep["dit"]["mean_ms"] >= 0
-    t.dump(str(tmp_path / "phases.json"))
+    profiling.dump(str(tmp_path / "phases.json"))
     assert json.load(open(tmp_path / "phases.json")) == rep
+    profiling.clear()
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
