@@ -18,15 +18,19 @@ Run from the repository root:  python3 chip_smoke.py
 3. Kernel B (fused ConvPositionEmbedding) likewise at [2, n, 1024] bf16,
    16 groups (every configuration of ``fused_convpos.CONFIGS`` at the edge
    lengths, its fp32 instance against fp32 with TF32 off); the yardstick is
-   the cuDNN grouped-conv composition in bf16.
+   the cuDNN grouped-conv composition in bf16.  Then the rotary and layout
+   kernel (``ops/rope.py`` ``rope_qkv``) at ``ROPE_QKV_SHAPES`` against the
+   same maths in fp32 and the eager bf16 composition (``ROPE_QKV_ULPS``),
+   twice, bitwise; timed beside its plain composition, the composition
+   ``mha`` ran before it and the bound; its launches counted in phase 5.
 4. One full-width F5TTS_v1_Base ``forward_cfg`` at n=256 in fp32, on the card
    through the kernels against the CPU through the plain versions.
 5. End to end: ``F5TTS(model="F5TTS_v1_Base", init_random=True)`` in bf16,
    after each request once (its first hit captures the engine's CUDA graph
    of its key; timed apart), serves a short request, a long one that is
    chunked into a batch of rows, and a streamed one; checks the wavs, that
-   every attention and ConvPositionEmbedding call of the run went through
-   the kernels, and that no request copied the ConvPositionEmbedding
+   every attention, rotary projection and ConvPositionEmbedding call of the
+   run went through the kernels (A, ``rope_qkv``, B), and that no request copied the ConvPositionEmbedding
    weights into kernel B's layout (the engine does it once).
 6. Kernels C, D, E (flash attention forward with logsumexp, dq, dk/dv)
    against their plain versions at [2, 16, n, 64] bf16, n in {256, 1000,
@@ -540,6 +544,84 @@ def phase_convpos(torch):
     return rows, worst
 
 
+# the rotary and layout kernel against its fp32 maths (bf16-rounded cos and
+# sin, each product and the sum in fp32, one rounding), in bf16 ulps of the
+# output: products of bf16 values are exact in fp32, so the two agree but
+# for the sum's rounding; against the eager bf16 composition, which rounds
+# each product and the sum, in ulps of the rotary pair's larger input (where
+# the products cancel, the output's own ulp is far finer than either rounding)
+ROPE_QKV_ULPS = (1, 2)
+# (b, n, heads, rot_heads): F5TTS_v1_Base's serving step at the 2,048 bucket,
+# E2TTS_Base's (n + 1, head 0 rotated), F5TTS_v1_Small's 12 heads
+ROPE_QKV_SHAPES = ((16, 2048, 16, 16), (16, 2049, 16, 1), (16, 2048, 12, 12))
+
+
+def phase_rope_qkv(torch):
+    """The rotary and layout kernel (``ops/rope.py`` ``rope_qkv``) against
+    the same maths in fp32 and the eager bf16 composition, at the serving
+    shapes; two launches bitwise equal; device times of the kernel, of the
+    plain composition it replaces (from the bf16 cos / sin tables) and of
+    the composition ``mha`` ran before it (cos and sin of the angles per
+    call), beside the bound."""
+    from f5_tts_tpu_torch.ops import rope as R
+    from f5_tts_tpu_torch.utils.device import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def ulps(a, b):
+        def ordered(t):
+            i = t.view(torch.int16).int()
+            return torch.where(i < 0, -(i + 32768), i)
+        return (ordered(a) - ordered(b)).abs().max().item()
+
+    def pair_ulps(got, eager, x):
+        m = x.float().abs().unflatten(-1, (32, 2)).amax(-1, keepdim=True)
+        m = m.expand(*m.shape[:-1], 2).flatten(-2)
+        unit = torch.exp2(torch.floor(torch.log2(m.clamp_min(2.0 ** -126))) - 7)
+        return ((got.float() - eager.float()).abs() / unit).max().item()
+
+    rows, worst = [], [0, 0]
+    for b, n, heads, rot in ROPE_QKV_SHAPES:
+        qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+        freqs = R.device_table("rope", 4096 + 1, 64, torch.device("cuda"))[:n]
+        cos, sin = (t[:n] for t in R.cos_sin_tables(4096 + 1, 64, torch.device("cuda"),
+                                                     torch.bfloat16))
+        got = _check_twice(torch, f"rope_qkv {b}x{n}x{heads} rot {rot}",
+                           lambda: R.rope_qkv_cuda(qkv, cos, sin, heads, rot))
+        torch.cuda.synchronize()
+        eager = R.rope_qkv_plain(qkv, cos, sin, heads, rot)
+        f32 = R.rope_qkv_plain(qkv.float(), cos.float(), sin.float(), heads, rot)
+        ins = [t.reshape(b, n, heads, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+        err = [max(ulps(g, w.to(torch.bfloat16)) for g, w in zip(got, f32)),
+               max(pair_ulps(g, e, x) for g, e, x in zip(got, eager, ins))]
+        bitwise_v = torch.equal(got[2], eager[2])
+        if err[0] > ROPE_QKV_ULPS[0] or err[1] > ROPE_QKV_ULPS[1] or not bitwise_v:
+            fail(f"rope_qkv {b}x{n}x{heads} rot {rot}: {err} ulps (tol {ROPE_QKV_ULPS}), "
+                 f"v bitwise {bitwise_v}")
+        worst = [max(w, e) for w, e in zip(worst, err)]
+        ms = device_ms(lambda: R.rope_qkv_cuda(qkv, cos, sin, heads, rot), 50)
+        plain_ms = device_ms(lambda: R.rope_qkv_plain(qkv, cos, sin, heads, rot), 10)
+
+        def old():
+            c, s_ = torch.cos(freqs).to(torch.bfloat16), torch.sin(freqs).to(torch.bfloat16)
+            return R.rope_qkv_plain(qkv, c, s_, heads, rot)
+
+        old_ms = device_ms(old, 10)
+        elems = b * n * heads * 64
+        flops = 2 * 3.0 * b * n * rot * 64  # two products and a sum, q and k
+        nbytes = 2.0 * 3 * elems * 2 + 2 * n * 64 * 2  # qkv in, q, k, v out, the tables
+        bms, by = bound_ms(flops, nbytes, PEAK_BF16)
+        rows.append(dict(shape=[b, n, 3 * heads * 64], heads=heads, rot_heads=rot, ms=ms,
+                         plain_ms=plain_ms, old_ms=old_ms, bound_ms=bms, bound_by=by,
+                         ulps_fp32=err[0], ulps_eager=err[1], roofline_pct=100 * bms / ms))
+        print(f"rope_qkv [{b}, {n}, {3 * heads * 64}] rot {rot}: {err[0]} ulp from fp32, "
+              f"{err[1]} pair ulps from eager bf16 (tol {ROPE_QKV_ULPS}), two launches "
+              f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, old composition {old_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of it, "
+              f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
+    return rows, worst
+
+
 def _full_width_dit(torch, name: str = "F5TTS_v1_Base"):
     """(cfg, seeded DiT of configuration ``name`` on the CPU with its gates
     randomized, run(model, device) -> its fp32 forward_cfg output on fixed
@@ -617,6 +699,7 @@ def phase_e2e(torch):
     from f5_tts_tpu_torch.models.backbones import randomize_zero_init
     from f5_tts_tpu_torch.ops import flash_attention as FA
     from f5_tts_tpu_torch.ops import fused_convpos as FC
+    from f5_tts_tpu_torch.ops import rope as R
     from f5_tts_tpu_torch.text.chunk import chunk_text
 
     t0 = time.perf_counter()
@@ -670,7 +753,7 @@ def phase_e2e(torch):
               f"{len(eng.graphs) - graphs} graph(s) captured", flush=True)
     calls.clear()
 
-    FA.KERNEL.launches = FC.KERNEL.launches = 0
+    FA.KERNEL.launches = FC.KERNEL.launches = R.KERNEL.launches = 0
     copies = FC.TAP_COPIES  # the engine made the kernel's weight layout when it was built
     results = []
     for name, text in (("short", short), ("long", long)):
@@ -704,11 +787,11 @@ def phase_e2e(torch):
     results.append(("stream", wall, len(streamed) / sr, sum(c[0] for c in new), len(new)))
 
     forward_calls = len(calls) * NFE  # euler: one fused-CFG forward per step
-    a, c = FA.KERNEL.launches, FC.KERNEL.launches
-    print(f"e2e launches: flash_attention {a} (want {depth} x {NFE} x {len(calls)}), "
-          f"fused_convpos {c} (want {NFE} x {len(calls)})", flush=True)
-    if a != depth * forward_calls or c != forward_calls:
-        fail("an attention or ConvPositionEmbedding call bypassed its kernel")
+    a, c, r = FA.KERNEL.launches, FC.KERNEL.launches, R.KERNEL.launches
+    print(f"e2e launches: flash_attention {a}, rope_qkv {r} (want {depth} x {NFE} x "
+          f"{len(calls)} each), fused_convpos {c} (want {NFE} x {len(calls)})", flush=True)
+    if a != depth * forward_calls or r != depth * forward_calls or c != forward_calls:
+        fail("an attention, rotary or ConvPositionEmbedding call bypassed its kernel")
     print(f"e2e: {FC.TAP_COPIES - copies} weight copies into kernel B's layout over "
           f"{c} ConvPositionEmbedding calls (want 0: made once per engine)", flush=True)
     if FC.TAP_COPIES != copies:
@@ -716,7 +799,7 @@ def phase_e2e(torch):
     for name, wall, audio_s, rows, n_calls in results:
         print(f"e2e {name}: {n_calls} engine call(s), {rows} row(s), {audio_s:.2f} s audio "
               f"in {wall:.2f} s wall, RTF {wall / audio_s:.4f}", flush=True)
-    return a, c
+    return a, c, r
 
 
 
@@ -4981,12 +5064,13 @@ def main() -> int:
 
     flash_rows, flash_err = phase_flash(torch)
     conv_rows, conv_err = phase_convpos(torch)
-    lap("2-3 (kernels A, B)")
+    rope_rows, rope_err = phase_rope_qkv(torch)
+    lap("2-3 (kernels A, B, the rotary and layout kernel)")
     rel = phase_full_width(torch)
     if rel > FULL_WIDTH_REL_TOL:
         fail(f"full-width forward rel err {rel} > {FULL_WIDTH_REL_TOL}")
     lap("4 (DiT forward)")
-    launches_a, launches_b = phase_e2e(torch)
+    launches_a, launches_b, launches_rope = phase_e2e(torch)
     lap("5 (DiT serving)")
     train_rows, train_err = phase_flash_train(torch)
     lap("6 (kernels C, D, E)")
@@ -5137,6 +5221,15 @@ def main() -> int:
                   "f5_tts_tpu/ops/flash_attention.py:112", mm_grad["launches"]["E_seg"],
                   "training", "relative to max |reference|"),
     ]
+    kernels.append({
+        "name": "rope_qkv", "route": "cuda", "source": "f5_tts_tpu_torch/csrc/rope_qkv.cu",
+        "replaces": "none (XLA fuses the rotary and layout glue of f5_tts_tpu/models/layers.py "
+                    "mha)", "launches": launches_rope, "max_ulps_fp32": rope_err[0],
+        "max_ulps_eager": rope_err[1], "ms": rope_rows[0]["ms"],
+        "plain_ms": rope_rows[0]["plain_ms"], "old_ms": rope_rows[0]["old_ms"],
+        "bound_ms": rope_rows[0]["bound_ms"], "bound_by": rope_rows[0]["bound_by"],
+        "shape": rope_rows[0]["shape"], "shapes": rope_rows,
+        "launches_from": "phase 5's served requests"})
     g = next(r for r in int8_rows if (r["m"], r["k"], r["n"]) == (1024, 1024, 4096))
     g_shapes = {f"{r['m']}x{r['k']}x{r['n']}": {
         key: r[key] for key in ("split", "ms", "two_launch_ms", "row_ms", "tpu_ms", "bound_ms",

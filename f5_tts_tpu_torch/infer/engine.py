@@ -83,10 +83,11 @@ Each ``generate_batch`` / ``generate_batch_from_wavs`` is an ``engine.call``
 span of the program's tracer (``utils/profiling.py``): ``engine.prepare``
 (the host assembly, with ``engine.upload``: the noise draw and the
 uploads), ``engine.lock_wait``, ``engine.capture`` for a new key,
-``engine.enqueue`` (the input copies, the replay, the output clones),
-``engine.fetch`` (the copies to the host, which wait for the replay) and
-``engine.trim``.  The spans read the host clock only; off, they cost a flag
-read each.
+``engine.enqueue`` (the input copies, the replay, the output clones; a
+replay's counters ``<kernel>.launches``: the launches of each hand-written
+kernel in it, by its ``CudaKernel`` name), ``engine.fetch`` (the copies to
+the host, which wait for the replay) and ``engine.trim``.  The spans read
+the host clock only; off, they cost a flag read each.
 """
 
 from __future__ import annotations
@@ -394,6 +395,9 @@ class InferenceEngine:
                             outputs, launches = g.outputs, g.launches
                         out = tuple(None if o is None else o.clone() for o in outputs)
                     cuda_build.add_launches(launches)
+                    for kernel, c in zip(cuda_build.KERNELS, launches):
+                        if c:
+                            sp.count(f"{kernel.name}.launches", c)
                     cur.wait_stream(self._stream)  # the caller's fetch waits for this replay only
                     for o in out:
                         if o is not None:

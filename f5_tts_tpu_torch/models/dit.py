@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from f5_tts_tpu_torch.models import layers as L
 from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import DiTConfig
-from f5_tts_tpu_torch.ops.rope import device_table
+from f5_tts_tpu_torch.ops.rope import cos_sin_tables, device_table
 
 
 class TextEmbedding(nn.Module):
@@ -186,16 +186,19 @@ def forward(model: DiT, cfg: DiTConfig, x, cond, text_emb, time, mask=None,
         t_emb = None
     h = input_embedding(model, x, cond, text_emb, drop_audio_cond=drop_audio_cond, mask=mask)
     rope = device_table("rope", cfg.max_pos, cfg.dim_head, x.device)[:n]
+    cos_sin = [t[:n] for t in cos_sin_tables(cfg.max_pos, cfg.dim_head, x.device, h.dtype)]
     seq = activation_constraint
     if seq is not None:  # this rank's frames from here to the gather
         h = seq(h)
         rope = seq.shard(rope, dim=0)
+        cos_sin = [seq.shard(t, dim=0) for t in cos_sin]
         mask = None if mask is None else seq.shard(mask, dim=1)
     residual = h if cfg.long_skip_connection else None
 
     def block(blk, h, t_emb, mod):
         return L.dit_block(blk, h, t_emb, cfg.heads, mask=mask, rope_freqs=rope,
-                           pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod)
+                           pe_attn_head=cfg.pe_attn_head, backend=backend, mod=mod,
+                           rope_cos_sin=cos_sin)
 
     if block_scan is not None:
         h = block_scan(model.transformer_blocks, h, t_emb, mask, rope)

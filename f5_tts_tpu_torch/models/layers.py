@@ -27,7 +27,7 @@ from f5_tts_tpu_torch.ops.attention import attention
 from f5_tts_tpu_torch.ops import fused_convpos
 from f5_tts_tpu_torch.ops.fused_convpos import conv_pos_fused, conv_pos_plain, kernel_taps
 from f5_tts_tpu_torch.ops.quant import linear_w8a8
-from f5_tts_tpu_torch.ops.rope import apply_rotary
+from f5_tts_tpu_torch.ops.rope import head_major, rope_qkv, rope_qkv_takes, rotate_heads
 from f5_tts_tpu_torch.parallel.tensor import rotary_heads, tp_of
 
 # ---------------------------------------------------------------------------
@@ -329,38 +329,44 @@ class Attention(nn.Module):
 
 
 def mha(p: Attention, x, heads: int, mask=None, rope_freqs=None, pe_attn_head: int | None = None,
-        backend: str = "auto"):
+        backend: str = "auto", rope_cos_sin=None):
     """Self-attention with rotary embedding (AttnProcessor, modules.py:451-556):
     rotary on the first ``pe_attn_head`` heads when set; padding keys masked
     and the output re-masked.  ``heads`` is the model's; under tensor
     parallelism (``p.tp``) this rank runs its ``heads / tp`` of them, the
     rotary on those among the first ``pe_attn_head`` global heads, and the
-    re-mask comes after the all-reduce and the single bias."""
+    re-mask comes after the all-reduce and the single bias.  The fused
+    projection's output goes to ``ops.rope.rope_qkv`` (one kernel on the
+    card) where nothing but the rotary lies between it and kernel A: no
+    tensor parallelism, no qk-norm, ``rope_cos_sin`` given (the rows of
+    ``ops.rope.cos_sin_tables`` that ``rope_freqs`` holds, as the backbones
+    pass them) and ``rope_qkv_takes``."""
     b, n, _ = x.shape
     tp = tp_of(p)
     if tp is not None:
         heads = tp.local_heads(heads)
         x = tp.copy_in(x)
+    qkv = None
     if p.qkv_weight_q is not None:
-        q, k, v = linear_w8a8(x, p.qkv_weight_q, p.qkv_w_scale, p.qkv_bias).chunk(3, dim=-1)
+        qkv = linear_w8a8(x, p.qkv_weight_q, p.qkv_w_scale, p.qkv_bias)
     elif p.qkv_weight is not None:
-        q, k, v = F.linear(x, p.qkv_weight, p.qkv_bias).chunk(3, dim=-1)
+        qkv = F.linear(x, p.qkv_weight, p.qkv_bias)
+    pn = heads if pe_attn_head is None else min(rotary_heads(pe_attn_head, tp, heads), heads)
+    if (qkv is not None and tp is None and not hasattr(p, "q_norm") and rope_cos_sin is not None
+            and rope_qkv_takes(qkv, heads, backend)):
+        q, k, v = rope_qkv(qkv, *rope_cos_sin, heads, pn)  # contiguous [b, h, n, d]
     else:
-        q, k, v = linear(p.to_q, x), linear(p.to_k, x), linear(p.to_v, x)
-    q = q.reshape(b, n, heads, -1).transpose(1, 2)  # [b, h, n, d]
-    k = k.reshape(b, n, heads, -1).transpose(1, 2)
-    v = v.reshape(b, n, heads, -1).transpose(1, 2)
-    if hasattr(p, "q_norm"):
-        q = rms_norm(p.q_norm, q)
-        k = rms_norm(p.k_norm, k)
-    if rope_freqs is not None:
-        if pe_attn_head is not None:
-            pn = rotary_heads(pe_attn_head, tp, heads)
-            q = torch.cat([apply_rotary(q[:, :pn], rope_freqs), q[:, pn:]], dim=1)
-            k = torch.cat([apply_rotary(k[:, :pn], rope_freqs), k[:, pn:]], dim=1)
+        if qkv is not None:
+            q, k, v = qkv.chunk(3, dim=-1)
         else:
-            q = apply_rotary(q, rope_freqs)
-            k = apply_rotary(k, rope_freqs)
+            q, k, v = linear(p.to_q, x), linear(p.to_k, x), linear(p.to_v, x)
+        q, k, v = (head_major(t, heads) for t in (q, k, v))  # [b, h, n, d]
+        if hasattr(p, "q_norm"):
+            q = rms_norm(p.q_norm, q)
+            k = rms_norm(p.k_norm, k)
+        if rope_freqs is not None:
+            q, k = rotate_heads(q, k, torch.cos(rope_freqs).to(q.dtype),
+                                torch.sin(rope_freqs).to(q.dtype), pn)
     o = attention(q, k, v, mask=mask, backend=backend)
     o = o.transpose(1, 2).reshape(b, n, -1)
     o = row_linear(p.to_out[0], o, tp)
@@ -380,7 +386,7 @@ class DiTBlock(nn.Module):
 
 
 def dit_block(p: DiTBlock, x, t_emb, heads: int, mask=None, rope_freqs=None, pe_attn_head=None,
-              backend="auto", mod=None):
+              backend="auto", mod=None, rope_cos_sin=None):
     """``mod``: optional precomputed AdaLN modulation [6 dim] (or [rows, 6 dim])
     that replaces the block's adaln matmul."""
     if mod is not None:
@@ -390,7 +396,7 @@ def dit_block(p: DiTBlock, x, t_emb, heads: int, mask=None, rope_freqs=None, pe_
     else:
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln(p.attn_norm, x, t_emb)
     attn_out = mha(p.attn, norm, heads, mask=mask, rope_freqs=rope_freqs,
-                   pe_attn_head=pe_attn_head, backend=backend)
+                   pe_attn_head=pe_attn_head, backend=backend, rope_cos_sin=rope_cos_sin)
     x = x + gate_msa[:, None] * attn_out
     norm = layer_norm(x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     return x + gate_mlp[:, None] * feedforward(p.ff, norm)

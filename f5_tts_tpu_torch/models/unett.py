@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from f5_tts_tpu_torch.models import layers as L
 from f5_tts_tpu_torch.models import remat
 from f5_tts_tpu_torch.models.configs import UNetTConfig
-from f5_tts_tpu_torch.ops.rope import device_table
+from f5_tts_tpu_torch.ops.rope import cos_sin_tables, device_table
 
 
 class RMSNormXT(nn.Module):
@@ -131,11 +131,11 @@ def text_embedding(model: UNetT, cfg: UNetTConfig, text_ids: torch.Tensor, seq_l
     return emb
 
 
-def _block(layer: nn.ModuleList, x, mask, rope, cfg: UNetTConfig, backend: str):
+def _block(layer: nn.ModuleList, x, mask, rope, cos_sin, cfg: UNetTConfig, backend: str):
     _, attn_norm, attn, ff_norm, ff = layer
     h = rms_norm_xt(attn_norm, x)
     x = L.mha(attn, h, cfg.heads, mask=mask, rope_freqs=rope, pe_attn_head=cfg.pe_attn_head,
-              backend=backend) + x
+              backend=backend, rope_cos_sin=cos_sin) + x
     return L.feedforward(ff, rms_norm_xt(ff_norm, x)) + x
 
 
@@ -156,17 +156,19 @@ def forward(model: UNetT, cfg: UNetTConfig, x, cond, text_emb, time, mask=None,
     h = torch.cat([t_emb[:, None, :].to(h.dtype), h], dim=1)
     if mask is not None:
         mask = F.pad(mask, (1, 0), value=True)
-    rope = device_table("rope", max(cfg.max_pos + 1, n + 1), cfg.dim_head, x.device)[:n + 1]
+    horizon = max(cfg.max_pos + 1, n + 1)
+    rope = device_table("rope", horizon, cfg.dim_head, x.device)[:n + 1]
+    cos_sin = [t[:n + 1] for t in cos_sin_tables(horizon, cfg.dim_head, x.device, h.dtype)]
 
     def first(layer, h):
-        return _block(layer, h, mask, rope, cfg, backend)
+        return _block(layer, h, mask, rope, cos_sin, cfg, backend)
 
     def second(layer, h, skip):
         if cfg.skip_connect_type == "concat":
             h = L.linear(layer[0], torch.cat([h, skip], dim=-1))
         elif cfg.skip_connect_type == "add":
             h = h + skip
-        return _block(layer, h, mask, rope, cfg, backend)
+        return _block(layer, h, mask, rope, cos_sin, cfg, backend)
 
     # each layer (with its skip merge) checkpointed under checkpoint_activations (JAX :172-179)
     run = remat.block_runner(cfg, h.shape[0] * h.shape[1])

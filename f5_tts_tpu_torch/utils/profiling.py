@@ -29,9 +29,11 @@ The spans and counters the program records:
   ``engine.upload``: the noise draw and the uploads, counter ``bytes``),
   ``engine.lock_wait``, ``engine.capture`` (a new key only),
   ``engine.enqueue`` (input copies, the replay or the eager call, the
-  output clones; ``sweeps`` under Picard), ``engine.fetch`` (the copies to
-  the host, which wait for the replay; counter ``bytes``) and
-  ``engine.trim``;
+  output clones; ``sweeps`` under Picard; a replay's counters
+  ``<kernel>.launches``, each hand-written kernel's launches in it by its
+  ``CudaKernel`` name, such as ``rope_qkv.launches``),
+  ``engine.fetch`` (the copies to the host, which wait for the replay;
+  counter ``bytes``) and ``engine.trim``;
 - ``serve.batch`` (``infer/serve.py``, per batch of ``BatchServer.run``;
   ``rows``, ``real_rows``, ``n``), counters ``serve.frame_rows`` and
   ``serve.useful_frame_rows``;

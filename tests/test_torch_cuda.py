@@ -46,6 +46,12 @@ calls' launches of A, B and G, and two threads replaying one engine get
 each request's own rows, bitwise.  An AOT bundle exported on the card, its
 kernels packaged, serves in a fresh process with no nvcc what the live
 engine serves.
+The rotary and layout kernel (``ops/rope.py`` ``rope_qkv``): within 1 bf16
+ulp of its maths in fp32 and 2 of the eager bf16 composition (in the unit
+of each rotary pair's larger input), v and unrotated heads bitwise, at the
+serving shapes and ragged edges; a replayed full-depth F5TTS_v1_Base engine
+call at NFE 32 launches it 22 x 32 times (E2TTS_Base 24 x 32), as the
+``engine.enqueue`` span's counter says too, and a training step never.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads per test worker)
@@ -980,3 +986,162 @@ def test_aot_bundle_on_the_card_loads_its_kernels_and_matches_live(gen, tmp_path
     assert not got["built"] and got["graphs"] == 1
     assert got["mel_err"] <= 1e-5 and got["wav_err"] <= 1.5 / 32767
     assert got["launches"] == live == [2 * 4, 4]
+
+
+# The rotary and layout kernel (ops/rope.py rope_qkv): the fused qkv
+# projection's output to rotated, head-major q, k, v.
+
+def _rope_case(gen, b, n, heads):
+    from f5_tts_tpu_torch.ops import rope as R
+
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+    cos, sin = R.cos_sin_tables(max(4096, n), 64, torch.device("cuda"), torch.bfloat16)
+    return qkv, cos[:n], sin[:n]
+
+
+def _ulps(a, b):
+    """Distance of two bf16 tensors in units in the last place."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i + 32768), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _pair_ulp(x):
+    """The bf16 spacing at the larger |value| of each rotary pair (2p, 2p + 1)
+    of x [..., 64]: the scale of both products a rotated element sums."""
+    m = x.float().abs().unflatten(-1, (32, 2)).amax(-1, keepdim=True)
+    m = m.expand(*m.shape[:-1], 2).flatten(-2)
+    return torch.exp2(torch.floor(torch.log2(m.clamp_min(2.0 ** -126))) - 7)
+
+
+def _rope_fp32(qkv, cos, sin, heads, rot):
+    """The kernel's maths in fp32 on the same bf16 values: each product and
+    the sum in fp32, one rounding to bf16."""
+    from f5_tts_tpu_torch.ops import rope as R
+
+    b, n, _ = qkv.shape
+    out = []
+    for i, t in enumerate(qkv.chunk(3, dim=-1)):
+        t = t.reshape(b, n, heads, 64).transpose(1, 2).float()
+        if i < 2 and rot:
+            r = R.rotate(t[:, :rot], cos.float(), sin.float())
+            t = torch.cat([r, t[:, rot:]], dim=1)
+        out.append(t.to(torch.bfloat16).contiguous())
+    return out
+
+
+# (b, n, heads, rot_heads): F5TTS_v1_Base's serving step (16 rows, bucket
+# 2048), E2TTS_Base's (n + 1 with the time token, head 0 rotated),
+# F5TTS_v1_Small's 12 heads, and ragged edges
+ROPE_CASES = [(16, 2048, 16, 16), (16, 2049, 16, 1), (4, 1000, 12, 12), (1, 1, 16, 16),
+              (3, 7, 2, 0), (2, 33, 16, 5)]
+
+
+@pytest.mark.parametrize("b,n,heads,rot", ROPE_CASES)
+def test_rope_qkv_kernel_matches_fp32_maths_and_eager(gen, b, n, heads, rot):
+    """Within 1 bf16 ulp of the same maths in fp32 (with bf16-rounded cos
+    and sin); within 2 ulps of the eager bf16 composition, which rounds
+    each product and the sum, in the unit of the rotary pair's larger input
+    (``_pair_ulp``: where the two products cancel, the output's own ulp is
+    far finer than either rounding); v and the heads past ``rot`` bitwise;
+    two launches bitwise equal."""
+    from f5_tts_tpu_torch.ops import rope as R
+
+    qkv, cos, sin = _rope_case(gen, b, n, heads)
+    before = R.KERNEL.launches
+    got = R.rope_qkv_cuda(qkv, cos, sin, heads, rot)
+    again = R.rope_qkv_cuda(qkv, cos, sin, heads, rot)
+    torch.cuda.synchronize()
+    assert R.KERNEL.launches == before + 2
+    want32 = _rope_fp32(qkv, cos, sin, heads, rot)
+    eager = R.rope_qkv_plain(qkv, cos, sin, heads, rot)
+    ins = [t.reshape(b, n, heads, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    for i, (g, a, w, e, x) in enumerate(zip(got, again, want32, eager, ins)):
+        assert g.shape == (b, heads, n, 64) and g.is_contiguous() and torch.equal(g, a)
+        assert _ulps(g, w).max().item() <= 1
+        assert ((g.float() - e.float()).abs() / _pair_ulp(x)).max().item() <= 2
+        if i == 2:
+            assert torch.equal(g, e)
+        assert torch.equal(g[:, rot:], e[:, rot:])
+
+
+def test_rope_qkv_kernel_refuses_what_it_does_not_take(gen):
+    from f5_tts_tpu_torch.ops import rope as R
+
+    qkv, cos, sin = _rope_case(gen, 2, 16, 4)
+    with pytest.raises(ValueError):
+        R.rope_qkv_cuda(qkv, cos, sin, 4, 5)  # rot_heads > heads
+    with pytest.raises(ValueError):
+        R.rope_qkv_cuda(qkv, cos, sin, 3, 3)  # not 64-wide heads
+    with pytest.raises(ValueError):
+        R.rope_qkv_cuda(qkv[:, :, 1:], cos, sin, 4, 4)  # not contiguous
+    with pytest.raises(ValueError):
+        R.rope_qkv_cuda(qkv, cos[:8], sin[:8], 4, 4)  # a table of other rows
+    with pytest.raises(TypeError):
+        R.rope_qkv_cuda(qkv.float(), cos, sin, 4, 4)
+
+
+def _full_engine(name: str):
+    from f5_tts_tpu_torch.infer.engine import EngineOptions, InferenceEngine
+    from f5_tts_tpu_torch.models.backbones import randomize_zero_init
+    from f5_tts_tpu_torch.models.cfm import CFM
+    from f5_tts_tpu_torch.models.configs import MODEL_CONFIGS
+
+    torch.manual_seed(0)
+    cfg = MODEL_CONFIGS[name]
+    cfm = CFM(cfg.arch)
+    randomize_zero_init(cfm.transformer, torch.Generator().manual_seed(1))
+    return InferenceEngine(cfm.cuda(), cfg, vocoder=None, dtype=torch.bfloat16,
+                           options=EngineOptions(nfe_step=32))
+
+
+@pytest.mark.parametrize("name,per_call", [("F5TTS_v1_Base", 22 * 32), ("E2TTS_Base", 24 * 32)])
+def test_engine_call_launches_rope_qkv_per_block_and_step(gen, name, per_call):
+    """A replayed engine call of the full-depth model at NFE 32 launches
+    the kernel once per block and step, in ``launch_counts()`` and in the
+    ``engine.enqueue`` span's counter ``rope_qkv.launches``."""
+    from f5_tts_tpu_torch.ops import rope as R
+    from f5_tts_tpu_torch.utils import profiling
+
+    eng = _full_engine(name)
+    ids = [np.arange(30, dtype=np.int32) % 200]
+    mels = [np.zeros((200, 100), np.float32)]
+    eng.generate_batch(mels, ids, [400], seeds=[0], decode=False)  # captures the key
+    before = R.KERNEL.launches
+    profiling.clear()
+    profiling.enable()
+    try:
+        eng.generate_batch(mels, ids, [400], seeds=[0], decode=False)
+    finally:
+        profiling.disable()
+    assert R.KERNEL.launches - before == per_call
+    enq = [r for r in profiling.records() if r.name == "engine.enqueue"]
+    assert [r.counters.get("rope_qkv.launches") for r in enq] == [per_call]
+
+
+def test_training_step_launches_no_rope_qkv(gen):
+    """Training keeps the differentiable path: a mixed-precision step on
+    the card launches the kernel 0 times."""
+    from f5_tts_tpu_torch.models.cfm import CFM
+    from f5_tts_tpu_torch.models.configs import DiTConfig
+    from f5_tts_tpu_torch.ops import rope as R
+    from f5_tts_tpu_torch.train import step as TS
+
+    torch.manual_seed(0)
+    arch = DiTConfig(depth=2, text_dim=64, conv_layers=1)
+    model, ema = CFM(arch).cuda(), CFM(arch).cuda()
+    ema.load_state_dict(model.state_dict())
+    ocfg = TS.OptimConfig(mixed_precision=True, num_warmup_updates=1, total_updates=5)
+    opt = TS.make_optimizer(list(model.parameters()), ocfg)
+    rng = np.random.default_rng(0)
+    batch = {"mel": torch.from_numpy(rng.standard_normal((2, 256, 100)).astype(np.float32)),
+             "text_ids": torch.from_numpy(rng.integers(0, 200, (2, 40)).astype(np.int32)),
+             "lens": torch.tensor([256, 200], dtype=torch.int32)}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    before = R.KERNEL.launches
+    _, metrics = TS.train_step(model, opt, ema, 0, batch, seed=1, opt_cfg=ocfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert R.KERNEL.launches == before
